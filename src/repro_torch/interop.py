@@ -1,0 +1,75 @@
+"""Carry weights and deployment stacks across from the reference.
+
+The reference (``repro``) and the port draw different random numbers and
+round ``exp`` differently (XLA's float32 ``exp`` is not torch's), so a port
+that re-derived the folded scalars could flip codes at rounding
+boundaries. These loaders take the reference's arrays, as numpy, and copy
+them bit for bit: int8 weight codes, the folded float32 ``rescale`` /
+``alpha`` / ``s_out`` scalars, the FP embedding, BN, head and the decode
+scale. Nothing here imports the reference; callers hand over numpy arrays
+and plain objects.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .core.integer_inference import ConvertedStack, LayerSpec, to_device
+from .core.quant import QuantConfig
+from .device import DeviceLike, resolve_device
+
+
+def _tensors(x):
+    """numpy arrays / numpy scalars -> CPU tensors, recursively; python
+    ints, floats and strings (a layer's statics) stay as they are."""
+    if isinstance(x, dict):
+        return {k: _tensors(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tensors(v) for v in x)
+    if isinstance(x, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.array(x, copy=True))
+    return x
+
+
+def _qcfg(q) -> QuantConfig:
+    return QuantConfig(q.bits_w, q.bits_a, q.bits_out, q.fq)
+
+
+def _spec(s) -> LayerSpec:
+    return LayerSpec(s.name, s.relu_out, s.final, s.weight_format)
+
+
+def stack_from_numpy(layers: Dict[str, dict], extras: Dict[str, Any], qcfg,
+                     specs: Sequence, *,
+                     entry_inv_scale: Optional[np.ndarray] = None,
+                     device: DeviceLike = None) -> ConvertedStack:
+    """The reference ConvertedStack's leaves (numpy) -> the port's stack.
+
+    ``qcfg`` and ``specs`` may be the reference's objects (read by field).
+    ``entry_inv_scale`` is the reference's own e^{-s_in}; when given, the
+    entry quantizer uses it instead of recomputing it with torch.exp.
+    """
+    dev = resolve_device(device)
+    specs = [_spec(s) for s in specs]
+    for s in specs:
+        fmt = layers[s.name].get("weight_format", "int8")
+        if s.weight_format != "int8" or fmt != "int8":
+            raise NotImplementedError(
+                f"stack_from_numpy({s.name}): weight_format={fmt!r} is not "
+                "ported yet (int8 only)")
+    extras = _tensors(extras)
+    if entry_inv_scale is not None:
+        extras["entry"] = {**extras["entry"],
+                           "inv_scale": torch.from_numpy(
+                               np.array(entry_inv_scale, np.float32))}
+    stack = ConvertedStack(_qcfg(qcfg), specs, _tensors(layers), extras)
+    return stack.to(dev)
+
+
+def kws_params_from_numpy(params: Dict[str, Any], state: Dict[str, Any], *,
+                          device: DeviceLike = None):
+    """Float FQ params and BN state (numpy trees) -> tensors on ``device``."""
+    dev = resolve_device(device)
+    return to_device(_tensors(params), dev), to_device(_tensors(state), dev)

@@ -1,0 +1,102 @@
+"""K3: fused fully quantized convolution (implicit GEMM), NHWC int8.
+
+Counterpart of ``repro.kernels.fq_conv`` (Pallas). Layout contract, as in
+the reference and the im2col path:
+
+  * activations  (B, H, W, Cin) int8 codes, NHWC,
+  * weights      (kh*kw*Cin, Cout) int8 codes, tap-major (row t*Cin + c is
+                 tap (t // kw, t % kw), channel c),
+  * output       (B, Ho, Wo, Cout) int8 codes (requant) or f32 (dequant).
+
+For a CUDA tensor the wrapper launches ``csrc/fq_conv.cu``, which gathers
+each window in place with zero padding by bounds check; for a CPU tensor it
+runs the plain version, :func:`fq_conv2d_plain`. The reference's block
+picker and autotune table have no counterpart yet: the CUDA kernel's tile
+is fixed. The fused max-pool epilogue, ADC noise and packed weights are
+later slices of the port and are refused here.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .fq_matmul import check_operands
+from .ref import ref_fq_conv2d as fq_conv2d_plain
+
+_SIG = {"fq_conv2d_s8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18
+        + [ctypes.c_void_p]}
+
+
+def conv_out_size(size: int, k: int, stride: int, padding: int,
+                  dilation: int) -> int:
+    return (size + 2 * padding - (k - 1) * dilation - 1) // stride + 1
+
+
+def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
+              scale: torch.Tensor, *, kh: int, kw: int,
+              stride: Tuple[int, int] = (1, 1),
+              padding: Tuple[int, int] = (0, 0),
+              dilation: Tuple[int, int] = (1, 1),
+              pool: Optional[Tuple[int, int]] = None,
+              epilogue: str = "requant", n_out: int = 7,
+              lo: int = 0) -> torch.Tensor:
+    """Fused int8 NHWC conv2d with the requant/dequant epilogue."""
+    if pool is not None:
+        raise NotImplementedError(
+            "fq_conv2d: the fused max-pool epilogue is not ported yet")
+    b, h, w, cin = a_codes.shape
+    kcin, cout = w_codes.shape
+    if kcin != kh * kw * cin:
+        raise ValueError(f"fq_conv2d: weights {tuple(w_codes.shape)} do not "
+                         f"match kh={kh} kw={kw} cin={cin}")
+    ho = conv_out_size(h, kh, stride[0], padding[0], dilation[0])
+    wo = conv_out_size(w, kw, stride[1], padding[1], dilation[1])
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"fq_conv2d: empty output for input "
+                         f"{tuple(a_codes.shape)}, kernel ({kh}, {kw}), "
+                         f"stride {stride}, padding {padding}, dilation "
+                         f"{dilation}")
+    if a_codes.device.type == "cpu":
+        return fq_conv2d_plain(a_codes, w_codes, scale, kh=kh, kw=kw,
+                               stride=stride, padding=padding,
+                               dilation=dilation, epilogue=epilogue,
+                               n_out=n_out, lo=lo)
+    check_operands("fq_conv2d", scale, epilogue, a_codes, w_codes)
+    if a_codes.numel() >= 2 ** 31:
+        raise ValueError("fq_conv2d: the CUDA kernel indexes activations "
+                         "with 32-bit offsets (< 2^31 elements)")
+    dequant = epilogue == "dequant"
+    out = torch.empty((b, ho, wo, cout), device=a_codes.device,
+                      dtype=torch.float32 if dequant else torch.int8)
+    lib = _build.library("fq_conv", _SIG)
+    with torch.cuda.device(a_codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fq_conv2d_s8(
+            _build.ptr(a_codes), _build.ptr(w_codes), _build.ptr(scale),
+            _build.ptr(out), b, h, w, cin, cout, kh, kw, *stride, *padding,
+            *dilation, ho, wo, int(dequant), int(lo), int(n_out),
+            ctypes.c_void_p(stream))
+    _build.check(err, "fq_conv2d", lib)
+    fq_conv2d.launches += 1
+    return out
+
+
+fq_conv2d.launches = 0
+
+
+def fq_conv1d(a_codes: torch.Tensor, w_codes: torch.Tensor,
+              scale: torch.Tensor, *, ksize: int, dilation: int = 1,
+              epilogue: str = "requant", n_out: int = 7,
+              lo: int = 0) -> torch.Tensor:
+    """Fused int8 1-D conv (VALID, dilated: the paper's KWS layers).
+
+    A (ksize, 1) conv2d over a width-1 axis: conv1d's tap-major weights are
+    exactly the kw=1 conv2d layout, and the views below copy nothing.
+    """
+    y = fq_conv2d(a_codes.unsqueeze(2), w_codes, scale, kh=ksize, kw=1,
+                  dilation=(dilation, 1), epilogue=epilogue, n_out=n_out,
+                  lo=lo)
+    return y.squeeze(2)

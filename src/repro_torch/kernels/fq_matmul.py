@@ -1,0 +1,79 @@
+"""K2: fully quantized integer matmul (paper eq. 4).
+
+    w . a = (s^w s^a / n^w n^a) * sum_i w_i^int a_i^int
+
+Counterpart of ``repro.kernels.fq_matmul`` (Pallas). (M, K) int8 codes x
+(K, N) int8 codes -> int32 accumulator, then the fused epilogue
+(:func:`apply_epilogue`): ``requant`` gives the next layer's int8 codes,
+``dequant`` gives f32 values. For a CUDA tensor the wrapper launches
+``csrc/fq_matmul.cu``; for a CPU tensor it runs the plain version,
+:func:`fq_matmul_plain`. The ADC-noise epilogue and packed weight formats
+are later slices of the port.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .ref import apply_epilogue, ref_fq_matmul as fq_matmul_plain
+
+__all__ = ["apply_epilogue", "fq_matmul", "fq_matmul_plain"]
+
+_SIG = {"fq_matmul_s8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p]}
+
+
+def check_operands(what: str, scale: torch.Tensor, epilogue: str,
+                   *codes: torch.Tensor) -> None:
+    """Validate what the CUDA kernels take: contiguous int8 codes and a
+    one-element float32 scale, all on one CUDA device."""
+    dev = codes[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    for c in codes:
+        if c.dtype != torch.int8 or not c.is_contiguous() or c.device != dev:
+            raise ValueError(f"{what}: codes must be contiguous int8 on {dev}, "
+                             f"got {c.dtype} on {c.device}")
+    if (scale.device != dev or scale.dtype != torch.float32
+            or scale.numel() != 1):
+        raise ValueError(f"{what}: scale must be one float32 element on {dev}")
+    if epilogue not in ("requant", "dequant"):
+        raise ValueError(f"{what}: epilogue must be 'requant' or 'dequant', "
+                         f"got {epilogue!r}")
+
+
+def fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
+              scale: torch.Tensor, *, epilogue: str = "requant",
+              n_out: int = 7, lo: int = 0) -> torch.Tensor:
+    """int8 (M, K) x int8 (K, N) with the fused requant/dequant epilogue.
+
+    ``scale`` is the folded rescale (requant) or alpha (dequant), a
+    one-element float32 tensor on the codes' device.
+    """
+    m, k = a_codes.shape
+    k2, n = b_codes.shape
+    if k != k2:
+        raise ValueError(f"fq_matmul: {tuple(a_codes.shape)} x "
+                         f"{tuple(b_codes.shape)}")
+    if a_codes.device.type == "cpu":
+        return fq_matmul_plain(a_codes, b_codes, scale, epilogue=epilogue,
+                               n_out=n_out, lo=lo)
+    check_operands("fq_matmul", scale, epilogue, a_codes, b_codes)
+    dequant = epilogue == "dequant"
+    out = torch.empty((m, n), device=a_codes.device,
+                      dtype=torch.float32 if dequant else torch.int8)
+    lib = _build.library("fq_matmul", _SIG)
+    with torch.cuda.device(a_codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fq_matmul_s8(
+            _build.ptr(a_codes), _build.ptr(b_codes), _build.ptr(scale),
+            _build.ptr(out), m, n, k, int(dequant), int(lo), int(n_out),
+            ctypes.c_void_p(stream))
+    _build.check(err, "fq_matmul", lib)
+    fq_matmul.launches += 1
+    return out
+
+
+fq_matmul.launches = 0

@@ -1,0 +1,140 @@
+"""Integer ops behind one dispatch point (counterpart of ``repro.kernels.ops``).
+
+  * rescale/alpha folding (paper eq. 4's scalar factor),
+  * ``int_matmul`` / ``quantize_to_codes`` over the K2 / K1 kernels,
+  * FQ conv1d/conv2d with two implementations: ``"fused"`` is the implicit
+    GEMM kernel K3, ``"im2col"`` builds patches and runs K2 (the parity
+    oracle, as in the reference). Unset means fused on CUDA and im2col on
+    the CPU.
+
+Noise and packed weight formats are later slices of the port; they are
+refused here, on every device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..core.quant import n_levels
+from .fq_conv import conv_out_size, fq_conv1d, fq_conv2d
+from .fq_matmul import fq_matmul
+from .quantize import quantize_codes
+
+
+def refuse_unported(what: str, *, weight_format: str = "int8",
+                    noise=None) -> None:
+    """Raise for the options whose kernels are not ported yet."""
+    if weight_format != "int8":
+        raise NotImplementedError(
+            f"{what}: weight_format={weight_format!r} is not ported yet "
+            "(int8 only)")
+    if noise is not None:
+        raise NotImplementedError(f"{what}: the noise model is not ported yet")
+
+
+def conv_impl(explicit: Optional[str] = None,
+              device: Optional[torch.device] = None) -> str:
+    """"fused" or "im2col"; unset picks fused on CUDA, im2col elsewhere."""
+    if explicit not in (None, "fused", "im2col"):
+        raise ValueError(f"impl must be 'fused', 'im2col' or unset, got "
+                         f"{explicit!r}")
+    if explicit is not None:
+        return explicit
+    return "fused" if device is not None and device.type == "cuda" else "im2col"
+
+
+def fold_rescale(s_a, s_w, s_out, *, bits_a: int, bits_w: int, bits_out: int):
+    """rescale = e^(s_a + s_w - s_out) * n_out / (n_a * n_w), one scalar."""
+    n_a, n_w, n_o = (n_levels(b) for b in (bits_a, bits_w, bits_out))
+    return torch.exp(s_a + s_w - s_out) * (n_o / (n_a * n_w))
+
+
+def fold_alpha(s_a, s_w, *, bits_a: int, bits_w: int):
+    """alpha = e^(s_a + s_w) / (n_a n_w): int32 accumulator -> real value."""
+    n_a, n_w = n_levels(bits_a), n_levels(bits_w)
+    return torch.exp(s_a + s_w) / (n_a * n_w)
+
+
+def int_matmul(a_codes, b_codes, scale, *, epilogue="requant", n_out=7, lo=0,
+               noise_sigma_acc=None, weight_format="int8"):
+    refuse_unported("int_matmul", weight_format=weight_format,
+                    noise=noise_sigma_acc)
+    return fq_matmul(a_codes, b_codes, scale, epilogue=epilogue, n_out=n_out,
+                     lo=lo)
+
+
+def quantize_to_codes(x, s, *, bits: int, b: float, inv_scale=None):
+    """Float activations -> int8 codes through K1.
+
+    ``inv_scale`` is e^{-s} when the caller carries it (a converted stack
+    does); otherwise it is computed here with ``torch.exp``.
+    """
+    if inv_scale is None:
+        inv_scale = torch.exp(-s)
+    flat = x.reshape(-1, x.shape[-1])
+    codes = quantize_codes(flat, inv_scale, n=n_levels(bits), b=b)
+    return codes.reshape(x.shape)
+
+
+def _im2col_1d(x, ksize: int, dilation: int):
+    """(B, T, C) -> (B, T_out, ksize*C); valid padding (paper's KWS net)."""
+    t_out = x.shape[1] - dilation * (ksize - 1)
+    cols = [x[:, i * dilation: i * dilation + t_out, :] for i in range(ksize)]
+    return torch.cat(cols, dim=-1), t_out
+
+
+def _im2col_2d(x, ksize: int, stride: int, padding: int, dilation: int = 1):
+    """(B, H, W, C) -> (B, Ho, Wo, ksize*ksize*C), tap-major, zero padding."""
+    if padding:
+        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    h, w = x.shape[1], x.shape[2]
+    ho = conv_out_size(h, ksize, stride, 0, dilation)
+    wo = conv_out_size(w, ksize, stride, 0, dilation)
+    cols = []
+    for di in range(ksize):
+        for dj in range(ksize):
+            oi, oj = di * dilation, dj * dilation
+            cols.append(x[:, oi: oi + (ho - 1) * stride + 1: stride,
+                          oj: oj + (wo - 1) * stride + 1: stride, :])
+    return torch.cat(cols, dim=-1), ho, wo
+
+
+def fq_conv1d_int(a_codes, w_codes, scale, *, ksize: int, dilation: int = 1,
+                  epilogue="requant", n_out=7, lo=0, impl=None,
+                  noise_sigma_acc=None, weight_format="int8"):
+    """int8 1-D convolution (B, T, Cin) -> (B, T_out, Cout), VALID, dilated.
+
+    w_codes: (ksize*Cin, Cout) int8, tap-major.
+    """
+    refuse_unported("fq_conv1d_int", weight_format=weight_format,
+                    noise=noise_sigma_acc)
+    if conv_impl(impl, a_codes.device) == "fused":
+        return fq_conv1d(a_codes, w_codes, scale, ksize=ksize,
+                         dilation=dilation, epilogue=epilogue, n_out=n_out,
+                         lo=lo)
+    b = a_codes.shape[0]
+    patches, t_out = _im2col_1d(a_codes, ksize, dilation)
+    y = fq_matmul(patches.reshape(b * t_out, -1), w_codes, scale,
+                  epilogue=epilogue, n_out=n_out, lo=lo)
+    return y.reshape(b, t_out, -1)
+
+
+def fq_conv2d_int(a_codes, w_codes, scale, *, ksize: int, stride: int = 1,
+                  padding: int = 0, dilation: int = 1, epilogue="requant",
+                  n_out=7, lo=0, impl=None, noise_sigma_acc=None,
+                  weight_format="int8"):
+    """int8 2-D convolution (NHWC); w_codes (ksize*ksize*Cin, Cout) int8."""
+    refuse_unported("fq_conv2d_int", weight_format=weight_format,
+                    noise=noise_sigma_acc)
+    if conv_impl(impl, a_codes.device) == "fused":
+        return fq_conv2d(a_codes, w_codes, scale, kh=ksize, kw=ksize,
+                         stride=(stride, stride), padding=(padding, padding),
+                         dilation=(dilation, dilation), epilogue=epilogue,
+                         n_out=n_out, lo=lo)
+    b = a_codes.shape[0]
+    patches, ho, wo = _im2col_2d(a_codes, ksize, stride, padding, dilation)
+    y = fq_matmul(patches.reshape(b * ho * wo, -1), w_codes, scale,
+                  epilogue=epilogue, n_out=n_out, lo=lo)
+    return y.reshape(b, ho, wo, -1)

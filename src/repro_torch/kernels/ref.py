@@ -1,0 +1,86 @@
+"""Plain PyTorch versions of the kernels (counterpart of ``repro.kernels.ref``).
+
+Each function repeats its kernel's arithmetic with ordinary tensor ops. The
+kernel wrappers use them for CPU tensors, and the tests and ``chip_smoke.py``
+hold the CUDA kernels against them on the card. They are no yardstick of
+speed.
+
+Integer products run in float64 and are cast back to int32: CUDA has no
+int32 ``torch.matmul``, and the float64 sum is exact in any order because
+|acc| <= 127 * 127 * K < 2^53 for every K this package meets.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def apply_epilogue(acc: torch.Tensor, scale: torch.Tensor, *, epilogue: str,
+                   n_out: int, lo: int) -> torch.Tensor:
+    """The requant/dequant "ADC" epilogue on an int32 accumulator.
+
+    requant: clip(round(f32(acc) * scale), lo, n_out) -> int8, round half to
+    even; dequant: f32(acc) * scale -> f32.
+    """
+    accf = acc.to(torch.float32) * scale
+    if epilogue == "requant":
+        return torch.clamp(torch.round(accf), lo, n_out).to(torch.int8)
+    if epilogue == "dequant":
+        return accf
+    raise ValueError(f"epilogue must be 'requant' or 'dequant', got "
+                     f"{epilogue!r}")
+
+
+def int_accumulate(a_codes: torch.Tensor, b_codes: torch.Tensor) -> torch.Tensor:
+    """(M, K) x (K, N) integer codes -> exact int32 accumulator."""
+    acc = torch.matmul(a_codes.to(torch.float64), b_codes.to(torch.float64))
+    return acc.to(torch.int32)
+
+
+def ref_fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
+                  scale: torch.Tensor, *, epilogue: str = "requant",
+                  n_out: int = 7, lo: int = 0) -> torch.Tensor:
+    """int8 (M, K) x int8 (K, N) -> int32, then the fused epilogue."""
+    return apply_epilogue(int_accumulate(a_codes, b_codes), scale,
+                          epilogue=epilogue, n_out=n_out, lo=lo)
+
+
+def ref_quantize_codes(x: torch.Tensor, inv_scale: torch.Tensor, *, n: int,
+                       b: float) -> torch.Tensor:
+    """codes = round(clip(x * inv_scale, b, 1) * n) -> int8."""
+    u = x.to(torch.float32) * inv_scale
+    return torch.round(torch.clamp(u, b, 1.0) * n).to(torch.int8)
+
+
+def ref_fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
+                  scale: torch.Tensor, *, kh: int, kw: int,
+                  stride: Tuple[int, int] = (1, 1),
+                  padding: Tuple[int, int] = (0, 0),
+                  dilation: Tuple[int, int] = (1, 1),
+                  epilogue: str = "requant", n_out: int = 7,
+                  lo: int = 0) -> torch.Tensor:
+    """NHWC int8 conv as a sum over taps of window @ tap weights.
+
+    a_codes (B, H, W, Cin); w_codes (kh*kw*Cin, Cout), tap-major (row
+    t*Cin + c is tap (t // kw, t % kw), channel c); zero padding.
+    """
+    b, h, w, cin = a_codes.shape
+    cout = w_codes.shape[1]
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    x = F.pad(a_codes.to(torch.float64), (0, 0, pw, pw, ph, ph))
+    ho = (h + 2 * ph - (kh - 1) * dh - 1) // sh + 1
+    wo = (w + 2 * pw - (kw - 1) * dw - 1) // sw + 1
+    wf = w_codes.to(torch.float64)
+    acc = torch.zeros(b * ho * wo, cout, dtype=torch.float64,
+                      device=a_codes.device)
+    for th in range(kh):
+        for tw in range(kw):
+            t = th * kw + tw
+            win = x[:, th * dh: th * dh + (ho - 1) * sh + 1: sh,
+                    tw * dw: tw * dw + (wo - 1) * sw + 1: sw, :]
+            acc += win.reshape(-1, cin) @ wf[t * cin:(t + 1) * cin]
+    y = apply_epilogue(acc.to(torch.int32), scale, epilogue=epilogue,
+                       n_out=n_out, lo=lo)
+    return y.reshape(b, ho, wo, cout)

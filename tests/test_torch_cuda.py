@@ -1,0 +1,163 @@
+"""The CUDA kernels of repro_torch against their plain versions, on the card.
+
+Every test here is marked ``cuda`` and skips on a machine without a CUDA
+device. This file imports only torch, numpy and the port, so it also runs
+where JAX is not installed; there, skip the repo's conftest (which imports
+JAX) and run
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+The plain versions themselves are held against the JAX reference on the CPU
+in ``test_torch_kernels.py`` and ``test_torch_kws.py``; here each kernel
+must match its plain version bit for bit on the same CUDA inputs.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import integer_inference as tii
+from repro_torch.core.quant import QuantConfig
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.fq_conv import fq_conv2d
+from repro_torch.kernels.fq_matmul import fq_matmul
+from repro_torch.kernels.quantize import quantize_codes
+from repro_torch.models import kws as tkws
+
+pytestmark = pytest.mark.cuda
+
+MATMUL_SHAPES = [(37, 13, 5), (130, 257, 129), (1, 64, 64), (64, 64, 64),
+                 (4 * 138, 300, 45), (4 * 12, 135, 45)]
+KWS_LAYERS = [(140, 100, 1), (138, 45, 1), (136, 45, 2), (132, 45, 4),
+              (124, 45, 8), (108, 45, 16), (76, 45, 32)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _codes(rng, shape, lo, hi, dev):
+    return torch.from_numpy(rng.integers(lo, hi + 1, size=shape).astype(
+        np.int8)).to(dev)
+
+
+@pytest.mark.parametrize("rows,cols", [(140, 100), (64 * 140, 100), (7, 3)])
+def test_quantize_codes_matches_plain(cuda, rows, cols):
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy((rng.standard_normal((rows, cols)) * 2).astype(
+        np.float32)).to(cuda)
+    inv = torch.tensor(np.float32(0.7), device=cuda)
+    before = quantize_codes.launches
+    got = quantize_codes(x, inv, n=7, b=0.0)
+    torch.cuda.synchronize()
+    assert quantize_codes.launches == before + 1
+    assert torch.equal(got, tref.ref_quantize_codes(x, inv, n=7, b=0.0))
+
+
+def _half_lsb_ties(n: int) -> np.ndarray:
+    """float32 u with f32(u * n) exactly k + 0.5 for every level k."""
+    out = []
+    for k in range(-n, n):
+        target = np.float32(k + 0.5)
+        u = np.float32(target / np.float32(n))
+        for _ in range(8):
+            if np.float32(u * np.float32(n)) == target:
+                out.append(u)
+                break
+            u = np.nextafter(u, np.float32(np.inf) if u * n < target
+                             else np.float32(-np.inf), dtype=np.float32)
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_quantize_codes_half_lsb_ties(cuda, bits):
+    """rint, not roundf: a code exactly on k + 0.5 goes to the even one."""
+    n = 2 ** (bits - 1) - 1
+    u = _half_lsb_ties(n)
+    assert len(u) == 2 * n
+    x = torch.from_numpy(u).reshape(1, -1).to(cuda)
+    inv = torch.tensor(1.0, device=cuda)
+    got = quantize_codes(x, inv, n=n, b=-1.0)
+    assert torch.equal(got, tref.ref_quantize_codes(x, inv, n=n, b=-1.0))
+    assert (got.cpu().to(torch.int32) % 2 == 0).all()
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+@pytest.mark.parametrize("epilogue,lo", [("requant", 0), ("requant", -7),
+                                         ("dequant", 0)])
+def test_fq_matmul_matches_plain(cuda, m, k, n, epilogue, lo):
+    rng = np.random.default_rng(m + k + n)
+    a = _codes(rng, (m, k), -127, 127, cuda)
+    b = _codes(rng, (k, n), -127, 127, cuda)
+    s = torch.tensor(np.float32(1e-3), device=cuda)
+    kw = dict(epilogue=epilogue, n_out=7, lo=lo)
+    got = fq_matmul(a, b, s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.ref_fq_matmul(a, b, s, **kw))
+
+
+def test_int_accumulate_exact_on_the_card(cuda):
+    rng = np.random.default_rng(3)
+    a = _codes(rng, (64, 2048), -127, 127, cuda)
+    b = _codes(rng, (2048, 32), -127, 127, cuda)
+    want = a.cpu().to(torch.int32) @ b.cpu().to(torch.int32)
+    assert torch.equal(tref.int_accumulate(a, b).cpu(), want)
+
+
+@pytest.mark.parametrize("ksize,stride,padding,dilation", [
+    (3, 2, 1, 1), (3, 1, 1, 2), (3, 2, 1, 2), (1, 1, 0, 1)])
+@pytest.mark.parametrize("epilogue", ["requant", "dequant"])
+def test_fq_conv2d_matches_plain(cuda, ksize, stride, padding, dilation,
+                                 epilogue):
+    rng = np.random.default_rng(ksize + stride + dilation)
+    a = _codes(rng, (3, 17, 13, 70), 0, 15, cuda)
+    w = _codes(rng, (ksize * ksize * 70, 67), -7, 7, cuda)
+    s = torch.tensor(np.float32(0.011), device=cuda)
+    kw = dict(kh=ksize, kw=ksize, stride=(stride, stride),
+              padding=(padding, padding), dilation=(dilation, dilation),
+              epilogue=epilogue, n_out=15, lo=0)
+    got = fq_conv2d(a, w, s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.ref_fq_conv2d(a, w, s, **kw))
+
+
+@pytest.mark.parametrize("t,cin,dil", KWS_LAYERS)
+def test_kws_conv_fused_equals_im2col(cuda, t, cin, dil):
+    rng = np.random.default_rng(t + dil)
+    a = _codes(rng, (8, t, cin), 0, 7, cuda)
+    w = _codes(rng, (3 * cin, 45), -1, 1, cuda)
+    s = torch.tensor(np.float32(0.0213), device=cuda)
+    kw = dict(ksize=3, dilation=dil, n_out=7, lo=0)
+    fused = tops.fq_conv1d_int(a, w, s, impl="fused", **kw)
+    im2col = tops.fq_conv1d_int(a, w, s, impl="im2col", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, im2col)
+    assert torch.equal(fused.cpu(), tops.fq_conv1d_int(
+        a.cpu(), w.cpu(), s.cpu(), impl="fused", **kw))
+
+
+def test_kws_serving_on_the_card(cuda):
+    """The port's own full-width stack: GPU int_core == CPU int_core given
+    the same entry codes; fused and im2col logits identical."""
+    cfg, qcfg = tkws.KWSConfig(), QuantConfig(2, 4, 4, fq=True)
+    params, state = tkws.init(torch.Generator().manual_seed(0), cfg)
+    params = tkws.to_fq(params, state, cfg)
+    names = tkws.conv_names(cfg)
+    for n in names:
+        params[n] = {**params[n], "s_out": torch.tensor(0.1, device=cuda)}
+    stack = tkws.convert_int(tii.sync_handoff(params, names), state, qcfg,
+                             cfg)
+    assert stack.device.type == "cuda"
+    x = np.random.default_rng(1).standard_normal(
+        (4, cfg.seq_len, cfg.n_mfcc)).astype(np.float32)
+    fused = tkws.int_serve_fn(stack, qcfg, cfg, impl="fused")(x)
+    im2col = tkws.int_serve_fn(stack, qcfg, cfg, impl="im2col")(x)
+    assert torch.equal(fused, im2col) and torch.isfinite(fused).all()
+    codes = torch.randint(0, 8, (4, cfg.seq_len, cfg.embed), dtype=torch.int8,
+                          generator=torch.Generator().manual_seed(2))
+    gpu = tkws.int_core(stack, codes.to(cuda), qcfg, cfg)
+    cpu = tkws.int_core(stack.to("cpu"), codes, qcfg, cfg)
+    assert torch.equal(gpu.cpu(), cpu)

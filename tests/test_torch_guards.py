@@ -1,0 +1,115 @@
+"""Boundary guards of the port.
+
+* ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
+  package ``repro``: checked in a fresh interpreter and by a source scan.
+* Entry points run on CUDA unless ``device="cpu"`` is passed, and raise
+  when there is no CUDA device.
+* ``chip_smoke.py`` fails, and never reports success, on a machine without
+  a CUDA device and in a directory that holds nothing else of the repo.
+"""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import interop
+from repro_torch.core.quant import QuantConfig
+from repro_torch.models import kws as tkws
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax_or_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        bad += [m for m in mods if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_and_reference_unloaded():
+    code = ("import sys, repro_torch.models.kws, repro_torch.interop, "
+            "repro_torch.kernels.ops\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.resolve_device()
+    with pytest.raises(RuntimeError):
+        repro_torch.resolve_device("cuda")
+    assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+    assert not repro_torch.has_cuda()
+
+
+def test_resolve_device_rejects_other_backends():
+    with pytest.raises(ValueError):
+        repro_torch.resolve_device("meta")
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    cfg = tkws.KWSConfig.reduced()
+    with pytest.raises(RuntimeError):
+        tkws.init(torch.Generator().manual_seed(0), cfg)
+    params, state = tkws.init(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    assert params["conv0"]["w"].device.type == "cpu"
+    np_params = {"conv0": {"w": np.zeros((3, 2, 2), np.float32)}}
+    with pytest.raises(RuntimeError):
+        interop.kws_params_from_numpy(np_params, {})
+    p, _ = interop.kws_params_from_numpy(np_params, {}, device="cpu")
+    assert p["conv0"]["w"].device.type == "cpu"
+    with pytest.raises(RuntimeError):
+        interop.stack_from_numpy({}, {}, QuantConfig(2, 4, 4, True), [])
+
+
+def _run_smoke(cwd, script, env_extra=None):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", **(env_extra or {})}
+    return subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_cuda():
+    r = _run_smoke(ROOT, ROOT / "chip_smoke.py")
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    r = _run_smoke(tmp_path, lone)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout

@@ -1,0 +1,262 @@
+"""K1-K3 of repro_torch against the JAX package's kernels and oracles.
+
+Inputs are made with numpy from fixed seeds and handed to both packages.
+The JAX side runs as its own tests run it on the CPU: the Pallas kernels in
+interpret mode, plus the pure-jnp oracles in ``repro.kernels.ref``. Convs
+are held against ``repro.kernels.ops.fq_conv*_int(impl="im2col")``, the
+reference's declared parity oracle (its fused Pallas conv does not trace on
+current jax). The port runs on ``device="cpu"``, where each wrapper takes
+its plain PyTorch version. Every compare is bit-exact: int8 codes, and f32
+dequant values, which are one float32 product of the same int32 and scale.
+
+The CUDA kernels are held against these plain versions on the card in
+``test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.fq_matmul import fq_matmul as j_fq_matmul
+from repro.kernels.quantize import quantize_codes as j_quantize_codes
+from repro_torch import kernels as tkernels
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.fq_conv import fq_conv1d, fq_conv2d
+from repro_torch.kernels.fq_matmul import fq_matmul
+from repro_torch.kernels.quantize import quantize_codes
+
+KWS_DILATIONS = (1, 1, 2, 4, 8, 16, 32)
+
+
+def _codes(rng, shape, lo, hi):
+    return rng.integers(lo, hi + 1, size=shape).astype(np.int8)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+# ---------------------------------------------------------------------------
+# K1 quantize_codes
+# ---------------------------------------------------------------------------
+
+
+def _half_lsb_ties(n: int) -> np.ndarray:
+    """float32 u with f32(u * n) exactly k + 0.5 for every level k."""
+    out = []
+    for k in range(-n, n):
+        target = np.float32(k + 0.5)
+        u = np.float32(target / np.float32(n))
+        for _ in range(8):
+            if np.float32(u * np.float32(n)) == target:
+                out.append(u)
+                break
+            u = np.nextafter(u, np.float32(np.inf) if u * n < target
+                             else np.float32(-np.inf), dtype=np.float32)
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("rows,cols", [(8, 16), (300, 39), (4 * 140, 100)])
+@pytest.mark.parametrize("bits,b", [(4, 0.0), (8, -1.0), (2, -1.0)])
+def test_quantize_codes_bit_exact(rows, cols, bits, b):
+    n = 2 ** (bits - 1) - 1
+    rng = np.random.default_rng(rows * 31 + cols + bits)
+    x = (rng.standard_normal((rows, cols)) * 2).astype(np.float32)
+    s = np.float32(0.43)
+    inv = np.asarray(jnp.exp(-jnp.float32(s)))
+    want_k = np.asarray(j_quantize_codes(jnp.asarray(x), jnp.asarray(inv),
+                                         n=n, b=b, interpret=True))
+    want_r = np.asarray(jref.ref_quantize_codes(jnp.asarray(x),
+                                                jnp.asarray(inv), n=n, b=b))
+    got = quantize_codes(_t(x), _t(inv), n=n, b=b)
+    assert got.dtype == torch.int8 and got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), want_k)
+    np.testing.assert_array_equal(got.numpy(), want_r)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 5, 8])
+@pytest.mark.parametrize("inv", [1.0, 0.5])
+def test_quantize_codes_half_lsb_ties(bits, inv):
+    """Values exactly on a half LSB round half to even, as jnp.round."""
+    n = 2 ** (bits - 1) - 1
+    u = _half_lsb_ties(n)
+    assert len(u) == 2 * n
+    x = (u / np.float32(inv)).astype(np.float32).reshape(1, -1)
+    inv32 = np.float32(inv)
+    want = np.asarray(j_quantize_codes(jnp.asarray(x), jnp.float32(inv32),
+                                       n=n, b=-1.0, interpret=True))
+    got = quantize_codes(_t(x), torch.tensor(inv32), n=n, b=-1.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy().astype(int) % 2 == 0).all()  # ties went to even
+
+
+# ---------------------------------------------------------------------------
+# K2 fq_matmul
+# ---------------------------------------------------------------------------
+
+
+MATMUL_SHAPES = [(37, 13, 5), (130, 257, 129), (1, 64, 64), (64, 64, 64),
+                 (4 * 138, 300, 45), (4 * 12, 135, 45)]
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+@pytest.mark.parametrize("epilogue,lo", [("requant", 0), ("requant", -7),
+                                         ("dequant", 0)])
+def test_fq_matmul_bit_exact(m, k, n, epilogue, lo):
+    rng = np.random.default_rng(m * 7 + k * 3 + n)
+    a = _codes(rng, (m, k), 0, 7)
+    b = _codes(rng, (k, n), -1, 1)
+    scale = np.float32(0.0371)
+    kw = dict(epilogue=epilogue, n_out=7, lo=lo)
+    want_k = np.asarray(j_fq_matmul(jnp.asarray(a), jnp.asarray(b),
+                                    jnp.float32(scale), interpret=True, **kw))
+    want_r = np.asarray(jref.ref_fq_matmul(jnp.asarray(a), jnp.asarray(b),
+                                           jnp.float32(scale), **kw))
+    got = fq_matmul(_t(a), _t(b), torch.tensor(scale), **kw)
+    assert got.dtype == (torch.int8 if epilogue == "requant"
+                         else torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want_k)
+    np.testing.assert_array_equal(got.numpy(), want_r)
+
+
+@pytest.mark.parametrize("lo", [0, -15])
+def test_fq_matmul_epilogue_ties_and_clip(lo):
+    """scale 0.5 on odd accumulators puts every output on a half: round
+    half to even and the clip to [lo, n_out] must match the reference."""
+    rng = np.random.default_rng(5)
+    a = _codes(rng, (96, 77), -15, 15)
+    b = _codes(rng, (77, 33), -7, 7)
+    scale = np.float32(0.5)
+    kw = dict(epilogue="requant", n_out=15, lo=lo)
+    want = np.asarray(j_fq_matmul(jnp.asarray(a), jnp.asarray(b),
+                                  jnp.float32(scale), interpret=True, **kw))
+    got = fq_matmul(_t(a), _t(b), torch.tensor(scale), **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    acc = a.astype(np.int64) @ b.astype(np.int64)
+    assert (acc % 2 == 1).any() and (np.abs(acc) > 2 * 15).any()
+
+
+def test_int_accumulate_exact_at_int8_extremes():
+    rng = np.random.default_rng(3)
+    a = _codes(rng, (64, 2048), -127, 127)
+    b = _codes(rng, (2048, 32), -127, 127)
+    acc = tref.int_accumulate(_t(a), _t(b))
+    assert acc.dtype == torch.int32
+    np.testing.assert_array_equal(acc.numpy(),
+                                  a.astype(np.int64) @ b.astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# K3 fq_conv (fused) and the im2col impl
+# ---------------------------------------------------------------------------
+
+
+def _kws_layer_shapes():
+    """(t_in, cin, dilation) of the seven full-width KWS layers."""
+    t, cin, out = 140, 100, []
+    for d in KWS_DILATIONS:
+        out.append((t, cin, d))
+        t, cin = t - 2 * d, 45
+    return out
+
+
+@pytest.mark.parametrize("t,cin,dil", _kws_layer_shapes())
+def test_fq_conv1d_kws_layers_bit_exact(t, cin, dil):
+    rng = np.random.default_rng(t * 10 + dil)
+    a = _codes(rng, (2, t, cin), 0, 7)
+    w = _codes(rng, (3 * cin, 45), -1, 1)
+    scale = np.float32(0.0213)
+    want = np.asarray(jops.fq_conv1d_int(
+        jnp.asarray(a), jnp.asarray(w), jnp.float32(scale), ksize=3,
+        dilation=dil, n_out=7, lo=0, impl="im2col"))
+    ta, tw, ts = _t(a), _t(w), torch.tensor(scale)
+    fused = tops.fq_conv1d_int(ta, tw, ts, ksize=3, dilation=dil, n_out=7,
+                               lo=0, impl="fused")
+    im2col = tops.fq_conv1d_int(ta, tw, ts, ksize=3, dilation=dil, n_out=7,
+                                lo=0, impl="im2col")
+    assert fused.shape == (2, t - 2 * dil, 45) and fused.dtype == torch.int8
+    np.testing.assert_array_equal(fused.numpy(), want)
+    np.testing.assert_array_equal(im2col.numpy(), want)
+
+
+@pytest.mark.parametrize("ksize,stride,padding,dilation", [
+    (3, 2, 1, 1), (3, 1, 1, 2), (3, 2, 1, 2), (1, 1, 0, 1), (3, 1, 0, 1)])
+@pytest.mark.parametrize("epilogue,lo", [("requant", 0), ("requant", -7),
+                                         ("dequant", 0)])
+def test_fq_conv2d_bit_exact(ksize, stride, padding, dilation, epilogue, lo):
+    rng = np.random.default_rng(ksize * 100 + stride * 10 + dilation)
+    a = _codes(rng, (2, 9, 11, 6), 0, 7)
+    w = _codes(rng, (ksize * ksize * 6, 10), -7, 7)
+    scale = np.float32(0.047)
+    kw = dict(ksize=ksize, stride=stride, padding=padding, dilation=dilation,
+              epilogue=epilogue, n_out=7, lo=lo)
+    want = np.asarray(jops.fq_conv2d_int(jnp.asarray(a), jnp.asarray(w),
+                                         jnp.float32(scale), impl="im2col",
+                                         **kw))
+    ta, tw, ts = _t(a), _t(w), torch.tensor(scale)
+    fused = tops.fq_conv2d_int(ta, tw, ts, impl="fused", **kw)
+    im2col = tops.fq_conv2d_int(ta, tw, ts, impl="im2col", **kw)
+    np.testing.assert_array_equal(fused.numpy(), want)
+    np.testing.assert_array_equal(im2col.numpy(), want)
+
+
+def test_fq_conv1d_dequant_bit_exact():
+    rng = np.random.default_rng(11)
+    a = _codes(rng, (3, 20, 5), 0, 7)
+    w = _codes(rng, (3 * 5, 4), -1, 1)
+    scale = np.float32(0.0123)
+    want = np.asarray(jops.fq_conv1d_int(
+        jnp.asarray(a), jnp.asarray(w), jnp.float32(scale), ksize=3,
+        dilation=2, epilogue="dequant", impl="im2col"))
+    got = fq_conv1d(_t(a), _t(w), torch.tensor(scale), ksize=3, dilation=2,
+                    epilogue="dequant")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch, refusals, launch counters
+# ---------------------------------------------------------------------------
+
+
+def test_conv_impl_dispatch():
+    assert tops.conv_impl(None, torch.device("cpu")) == "im2col"
+    assert tops.conv_impl(None, torch.device("cuda")) == "fused"
+    assert tops.conv_impl("fused", torch.device("cpu")) == "fused"
+    with pytest.raises(ValueError):
+        tops.conv_impl("xla")
+
+
+def test_unported_options_refused_on_cpu():
+    a = torch.zeros(2, 8, 4, dtype=torch.int8)
+    w = torch.zeros(12, 3, dtype=torch.int8)
+    s = torch.tensor(0.1)
+    with pytest.raises(NotImplementedError):
+        tops.fq_conv1d_int(a, w, s, ksize=3, weight_format="ternary")
+    with pytest.raises(NotImplementedError):
+        tops.fq_conv1d_int(a, w, s, ksize=3, noise_sigma_acc=0.5)
+    with pytest.raises(NotImplementedError):
+        tops.int_matmul(a[0], w[:4], s, weight_format="int4")
+    with pytest.raises(NotImplementedError):
+        fq_conv2d(a.unsqueeze(2), w, s, kh=3, kw=1, pool=(2, 1))
+
+
+def test_cpu_path_launches_no_kernel():
+    tkernels.reset_launch_counts()
+    a = torch.zeros(1, 8, 4, dtype=torch.int8)
+    tops.fq_conv1d_int(a, torch.zeros(12, 3, dtype=torch.int8),
+                       torch.tensor(0.1), ksize=3, impl="fused")
+    quantize_codes(torch.zeros(4, 4), torch.tensor(1.0), n=7, b=0.0)
+    assert tkernels.launch_counts() == {"quantize_codes": 0, "fq_matmul": 0,
+                                        "fq_conv2d": 0}
+
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.empty(4, 4, device="meta")
+    with pytest.raises(ValueError):
+        quantize_codes(meta, torch.tensor(1.0), n=7, b=0.0)
+    with pytest.raises(ValueError):
+        fq_matmul(meta.to(torch.int8), meta.to(torch.int8), torch.tensor(1.0))
