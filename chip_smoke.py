@@ -5,31 +5,44 @@
 
 Phases, each of which must pass:
 
-1. build: compiles the hand-written kernels K1-K3 from
+1. build: compiles the hand-written kernels K1-K3b from
    ``src/repro_torch/kernels/csrc`` with nvcc (one process per source, in
    parallel) and prints the build time and ptxas' register report;
-2. kernels: holds each kernel bit-exact against its plain PyTorch version on
-   the card at every shape the KWS serving path gives it (request batches
-   1, 8 and 64), and times kernel, plain version and, where one exists, a
-   PyTorch library call of the same work, each as the device time of one
-   call replayed from a CUDA graph;
-3. serve: builds the full-width KWS integer stack with the port's own
+2. kernels_kws: holds K1-K3 bit-exact against their plain PyTorch versions
+   on the card at every shape the KWS serving path gives them (request
+   batches 1, 8 and 64), and times kernel, plain version and, where one
+   exists, a PyTorch library call of the same work, each as the device time
+   of one call replayed from a CUDA graph;
+3. kernels_darknet: the same for K1, K2, K3 and K3b (the fused max-pool
+   epilogue) at every shape DarkNet-19's integer path gives them at
+   224 x 224 (request batches 1 and 8), plus K3b at odd off-path shapes;
+4. serve_kws: builds the full-width KWS integer stack with the port's own
    ``kws.init -> to_fq -> s_out = 0.1 -> sync_handoff -> convert_int`` from
    a seed and answers request batches of 1, 8 and 64 through
    ``kws.int_serve_fn`` with both conv impls, with every launch counter set
    to 0 just before and read just after. It checks fused == im2col, the GPU
    integer core bit-exact with the port's CPU run given the same entry
-   codes, and the logits against the CPU run.
+   codes, and the logits against the CPU run;
+5. serve_darknet: builds the full-width DarkNet-19 integer stack from a
+   seed with a live per-layer calibration (:func:`darknet_live_stack`) and
+   answers 224 x 224 request batches of 1 and 8 through
+   ``darknet.int_serve_fn`` three ways (fused: K3 + K3b; fused without pool
+   fusion: K3 + code pool; im2col: K2 + code pool), counted the same way.
+   It checks the three identical, the exact launch counts, the GPU integer
+   core against the port's CPU run, the logits against the CPU run, the
+   entry codes flipped by conv0's sum order, and that no layer's output
+   codes are all zero.
 
 It imports nothing of JAX or of the JAX package ``repro``. The second-to-
-last lines are the ``{"kernels": [...]}`` record and the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``. Without a
-CUDA device, or without the rest of the repo beside it, it exits non-zero
-and prints no result.
+last lines are the ``{"kernels": [...]}`` record (one entry per kernel and
+path) and the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+rest of the repo beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -39,10 +52,15 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-BATCHES = (1, 8, 64)
+BATCHES = (1, 8, 64)       # KWS request batches
+DN_BATCHES = (1, 8)        # DarkNet request batches
+DN_SIZE = 224              # DarkNet image side, the reference's full size
+DN_CALIB = 2               # images of the live calibration
 S_OUT = 0.1
 ATOL_LOGITS = 1e-5       # the reference's own eager-vs-jit logit tolerance
-MAX_FLIP_FRACTION = 1e-4  # entry codes flipped by FP-embedding sum order
+DN_RTOL_LOGITS = 1e-4    # x max|logit|: a float32 head over 1,024 channels
+MAX_FLIP_FRACTION = 1e-4  # entry codes flipped by FP-edge sum order
+QUANTILE = 0.99          # the live calibration's percentile
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -53,12 +71,16 @@ REPLACES = {
     "quantize_codes": "src/repro/kernels/quantize.py:25",
     "fq_matmul": "src/repro/kernels/fq_matmul.py:115",
     "fq_conv2d": "src/repro/kernels/fq_conv.py:385",
+    "fq_conv2d_pool": "src/repro/kernels/fq_conv.py:356",
 }
 SOURCES = {
     "quantize_codes": "src/repro_torch/kernels/csrc/quantize.cu",
     "fq_matmul": "src/repro_torch/kernels/csrc/fq_matmul.cu",
     "fq_conv2d": "src/repro_torch/kernels/csrc/fq_conv.cu",
+    "fq_conv2d_pool": "src/repro_torch/kernels/csrc/fq_conv.cu",
 }
+PATH_KERNELS = {"kws": ("quantize_codes", "fq_matmul", "fq_conv2d"),
+                "darknet": tuple(REPLACES)}
 
 
 def fail(msg: str) -> None:
@@ -151,6 +173,37 @@ def max_abs_err(torch, got, want) -> float:
         else 0.0
 
 
+class Rows:
+    """Parity and timing rows of one path's kernels, one per shape."""
+
+    def __init__(self, torch, path):
+        self.torch, self.path = torch, path
+        self.rows = {k: [] for k in PATH_KERNELS[path]}
+        self.extra_err = {}
+
+    def record(self, name, batch, shape, got, want, fn, plain, lib, bytes_,
+               ops, peak, layer=None):
+        torch = self.torch
+        err = max_abs_err(torch, got, want)
+        b_ms, b_by = bound(bytes_, ops, peak)
+        row = {"batch": batch, "shape": shape, "layer": layer, "err": err,
+               "ms": device_ms(torch, fn), "plain_ms": device_ms(torch, plain),
+               "library_ms": None if lib is None else device_ms(torch, lib),
+               "eager_ms": eager_ms(torch, fn), "bound_ms": b_ms,
+               "bound_by": b_by, "bytes": bytes_, "ops": ops, "peak": peak}
+        self.rows[name].append(row)
+        lib_s = ("-" if row["library_ms"] is None
+                 else f"{row['library_ms']:.5f}")
+        print(f"  {self.path:7s} {name:14s} B={batch:<3d} {str(shape):26s} "
+              f"max_abs_err={err:g} ms={row['ms']:.5f} "
+              f"plain_ms={row['plain_ms']:.5f} library_ms={lib_s} "
+              f"eager_ms={row['eager_ms']:.5f} bound_ms={b_ms:.6f} "
+              f"({b_by})", flush=True)
+        if err != 0.0:
+            raise AssertionError(f"{name} {shape}: kernel != plain version "
+                                 f"(max abs err {err})")
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -182,8 +235,8 @@ def kws_layer_shapes(cfg):
     return out
 
 
-def phase_kernels(torch, dev):
-    """Parity and timing of K1-K3 at every main-path shape."""
+def phase_kernels_kws(torch, dev):
+    """Parity and timing of K1-K3 at every KWS main-path shape."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.core.quant import n_levels
@@ -196,32 +249,12 @@ def phase_kernels(torch, dev):
     cfg = KWSConfig()
     rng = np.random.default_rng(SEED)
     n = n_levels(4)
-    rows = {k: [] for k in REPLACES}
+    out = Rows(torch, "kws")
+    record = out.record
 
     def codes(shape, lo, hi):
         return torch.from_numpy(rng.integers(lo, hi + 1, size=shape).astype(
             np.int8)).to(dev)
-
-    def record(name, batch, shape, got, want, fn, plain, lib, bytes_, ops,
-               peak):
-        err = max_abs_err(torch, got, want)
-        b_ms, b_by = bound(bytes_, ops, peak)
-        row = {"batch": batch, "shape": shape, "err": err,
-               "ms": device_ms(torch, fn), "plain_ms": device_ms(torch, plain),
-               "library_ms": None if lib is None else device_ms(torch, lib),
-               "eager_ms": eager_ms(torch, fn), "bound_ms": b_ms,
-               "bound_by": b_by, "bytes": bytes_, "ops": ops, "peak": peak}
-        rows[name].append(row)
-        lib_s = ("-" if row["library_ms"] is None
-                 else f"{row['library_ms']:.5f}")
-        print(f"  {name:14s} B={batch:<3d} {str(shape):24s} "
-              f"max_abs_err={err:g} ms={row['ms']:.5f} "
-              f"plain_ms={row['plain_ms']:.5f} library_ms={lib_s} "
-              f"eager_ms={row['eager_ms']:.5f} bound_ms={b_ms:.6f} "
-              f"({b_by})", flush=True)
-        if err != 0.0:
-            raise AssertionError(f"{name} {shape}: kernel != plain version "
-                                 f"(max abs err {err})")
 
     # the plain version's float64 accumulator is exact on the card too
     a = codes((64, 2048), -127, 127)
@@ -273,11 +306,10 @@ def phase_kernels(torch, dev):
                             for i in range(cfg.ksize)], -1).reshape(m, k)
             got = fq_matmul(pa, w, s, n_out=n, lo=0)
             want = ref.ref_fq_matmul(pa, w, s, n_out=n, lo=0)
-            int_mm_ok = m > 16 and k % 8 == 0 and nn % 8 == 0
             record("fq_matmul", batch, (m, k, nn), got, want,
                    lambda: fq_matmul(pa, w, s, n_out=n, lo=0),
                    lambda: ref.ref_fq_matmul(pa, w, s, n_out=n, lo=0),
-                   (lambda: torch._int_mm(pa, w)) if int_mm_ok else None,
+                   int_mm(torch, pa, w),
                    pa.numel() + w.numel() + m * nn + 4, ops, INT8_OPS_PER_S)
 
     # off the KWS path: the dequant epilogue, lo < 0, and a strided, padded,
@@ -302,13 +334,156 @@ def phase_kernels(torch, dev):
           flush=True)
     if max(extra) != 0.0:
         raise AssertionError("off-path kernel checks disagree with plain")
-    rows["fq_matmul"][0]["extra_err"] = max(extra[:2])
-    rows["fq_conv2d"][0]["extra_err"] = max(extra[2:])
-    return rows
+    out.extra_err = {"fq_matmul": max(extra[:2]), "fq_conv2d": max(extra[2:])}
+    return out
 
 
-def phase_serve(torch, dev):
-    """The main path: the port's KWS integer serving, both conv impls."""
+def int_mm(torch, a, b):
+    """``torch._int_mm(a, b)`` as a library yardstick of K2, or None where
+    it does not take the shape (M > 16, K and N multiples of 8)."""
+    m, k = a.shape
+    if m <= 16 or k % 8 or b.shape[1] % 8:
+        return None
+    return lambda: torch._int_mm(a, b)
+
+
+def darknet_int_layers(cfg, size):
+    """(name, side, cin, cout, ksize, pooled) of each integer conv, in plan
+    order, for a ``size`` x ``size`` image."""
+    from repro_torch.models import darknet
+    plan = darknet.layer_plan(cfg)
+    convs = [l for l in cfg.layers if l != "M"]
+    side, out = size, []
+    for step in plan:
+        if step[0] == "pool":
+            side //= 2
+        elif step[0] == "conv":
+            ci = int(step[1][4:])
+            out.append((step[1], side, convs[ci - 1][1], convs[ci][1],
+                        step[2], step[3]))
+            if step[3]:
+                side //= 2
+    return out
+
+
+def phase_kernels_darknet(torch, dev):
+    """Parity and timing of K1, K2, K3 and K3b at every shape of DarkNet-19's
+    integer path at 224 x 224, plus K3b at odd off-path shapes."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.core.quant import n_levels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fq_conv import fq_conv2d
+    from repro_torch.kernels.fq_matmul import fq_matmul
+    from repro_torch.kernels.quantize import quantize_codes
+    from repro_torch.models.darknet import DarkNetConfig
+
+    cfg = DarkNetConfig()
+    rng = np.random.default_rng(SEED + 2)
+    n = n_levels(4)
+    out = Rows(torch, "darknet")
+    record = out.record
+
+    def codes(shape, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi + 1, size=shape).astype(
+            np.int8)).to(dev)
+
+    layers = darknet_int_layers(cfg, DN_SIZE)
+    entry_side, entry_c = layers[0][1], layers[0][2]
+    for batch in DN_BATCHES:
+        x = torch.from_numpy((rng.standard_normal(
+            (batch * entry_side * entry_side, entry_c)) * 1.5).astype(
+                np.float32)).to(dev)
+        inv = torch.tensor(np.float32(0.8), device=dev)
+        record("quantize_codes", batch, tuple(x.shape),
+               quantize_codes(x, inv, n=n, b=0.0),
+               ref.ref_quantize_codes(x, inv, n=n, b=0.0),
+               lambda: quantize_codes(x, inv, n=n, b=0.0),
+               lambda: ref.ref_quantize_codes(x, inv, n=n, b=0.0), None,
+               x.numel() * 5 + 4, x.numel() * 5, FP32_OPS_PER_S)
+        for name, side, cin, cout, ks, pooled in layers:
+            a = codes((batch, side, side, cin), 0, n)
+            w = codes((ks * ks * cin, cout), -1, 1)
+            s = torch.tensor(np.float32(0.02), device=dev)
+            m, k = batch * side * side, ks * ks * cin
+            ops_ = 2 * m * k * cout
+            kw = dict(kh=ks, kw=ks, padding=(ks // 2, ks // 2), n_out=n, lo=0)
+            xf = a.float().permute(0, 3, 1, 2)
+            wf = w.float().reshape(ks, ks, cin, cout).permute(3, 2, 0, 1) \
+                .contiguous()
+            conv = (lambda xf=xf, wf=wf, ks=ks:
+                    F.conv2d(xf, wf, padding=ks // 2))
+            shape = (batch, side, side, cin, cout, ks)
+            # K3: the fused conv (every layer; 13 on the fused path)
+            record("fq_conv2d", batch, shape, fq_conv2d(a, w, s, **kw),
+                   ref.ref_fq_conv2d(a, w, s, **kw),
+                   lambda a=a, w=w, s=s, kw=kw: fq_conv2d(a, w, s, **kw),
+                   lambda a=a, w=w, s=s, kw=kw: ref.ref_fq_conv2d(a, w, s,
+                                                                  **kw),
+                   conv, a.numel() + w.numel() + m * cout + 4, ops_,
+                   INT8_OPS_PER_S, layer=name)
+            if pooled:
+                # K3b: the conv with the fused 2 x 2 max-pool epilogue
+                pk = dict(kw, pool=(2, 2))
+                record("fq_conv2d_pool", batch, shape,
+                       fq_conv2d(a, w, s, **pk), ref.ref_fq_conv2d(a, w, s,
+                                                                   **pk),
+                       lambda a=a, w=w, s=s, pk=pk: fq_conv2d(a, w, s, **pk),
+                       lambda a=a, w=w, s=s, pk=pk: ref.ref_fq_conv2d(
+                           a, w, s, **pk),
+                       lambda conv=conv: F.max_pool2d(conv(), 2),
+                       a.numel() + w.numel() + m // 4 * cout + 4, ops_,
+                       INT8_OPS_PER_S, layer=name)
+            # K2: the im2col GEMM of the same layer
+            pa = ops._im2col_2d(a, ks, 1, ks // 2)[0].reshape(m, k)
+            record("fq_matmul", batch, (m, k, cout),
+                   fq_matmul(pa, w, s, n_out=n, lo=0),
+                   ref.ref_fq_matmul(pa, w, s, n_out=n, lo=0),
+                   lambda pa=pa, w=w, s=s: fq_matmul(pa, w, s, n_out=n, lo=0),
+                   lambda pa=pa, w=w, s=s: ref.ref_fq_matmul(pa, w, s,
+                                                             n_out=n, lo=0),
+                   int_mm(torch, pa, w),
+                   pa.numel() + w.numel() + m * cout + 4, ops_,
+                   INT8_OPS_PER_S, layer=name)
+            # the same library call with the weights stored column-major
+            # (cuBLASLt's int8 tensor-core kernels take A row-major, B
+            # column-major): a measurement beside the yardstick, no check
+            lib_cm = int_mm(torch, pa, w.t().contiguous().t())
+            try:
+                cm_ms = "-" if lib_cm is None else device_ms(torch, lib_cm)
+            except RuntimeError as e:
+                cm_ms = f"not measured ({e})"
+            out.rows["fq_matmul"][-1]["library_cm_ms"] = cm_ms
+            print(f"  darknet torch._int_mm B={batch} {(m, k, cout)} with "
+                  f"column-major weights: ms="
+                  f"{cm_ms if isinstance(cm_ms, str) else f'{cm_ms:.5f}'}",
+                  flush=True)
+
+    # K3b off the path: odd Ho / Wo, pool 2 and 3 (and a non-square pool on
+    # a strided, dilated conv), requant with lo < 0 and dequant
+    x5 = codes((2, 13, 15, 40), 0, 7)
+    w5 = codes((9 * 40, 70), -7, 7)
+    s5 = torch.tensor(np.float32(0.0131), device=dev)
+    errs = []
+    for pool, stride, dil in (((2, 2), 1, 1), ((3, 3), 1, 1),
+                              ((2, 3), 2, 2)):
+        for epi, lo in (("requant", -n), ("requant", 0), ("dequant", 0)):
+            kw = dict(kh=3, kw=3, stride=(stride, stride), padding=(1, 1),
+                      dilation=(dil, dil), pool=pool, epilogue=epi, n_out=n,
+                      lo=lo)
+            errs.append(max_abs_err(torch, fq_conv2d(x5, w5, s5, **kw),
+                                    ref.ref_fq_conv2d(x5, w5, s5, **kw)))
+    torch.cuda.synchronize()
+    print(f"  off-path K3b checks (2, 13, 15, 40) -> 70, pools 2x2, 3x3, "
+          f"2x3: max_abs_err={max(errs):g}", flush=True)
+    if max(errs) != 0.0:
+        raise AssertionError("off-path K3b checks disagree with plain")
+    out.extra_err = {"fq_conv2d_pool": max(errs)}
+    return out
+
+
+def phase_serve_kws(torch, dev):
+    """The KWS path: the port's KWS integer serving, both conv impls."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.core import fq_layers as fql
@@ -334,18 +509,18 @@ def phase_serve(torch, dev):
     serve = {impl: kws.int_serve_fn(stack, qcfg, cfg, impl=impl)
              for impl in ("fused", "im2col")}
 
-    # -- the main path, counted ------------------------------------------
+    # -- the KWS path, counted --------------------------------------------
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     logits = {(b, impl): fn(requests[b]) for b in BATCHES
               for impl, fn in serve.items()}
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    print("kernels: " + " ".join(f"{k}={v}" for k, v in counts.items()),
+    print("kernels (kws): " + " ".join(f"{k}={v}" for k, v in counts.items()),
           flush=True)
     n_req, n_conv = len(BATCHES), len(names)
     expect = {"quantize_codes": 2 * n_req, "fq_matmul": n_req * n_conv,
-              "fq_conv2d": n_req * n_conv}
+              "fq_conv2d": n_req * n_conv, "fq_conv2d_pool": 0}
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
 
@@ -383,8 +558,8 @@ def phase_serve(torch, dev):
         worst_flip = float(diff[~clean].max()) if (~clean).any() else 0.0
         hist = torch.bincount(core["fused"].flatten().to(torch.int64),
                               minlength=8).tolist()
-        print(f"serve B={b}: fused == im2col (codes and logits); GPU int_core "
-              f"== CPU int_core; entry codes flipped vs CPU "
+        print(f"serve kws B={b}: fused == im2col (codes and logits); GPU "
+              f"int_core == CPU int_core; entry codes flipped vs CPU "
               f"{int(flipped.sum())}/{flipped.numel()}; max |logit diff| "
               f"{worst_clean:.3g} on {int(clean.sum())} unflipped requests, "
               f"{worst_flip:.3g} on {int((~clean).sum())} with flips; "
@@ -393,50 +568,255 @@ def phase_serve(torch, dev):
             raise AssertionError(f"B={b}: logits off the CPU run by "
                                  f"{worst_clean} > {ATOL_LOGITS}")
     frac = total_flips / total_codes
-    print(f"serve: entry codes flipped by FP-embedding sum order (cuBLAS vs "
-          f"CPU): {total_flips} of {total_codes} ({frac:.2e})", flush=True)
+    print(f"serve kws: entry codes flipped by FP-embedding sum order (cuBLAS "
+          f"vs CPU): {total_flips} of {total_codes} ({frac:.2e})", flush=True)
     if frac > MAX_FLIP_FRACTION:
         raise AssertionError(f"flip fraction {frac} > {MAX_FLIP_FRACTION}")
+    serve_timing(torch, "kws", serve, requests, (BATCHES[0], BATCHES[-1]))
+    return counts
 
-    # -- request latency (host clock around synchronised calls) ----------
-    latency = {}
-    for b in BATCHES:
+
+def serve_timing(torch, path, serve, requests, profiled):
+    """Request latency on the host clock, and the profiled device busy
+    share (a measurement, not a check)."""
+    for b in requests:
         for impl, fn in serve.items():
-            latency[(b, impl)] = eager_ms(torch, lambda: fn(requests[b]),
-                                          reps=20)
-            print(f"serve latency B={b} {impl}: {latency[(b, impl)]:.4f} ms "
-                  "per request batch (host clock, eager, synchronised)",
+            ms = eager_ms(torch, lambda: fn(requests[b]), reps=20)
+            print(f"serve {path} latency B={b} {impl}: {ms:.4f} ms per "
+                  "request batch (host clock, eager, synchronised)",
                   flush=True)
-    # -- device busy share (torch.profiler; a measurement, not a check) ---
-    for b in (BATCHES[0], BATCHES[-1]):
+    for b in profiled:
         for impl, fn in serve.items():
             try:
                 wall, busy, n_ops = device_profile(
                     torch, lambda: fn(requests[b]))
             except RuntimeError as e:
-                print(f"serve profile B={b} {impl}: not measured ({e})")
+                print(f"serve {path} profile B={b} {impl}: not measured ({e})")
                 continue
             share = f"{busy / wall:.4f}" if busy else "not measured"
-            print(f"serve profile B={b} {impl}: wall {wall:.4f} ms, device "
-                  f"busy {busy:.4f} ms per request batch, busy share {share}, "
-                  f"{n_ops:g} device ops per request (profiled)", flush=True)
-    return counts, latency
+            print(f"serve {path} profile B={b} {impl}: wall {wall:.4f} ms, "
+                  f"device busy {busy:.4f} ms per request batch, busy share "
+                  f"{share}, {n_ops:g} device ops per request (profiled)",
+                  flush=True)
 
 
-def kernels_record(rows, counts):
-    """One entry per kernel: the work of one int_apply at the largest
-    batch (K1 once, K2 and K3 once per conv layer), summed."""
+def q99_positive(torch, a):
+    """The QUANTILE-th quantile of the positive entries of ``a``, by
+    ``kthvalue`` (``torch.quantile`` refuses more than 2^24 elements)."""
+    pos = a[a > 0].flatten().float()
+    if pos.numel() == 0:
+        raise AssertionError("no positive values to calibrate on")
+    k = max(1, math.ceil(QUANTILE * pos.numel()))
+    return pos.kthvalue(k).values
+
+
+def darknet_live_stack(torch, cfg, qcfg, calib, device):
+    """The port's own DarkNet stack from seed SEED, calibrated live on the
+    float images ``calib``: init -> to_fq; conv1's s_in covers the QUANTILE
+    of the positive pre-entry activations; then per integer conv, in plan
+    order, s_out = s_in + s_w + log(q(acc > 0) / (n_a n_w)) from the exact
+    int32 accumulator of the current codes, handed off to the next layer's
+    s_in, and the layer runs to give the next codes; -> convert_int.
+
+    The uniform recipe (one s_out for every layer) leaves the full-width net
+    dead: a uniform s_out cancels out of every inner rescale, and the codes
+    are all 0 from conv12 or conv13 on.
+
+    Returns (stack, {layer: share of nonzero output codes on ``calib``}).
+    """
+    from repro_torch.core import fq_layers as fql
+    from repro_torch.core import integer_inference as ii
+    from repro_torch.core.quant import (QuantConfig, RELU_BOUND,
+                                        WEIGHT_BOUND, n_levels,
+                                        quantize_to_int)
+    from repro_torch.kernels import ops
+    from repro_torch.models import darknet
+
+    params, state = darknet.init(torch.Generator().manual_seed(SEED), cfg,
+                                 device=device)
+    params = darknet.to_fq(params, state, cfg)
+    n_a, n_w = n_levels(qcfg.bits_a), n_levels(qcfg.bits_w)
+    plan = darknet.layer_plan(cfg)
+    split = darknet._split_plan(plan)
+    h = calib.to(device)
+    for step in plan[:split]:
+        h = (fql.fq_conv2d(params["conv0"], h, QuantConfig(fq=qcfg.fq))
+             if step[0] == "fp_conv" else ops.maxpool2d(h))
+    s_in = torch.log(q99_positive(torch, h))
+    codes = ii.entry_codes(h, {"s_in": s_in}, qcfg, b_in=RELU_BOUND)
+    one = torch.ones((), dtype=torch.float32, device=device)
+    live = {}
+    for step in plan[split:]:
+        if step[0] == "pool":
+            codes = ii.int_maxpool2d(codes)
+            continue
+        _, name, ks, pooled = step
+        p = {**params[name], "s_in": s_in}
+        w_codes = quantize_to_int(p["w"], p["s_w"], bits=qcfg.bits_w,
+                                  b=WEIGHT_BOUND)
+        acc = ops.fq_conv2d_int(codes, w_codes.reshape(-1, w_codes.shape[-1])
+                                .contiguous(), one, ksize=ks,
+                                padding=ks // 2, epilogue="dequant")
+        p["s_out"] = s_in + p["s_w"] + torch.log(q99_positive(torch, acc)
+                                                 / (n_a * n_w))
+        params[name] = p
+        run = ii.int_conv2d_pool if pooled else ii.int_conv2d
+        codes = run(ii.convert_layer(p, qcfg, name=name), codes, ksize=ks,
+                    padding=ks // 2)
+        live[name] = float((codes != 0).double().mean())
+        s_in = p["s_out"]
+    return darknet.convert_int(params, state, qcfg, cfg), live
+
+
+def phase_serve_darknet(torch, dev):
+    """The DarkNet path: full-width DarkNet-19 integer serving at 224 x 224,
+    three ways."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import fq_layers as fql
+    from repro_torch.core import integer_inference as ii
+    from repro_torch.core.quant import QuantConfig, RELU_BOUND
+    from repro_torch.kernels import ops
+    from repro_torch.models import darknet
+
+    cfg = darknet.DarkNetConfig()
+    qcfg = QuantConfig(2, 4, 4, fq=True)
+    rng = np.random.default_rng(SEED + 3)
+    calib = torch.from_numpy(rng.standard_normal(
+        (DN_CALIB, DN_SIZE, DN_SIZE, cfg.in_channels)).astype(np.float32))
+    t0 = time.perf_counter()
+    stack, live = darknet_live_stack(torch, cfg, qcfg, calib, dev)
+    print(f"serve darknet: live stack from seed {SEED} calibrated on "
+          f"{DN_CALIB} images in {time.perf_counter() - t0:.1f} s; nonzero "
+          "output codes per layer on them: " + " ".join(
+              f"{k}={v:.3f}" for k, v in live.items()), flush=True)
+    stack_cpu = stack.to("cpu")
+    requests = {b: rng.standard_normal(
+        (b, DN_SIZE, DN_SIZE, cfg.in_channels)).astype(np.float32)
+        for b in DN_BATCHES}
+    ways = {"fused": dict(impl="fused"),
+            "fused_nopool": dict(impl="fused", fuse_pool=False),
+            "im2col": dict(impl="im2col")}
+    serve = {way: darknet.int_serve_fn(stack, qcfg, cfg, **kw)
+             for way, kw in ways.items()}
+
+    # -- the DarkNet path, counted ---------------------------------------
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    logits = {(b, way): fn(requests[b]) for b in DN_BATCHES
+              for way, fn in serve.items()}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print("kernels (darknet): " + " ".join(f"{k}={v}"
+                                           for k, v in counts.items()),
+          flush=True)
+    plan = darknet.layer_plan(cfg)
+    n_conv = sum(s[0] == "conv" for s in plan)
+    n_pooled = sum(s[0] == "conv" and s[3] for s in plan)
+    n_req = len(DN_BATCHES)
+    expect = {"quantize_codes": 3 * n_req, "fq_matmul": n_req * n_conv,
+              "fq_conv2d": n_req * ((n_conv - n_pooled) + n_conv),
+              "fq_conv2d_pool": n_req * n_pooled}
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != expected {expect}")
+
+    # -- checks (these launches are not counted) -------------------------
+    def entry(ip, x):
+        h = x
+        for step in plan[:darknet._split_plan(plan)]:
+            h = (fql.fq_conv2d(ip["conv0"], h, QuantConfig(fq=qcfg.fq))
+                 if step[0] == "fp_conv" else ops.maxpool2d(h))
+        return ii.entry_codes(h, ip["entry"], qcfg, b_in=RELU_BOUND)
+
+    total_flips = total_codes = 0
+    for b in DN_BATCHES:
+        lf = logits[(b, "fused")]
+        if lf.shape != (b, cfg.num_classes) or not torch.isfinite(lf).all():
+            raise AssertionError(f"B={b}: logits {tuple(lf.shape)} not finite "
+                                 "of the expected shape")
+        if not float(lf.abs().max()) > 0:
+            raise AssertionError(f"B={b}: all logits are 0")
+        for way in ways:
+            if not torch.equal(lf, logits[(b, way)]):
+                raise AssertionError(f"B={b}: {way} logits != fused")
+        x = torch.from_numpy(requests[b])
+        codes_gpu = entry(stack, x.to(dev))
+        core = {way: darknet.int_core(stack, codes_gpu, qcfg, cfg, **kw)
+                for way, kw in ways.items()}
+        for way in ways:
+            if not torch.equal(core["fused"], core[way]):
+                raise AssertionError(f"B={b}: {way} codes != fused")
+        msg = ""
+        if b == DN_BATCHES[0]:
+            t0 = time.perf_counter()
+            core_cpu = darknet.int_core(stack_cpu, codes_gpu.cpu(), qcfg, cfg)
+            if not torch.equal(core["fused"].cpu(), core_cpu):
+                raise AssertionError(f"B={b}: GPU int_core codes != CPU run")
+            msg = (f"GPU int_core == CPU int_core ({time.perf_counter() - t0:.1f}"
+                   " s on the CPU); ")
+        codes_cpu = entry(stack_cpu, x)
+        flipped = codes_gpu.cpu() != codes_cpu
+        total_flips += int(flipped.sum())
+        total_codes += flipped.numel()
+        logits_cpu = darknet.int_apply(stack_cpu, x, qcfg, cfg)
+        tol = DN_RTOL_LOGITS * float(logits_cpu.abs().max())
+        diff = (lf.cpu() - logits_cpu).abs().amax(dim=1)
+        clean = ~flipped.reshape(b, -1).any(dim=1)
+        worst_clean = float(diff[clean].max()) if clean.any() else 0.0
+        worst_flip = float(diff[~clean].max()) if (~clean).any() else 0.0
+        print(f"serve darknet B={b}: fused == fused_nopool == im2col (codes "
+              f"and logits); {msg}entry codes flipped vs CPU "
+              f"{int(flipped.sum())}/{flipped.numel()}; max |logit diff| "
+              f"{worst_clean:.3g} (limit {tol:.3g}) on {int(clean.sum())} "
+              f"unflipped requests, {worst_flip:.3g} on "
+              f"{int((~clean).sum())} with flips", flush=True)
+        if worst_clean > tol:
+            raise AssertionError(f"B={b}: logits off the CPU run by "
+                                 f"{worst_clean} > {tol}")
+    frac = total_flips / total_codes
+    print(f"serve darknet: entry codes flipped by conv0 sum order (cuDNN vs "
+          f"CPU): {total_flips} of {total_codes} ({frac:.2e})", flush=True)
+    if frac > MAX_FLIP_FRACTION:
+        raise AssertionError(f"flip fraction {frac} > {MAX_FLIP_FRACTION}")
+
+    # every layer's output codes on the largest request batch
+    codes = entry(stack, torch.from_numpy(requests[DN_BATCHES[-1]]).to(dev))
+    shares = {}
+    for step in plan[darknet._split_plan(plan):]:
+        if step[0] == "pool":
+            codes = ii.int_maxpool2d(codes)
+            continue
+        _, name, ks, pooled = step
+        run = ii.int_conv2d_pool if pooled else ii.int_conv2d
+        codes = run(stack[name], codes, ksize=ks, padding=ks // 2)
+        shares[name] = float((codes != 0).double().mean())
+    print(f"serve darknet B={DN_BATCHES[-1]}: nonzero output codes per "
+          "layer: " + " ".join(f"{k}={v:.3f}" for k, v in shares.items()),
+          flush=True)
+    dead = [k for k, v in shares.items() if v == 0.0]
+    if dead:
+        raise AssertionError(f"layers with all-zero output codes: {dead}")
+    serve_timing(torch, "darknet", serve, requests, DN_BATCHES)
+    return counts
+
+
+def kernels_record(rows, counts, batch, per_apply):
+    """One entry per kernel of one path: the work of one int_apply at
+    request batch ``batch`` (``per_apply`` picks the rows one call runs),
+    summed, with the launches of that path's counted run."""
     out = []
-    for name in REPLACES:
-        top = [r for r in rows[name] if r["batch"] == max(BATCHES)]
+    for name, all_rows in rows.rows.items():
+        top = [r for r in all_rows if r["batch"] == batch
+               and per_apply(name, r)]
         t_bytes = sum(r["bytes"] for r in top) / HBM_BYTES_PER_S
         t_ops = sum(r["ops"] / r["peak"] for r in top)
         libs = [r["library_ms"] for r in top]
         out.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": max(max(r["err"] for r in rows[name]),
-                               rows[name][0].get("extra_err", 0.0)),
+            "name": name, "path": rows.path, "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": counts[name],
+            "max_abs_err": max(max(r["err"] for r in all_rows),
+                               rows.extra_err.get(name, 0.0)),
             "ms": sum(r["ms"] for r in top),
             "plain_ms": sum(r["plain_ms"] for r in top),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -444,6 +824,7 @@ def kernels_record(rows, counts):
             "library_ms": (None if any(v is None for v in libs)
                            else sum(libs)),
             "eager_ms": sum(r["eager_ms"] for r in top),
+            "batch": batch, "calls": len(top),
         })
     return out
 
@@ -477,10 +858,15 @@ def main() -> int:
 
     failed = []
     results = {}
-    for name, phase in (("build", lambda: phase_build(torch)),
-                        ("kernels", lambda: phase_kernels(torch, dev)),
-                        ("serve", lambda: phase_serve(torch, dev))):
+    t_start = time.perf_counter()
+    for name, phase in (
+            ("build", lambda: phase_build(torch)),
+            ("kernels_kws", lambda: phase_kernels_kws(torch, dev)),
+            ("kernels_darknet", lambda: phase_kernels_darknet(torch, dev)),
+            ("serve_kws", lambda: phase_serve_kws(torch, dev)),
+            ("serve_darknet", lambda: phase_serve_darknet(torch, dev))):
         print(f"== phase {name}", flush=True)
+        t0 = time.perf_counter()
         try:
             results[name] = phase()
             torch.cuda.synchronize()
@@ -489,17 +875,31 @@ def main() -> int:
             failed.append(name)
             if name == "build":
                 break
+        print(f"== phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phases: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     if failed:
         fail(f"phases failed: {', '.join(failed)}")
 
-    counts, _ = results["serve"]
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        fail(f"kernels never launched on the main path: {missing}")
-    record = kernels_record(results["kernels"], counts)
-    print(f"kernels record: launches from the serve phase; times per "
-          f"int_apply at request batch {max(BATCHES)} (quantize_codes once, "
-          f"fq_matmul and fq_conv2d once per conv layer, summed)")
+    for path, phase in (("kws", "serve_kws"), ("darknet", "serve_darknet")):
+        counts = results[phase]
+        missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+        if missing:
+            fail(f"kernels never launched on the {path} path: {missing}")
+    record = kernels_record(results["kernels_kws"], results["serve_kws"],
+                            max(BATCHES), lambda name, r: True)
+    # int_apply(impl="fused") runs K3 on the unpooled layers and K3b on the
+    # pooled ones; impl="im2col" runs K2 on every layer
+    pooled = {r["layer"] for r in results["kernels_darknet"].rows[
+        "fq_conv2d_pool"]}
+    record += kernels_record(
+        results["kernels_darknet"], results["serve_darknet"],
+        max(DN_BATCHES),
+        lambda name, r: name != "fq_conv2d" or r["layer"] not in pooled)
+    print(f"kernels record: launches from each path's counted serve run; "
+          f"times per int_apply, KWS at request batch {max(BATCHES)}, "
+          f"DarkNet at {max(DN_BATCHES)} (quantize_codes once, fq_matmul "
+          f"once per conv, fq_conv2d once per unpooled conv and "
+          f"fq_conv2d_pool once per pooled conv, summed)")
     print(json.dumps({"kernels": record}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -7,16 +7,18 @@ from ``jax.random``, so the two give different numbers for one seed, and the
 tests carry weights across instead (``repro_torch.interop``).
 
 This slice ports the float edges of integer serving (``dense``, eval-mode
-``batchnorm``) and what a stack is built from (init, ``fold_bn``). The
-float FQ training path is a later slice.
+``batchnorm``, the float mode of ``fq_conv2d``) and what a stack is built
+from (init, ``fold_bn``). The quantized (Q / FQ) modes of the layers are
+the training slice and raise here.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
-from .quant import init_scale
+from .quant import QuantConfig, WEIGHT_BOUND, init_scale
 
 
 def he_normal(gen: torch.Generator, shape, fan_in: int) -> torch.Tensor:
@@ -31,6 +33,58 @@ def init_fq_conv1d(gen: torch.Generator, ksize: int, cin: int, cout: int):
         "s_in": torch.tensor(0.0),
         "s_out": torch.tensor(0.0),
     }
+
+
+def init_fq_conv2d(gen: torch.Generator, ksize: int, cin: int, cout: int):
+    w = he_normal(gen, (ksize, ksize, cin, cout), ksize * ksize * cin)
+    return {
+        "w": w,
+        "s_w": init_scale(w),
+        "s_in": torch.tensor(0.0),
+        "s_out": torch.tensor(0.0),
+    }
+
+
+def _same_padding(size: int, k: int, stride: int):
+    """(before, after) padding of XLA's "SAME" for one spatial axis."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def fq_conv2d(p, x, qcfg: QuantConfig, *, stride: int = 1,
+              padding: str = "SAME", b_in: float = WEIGHT_BOUND,
+              relu_out: bool = False, noise=None):
+    """NHWC 2-D convolution with HWIO weights, in the float mode only.
+
+    That is the mode of the FP edge convs of integer serving (``b_in`` and
+    ``relu_out`` only matter in the quantized modes, which raise). The conv
+    is cuDNN's, with TF32 off for its duration, as the reference leaves it
+    to XLA outside any Pallas kernel.
+    """
+    if (qcfg.bits_a is not None or qcfg.bits_w is not None
+            or (qcfg.fq and qcfg.bits_out is not None) or noise is not None):
+        raise NotImplementedError(
+            f"fq_conv2d: only the float mode is ported, got {qcfg} "
+            f"noise={noise is not None}")
+    w = p["w"].to(x.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    xc = x.permute(0, 3, 1, 2)  # NHWC -> an NCHW view in channels-last
+    if padding == "SAME":
+        (t, b), (l, r) = (_same_padding(x.shape[i + 1], w.shape[i + 2],
+                                        stride) for i in range(2))
+        if (t, l) != (b, r):
+            xc, (t, l) = F.pad(xc, (l, r, t, b)), (0, 0)
+        pad = (t, l)
+    elif padding == "VALID":
+        pad = (0, 0)
+    else:
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = F.conv2d(xc, w, stride=stride, padding=pad)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return y.permute(0, 2, 3, 1)
 
 
 def init_batchnorm(c: int):

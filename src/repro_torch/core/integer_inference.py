@@ -5,8 +5,8 @@ A trained FQ layer collapses to
 
     int8 weight codes  +  one folded rescale scalar per layer,
 
-and the conv stack runs integer-in / integer-out on the K2/K3 kernels. Only
-the final decode scale escapes to float, for the FP pooling and head.
+and the conv stack runs integer-in / integer-out on the K2/K3/K3b kernels.
+Only the final decode scale escapes to float, for the FP pooling and head.
 
 The deployment artifact is a :class:`ConvertedStack`: per-layer codes and
 folded scalars plus the float-side extras (FP edge layers, entry quantizer,
@@ -231,6 +231,41 @@ def int_conv1d_final(ip, codes, *, ksize: int, dilation: int = 1, impl=None):
                              ksize=ksize, dilation=dilation,
                              epilogue="dequant", impl=impl,
                              weight_format=ip.get("weight_format", "int8"))
+
+
+def int_conv2d(ip, codes, *, ksize: int, stride: int = 1, padding: int = 0,
+               dilation: int = 1, impl=None, noise=None):
+    ops.refuse_unported("int_conv2d", noise=noise)
+    return ops.fq_conv2d_int(codes, ip["w_codes"], ip["rescale"],
+                             ksize=ksize, stride=stride, padding=padding,
+                             dilation=dilation, n_out=ip["n_out"],
+                             lo=ip["lo"], impl=impl,
+                             weight_format=ip.get("weight_format", "int8"))
+
+
+def int_conv2d_pool(ip, codes, *, ksize: int, stride: int = 1,
+                    padding: int = 0, dilation: int = 1, pool: int = 2,
+                    impl=None, noise=None):
+    """Conv + non-overlapping max-pool as one integer op.
+
+    On the fused path the pool runs on the int32 accumulator in the conv
+    kernel's epilogue (K3b) and the unpooled codes never reach device
+    memory; the im2col path is the unfused conv + code-domain pool.
+    """
+    ops.refuse_unported("int_conv2d_pool", noise=noise)
+    return ops.fq_conv2d_pool_int(codes, ip["w_codes"], ip["rescale"],
+                                  ksize=ksize, stride=stride,
+                                  padding=padding, dilation=dilation,
+                                  pool=pool, n_out=ip["n_out"], lo=ip["lo"],
+                                  impl=impl,
+                                  weight_format=ip.get("weight_format",
+                                                       "int8"))
+
+
+def int_maxpool2d(codes, *, window: int = 2, stride: int = 2):
+    """Max-pool directly on int8 codes (NHWC): exact, because the learned
+    quantizer is monotone, so pooling commutes with requantization."""
+    return ops.maxpool2d(codes, window=window, stride=stride)
 
 
 def decode_output(codes_or_float, s_out, bits_out: Optional[int]):

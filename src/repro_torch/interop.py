@@ -5,8 +5,8 @@ round ``exp`` differently (XLA's float32 ``exp`` is not torch's), so a port
 that re-derived the folded scalars could flip codes at rounding
 boundaries. These loaders take the reference's arrays, as numpy, and copy
 them bit for bit: int8 weight codes, the folded float32 ``rescale`` /
-``alpha`` / ``s_out`` scalars, the FP embedding, BN, head and the decode
-scale. Nothing here imports the reference; callers hand over numpy arrays
+``alpha`` / ``s_out`` scalars, the float edge layers (KWS's embedding, BN
+and head; DarkNet's conv0 and head), the entry scale and the decode scale. Nothing here imports the reference; callers hand over numpy arrays
 and plain objects.
 """
 from __future__ import annotations
@@ -68,8 +68,9 @@ def stack_from_numpy(layers: Dict[str, dict], extras: Dict[str, Any], qcfg,
     return stack.to(dev)
 
 
-def kws_params_from_numpy(params: Dict[str, Any], state: Dict[str, Any], *,
-                          device: DeviceLike = None):
-    """Float FQ params and BN state (numpy trees) -> tensors on ``device``."""
+def params_from_numpy(params: Dict[str, Any], state: Dict[str, Any], *,
+                      device: DeviceLike = None):
+    """Float FQ params and BN state of any model (numpy trees) -> tensors
+    on ``device``."""
     dev = resolve_device(device)
     return to_device(_tensors(params), dev), to_device(_tensors(state), dev)

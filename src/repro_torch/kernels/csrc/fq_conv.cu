@@ -1,30 +1,108 @@
-// K3: fused fully quantized convolution (implicit GEMM), NHWC int8.
+// K3: fused fully quantized convolution (implicit GEMM), NHWC int8, and
+// K3b: the same convolution with the fused max-pool epilogue.
 //
 // Replaces repro/kernels/fq_conv.py::fq_conv2d (Pallas _kernel, its
-// pick_blocks and fq_conv1d, which is conv2d at kw = 1). Output rows are
-// (b, ho, wo) flattened, columns are output channels, and the reduction
-// runs over taps x input channels in the tap-major weight layout (row
-// t * Cin + c is tap (t / kw, t % kw), channel c). The activation at
+// pick_blocks and fq_conv1d, which is conv2d at kw = 1) and, for K3b, the
+// pool branch of that kernel's epilogue (fq_conv.py:356-375). Output rows
+// are (b, ho, wo) flattened, columns are output channels, and the
+// reduction runs over taps x input channels in the tap-major weight layout
+// (row t * Cin + c is tap (t / kw, t % kw), channel c). The activation at
 //   (b, ho * sh + th * dh - ph, wo * sw + tw * dw - pw, c)
 // is read in place, with a bounds check giving 0: there is no padded copy
 // and no patch matrix in device memory. The epilogue is K2's (the shared
 // igemm.cuh / epilogue.cuh), so fused and im2col convs stay bit-identical.
 //
+// K3b, pool = (qh, qw): the max of the int32 accumulator over
+// non-overlapping (qh, qw) windows of the conv output, floor mode, then
+// the epilogue. The epilogue is monotone for scale > 0, so this equals
+// conv -> requant -> max-pool of the codes bit for bit, and the unpooled
+// tile never reaches device memory. Two forms:
+//   * 2 x 2, DarkNet's only pool: the block's 64 GEMM rows are 16 pooled
+//     outputs x 4 window positions (row r is window r % 16 at position
+//     r / 16), so thread ty holds all four accumulators of window ty in
+//     acc[0..3][j] and the pool is three register maxes;
+//   * any other (qh, qw): the block's 64 rows are 64 pooled outputs; it
+//     runs the tile loop once per window position and keeps a running max
+//     in registers. Both do the MACs of the unpooled conv, no more.
+//
 // Bound: on the KWS path every conv is a few MFLOP over under 1 MB of
 // codes (at B = 64), a few microseconds or less at the card's peak rates:
-// launch- and latency-bound. The design reads each input byte straight
-// from its NHWC place (the im2col path writes and rereads ksize x the
-// activation bytes); each thread resolves its output rows to window
-// origins once, in registers, and its reduction column to a (tap, channel)
-// offset once per K step, so a gathered byte costs one add and a bounds
-// test. Tensor-core mma and TMA gathers are left for the PRs that make it
-// fast.
+// launch- and latency-bound. On DarkNet-19 at 224 x 224 a layer is 0.03 to
+// 0.46 GMAC per image over at most a few MB of codes: the card's int8 rate
+// bounds it. The design reads each input byte straight from its NHWC place
+// (the im2col path writes and rereads ksize^2 x the activation bytes);
+// each thread resolves its output rows to window origins once, in
+// registers, and its reduction column to a (tap, channel) offset once per
+// K step, so a gathered byte costs one add and a bounds test. The MACs are
+// __dp4a on CUDA cores: tensor-core mma, TMA gathers and a tile table per
+// shape are left for the PRs that make it fast.
+#include <climits>
+
 #include "igemm.cuh"
 
 namespace {
 
 struct ConvShape {
   int B, H, W, Cin, Cout, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo;
+};
+
+// Row maps: tile row r -> conv output pixel (b, ho, wo), or false for a row
+// past the output (it loads 0 and is never stored).
+
+// Unpooled: row m0 + r of the (b, ho, wo)-flattened output.
+struct PlainRows {
+  int m0, M, hw, Wo;
+  __device__ __forceinline__ bool operator()(int r, int& b, int& ho,
+                                             int& wo) const {
+    const int m = m0 + r;
+    if (m >= M) return false;
+    b = m / hw;
+    const int rem = m - b * hw;
+    ho = rem / Wo;
+    wo = rem - ho * Wo;
+    return true;
+  }
+};
+
+// Pooled outputs g, (b, hp, wp) flattened over (B, Ho / qh, Wo / qw); the
+// position (di, dj) inside window g picks its conv output pixel.
+struct Windows {
+  int Mp, hwp, Wp, qh, qw;
+  __device__ __forceinline__ bool pixel(int g, int di, int dj, int& b,
+                                        int& ho, int& wo) const {
+    if (g >= Mp) return false;
+    b = g / hwp;
+    const int rem = g - b * hwp;
+    const int hp = rem / Wp;
+    ho = hp * qh + di;
+    wo = (rem - hp * Wp) * qw + dj;
+    return true;
+  }
+};
+
+// 2 x 2: row r is window g0 + r % POOL2_WINDOWS at position r / POOL2_WINDOWS.
+constexpr int POOL2_WINDOWS = fq::BM / 4;
+static_assert(POOL2_WINDOWS == 16,
+              "thread ty must own rows ty + 16 i, i < 4 (igemm.cuh)");
+
+struct Pool2Rows {
+  Windows win;
+  int g0;
+  __device__ __forceinline__ bool operator()(int r, int& b, int& ho,
+                                             int& wo) const {
+    const int pos = r / POOL2_WINDOWS;
+    return win.pixel(g0 + r % POOL2_WINDOWS, pos >> 1, pos & 1, b, ho, wo);
+  }
+};
+
+// Any pool: row r is window g0 + r at this pass's position (di, dj).
+struct PassRows {
+  Windows win;
+  int g0, di, dj;
+  __device__ __forceinline__ bool operator()(int r, int& b, int& ho,
+                                             int& wo) const {
+    return win.pixel(g0 + r, di, dj, b, ho, wo);
+  }
 };
 
 // The thread's ROWS output rows, resolved once per block to window origins
@@ -37,17 +115,15 @@ struct ConvA {
   int h0[fq::ROWS];   // ho * sh - ph; far out of range for rows past M
   int w0[fq::ROWS];   // wo * sw - pw
   struct Col { int dy, dx, off; bool ok; };
+  template <class Rows>
   __device__ __forceinline__ ConvA(const int8_t* x_, const ConvShape& c,
-                                   int m0, int tid)
+                                   const Rows& rows, int tid)
       : x(x_), H(c.H), W(c.W), Cin(c.Cin), kw(c.kw), dh(c.dh), dw(c.dw),
         K(c.kh * c.kw * c.Cin) {
-    const int M = c.B * c.Ho * c.Wo, hw = c.Ho * c.Wo;
 #pragma unroll
     for (int q = 0; q < fq::ROWS; ++q) {
-      const int m = m0 + tid / fq::BK + q * fq::ROW_STEP;
-      if (m < M) {
-        const int b = m / hw, rem = m - b * hw;
-        const int ho = rem / c.Wo, wo = rem - ho * c.Wo;
+      int b = 0, ho = 0, wo = 0;
+      if (rows(tid / fq::BK + q * fq::ROW_STEP, b, ho, wo)) {
         h0[q] = ho * c.sh - c.ph;
         w0[q] = wo * c.sw - c.pw;
         off[q] = ((b * c.H + h0[q]) * c.W + w0[q]) * c.Cin;
@@ -81,9 +157,80 @@ fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int M = c.B * c.Ho * c.Wo;
   const int m0 = blockIdx.x * fq::BM, n0 = blockIdx.y * fq::BN;
   int acc[4][4] = {};
-  const ConvA load_a(x, c, m0, tid);
+  const ConvA load_a(x, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo}, tid);
   fq::mainloop(s, load_a, w, load_a.K, c.Cout, n0, tid, acc);
   fq::store<DEQUANT>(out, acc, *scale, lo, n_out, M, c.Cout, m0, n0, tid);
+}
+
+// K3b, 2 x 2: thread (tx, ty) holds rows ty + 16 i, the four positions of
+// window g0 + ty, and columns tx + 16 j.
+template <bool DEQUANT>
+__global__ void __launch_bounds__(fq::THREADS)
+fq_conv_pool2_kernel(const int8_t* __restrict__ x,
+                     const int8_t* __restrict__ w,
+                     const float* __restrict__ scale, void* __restrict__ out,
+                     ConvShape c, Windows win, int lo, int n_out) {
+  __shared__ fq::Tiles s;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int g0 = blockIdx.x * POOL2_WINDOWS, n0 = blockIdx.y * fq::BN;
+  int acc[4][4] = {};
+  const ConvA load_a(x, c, Pool2Rows{win, g0}, tid);
+  fq::mainloop(s, load_a, w, load_a.K, c.Cout, n0, tid, acc);
+  const int g = g0 + ty;
+  if (g >= win.Mp) return;
+  const float sc = *scale;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + tx + 16 * j;
+    if (n >= c.Cout) continue;
+    const int m = max(max(acc[0][j], acc[1][j]), max(acc[2][j], acc[3][j]));
+    fq::put<DEQUANT>(out, (long long)g * c.Cout + n, m, sc, lo, n_out);
+  }
+}
+
+// K3b, any (qh, qw): one tile loop per window position, running max.
+template <bool DEQUANT>
+__global__ void __launch_bounds__(fq::THREADS)
+fq_conv_pool_kernel(const int8_t* __restrict__ x,
+                    const int8_t* __restrict__ w,
+                    const float* __restrict__ scale, void* __restrict__ out,
+                    ConvShape c, Windows win, int lo, int n_out) {
+  __shared__ fq::Tiles s;
+  const int tid = threadIdx.x;
+  const int g0 = blockIdx.x * fq::BM, n0 = blockIdx.y * fq::BN;
+  int mx[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mx[i][j] = INT_MIN;
+  for (int di = 0; di < win.qh; ++di) {
+    for (int dj = 0; dj < win.qw; ++dj) {
+      int acc[4][4] = {};
+      const ConvA load_a(x, c, PassRows{win, g0, di, dj}, tid);
+      fq::mainloop(s, load_a, w, load_a.K, c.Cout, n0, tid, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mx[i][j] = max(mx[i][j], acc[i][j]);
+    }
+  }
+  fq::store<DEQUANT>(out, mx, *scale, lo, n_out, win.Mp, c.Cout, g0, n0, tid);
+}
+
+template <bool DEQUANT>
+void launch_pool(const int8_t* x, const int8_t* w, const float* scale,
+                 void* out, const ConvShape& c, const Windows& win, int lo,
+                 int n_out, cudaStream_t st) {
+  const unsigned gy = (c.Cout + fq::BN - 1) / fq::BN;
+  if (win.qh == 2 && win.qw == 2) {
+    dim3 grid((win.Mp + POOL2_WINDOWS - 1) / POOL2_WINDOWS, gy);
+    fq_conv_pool2_kernel<DEQUANT><<<grid, fq::THREADS, 0, st>>>(
+        x, w, scale, out, c, win, lo, n_out);
+  } else {
+    dim3 grid((win.Mp + fq::BM - 1) / fq::BM, gy);
+    fq_conv_pool_kernel<DEQUANT><<<grid, fq::THREADS, 0, st>>>(
+        x, w, scale, out, c, win, lo, n_out);
+  }
 }
 
 }  // namespace
@@ -106,6 +253,29 @@ extern "C" int fq_conv2d_s8(const void* x, const void* w, const void* scale,
       fq_conv_kernel<false><<<grid, fq::THREADS, 0, st>>>(
           (const int8_t*)x, (const int8_t*)w, (const float*)scale, out, c, lo,
           n_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3b: (Ho, Wo) is the conv output; the output is (B, Ho / qh, Wo / qw, Cout).
+extern "C" int fq_conv2d_pool_s8(const void* x, const void* w,
+                                 const void* scale, void* out, int B, int H,
+                                 int W, int Cin, int Cout, int kh, int kw,
+                                 int sh, int sw, int ph, int pw, int dh,
+                                 int dw, int Ho, int Wo, int qh, int qw,
+                                 int dequant, int lo, int n_out,
+                                 void* stream) {
+  const ConvShape c{B, H, W, Cin, Cout, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo};
+  const int Hp = Ho / qh, Wp = Wo / qw;
+  const Windows win{B * Hp * Wp, Hp * Wp, Wp, qh, qw};
+  if (win.Mp > 0 && Cout > 0) {
+    const int8_t *xs = (const int8_t*)x, *ws = (const int8_t*)w;
+    const float* sc = (const float*)scale;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (dequant)
+      launch_pool<true>(xs, ws, sc, out, c, win, lo, n_out, st);
+    else
+      launch_pool<false>(xs, ws, sc, out, c, win, lo, n_out, st);
   }
   return (int)cudaGetLastError();
 }

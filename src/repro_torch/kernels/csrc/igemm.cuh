@@ -90,6 +90,16 @@ __device__ __forceinline__ void mainloop(Tiles& s, const LoadA& load_a,
   }
 }
 
+// One output element through the shared epilogue: f32 or int8 at out[o].
+template <bool DEQUANT>
+__device__ __forceinline__ void put(void* __restrict__ out, long long o,
+                                    int acc, float scale, int lo, int n_out) {
+  if (DEQUANT)
+    static_cast<float*>(out)[o] = fq_dequant(acc, scale);
+  else
+    static_cast<int8_t*>(out)[o] = fq_requant(acc, scale, lo, n_out);
+}
+
 // Masked store of the thread's 4 x 4 outputs through the shared epilogue.
 template <bool DEQUANT>
 __device__ __forceinline__ void store(void* __restrict__ out,
@@ -105,11 +115,7 @@ __device__ __forceinline__ void store(void* __restrict__ out,
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
-      const long long o = (long long)m * N + n;
-      if (DEQUANT)
-        static_cast<float*>(out)[o] = fq_dequant(acc[i][j], scale);
-      else
-        static_cast<int8_t*>(out)[o] = fq_requant(acc[i][j], scale, lo, n_out);
+      put<DEQUANT>(out, (long long)m * N + n, acc[i][j], scale, lo, n_out);
     }
   }
 }

@@ -1,4 +1,5 @@
-"""K3: fused fully quantized convolution (implicit GEMM), NHWC int8.
+"""K3: fused fully quantized convolution (implicit GEMM), NHWC int8, and
+K3b: the same conv with the fused max-pool epilogue.
 
 Counterpart of ``repro.kernels.fq_conv`` (Pallas). Layout contract, as in
 the reference and the im2col path:
@@ -6,14 +7,14 @@ the reference and the im2col path:
   * activations  (B, H, W, Cin) int8 codes, NHWC,
   * weights      (kh*kw*Cin, Cout) int8 codes, tap-major (row t*Cin + c is
                  tap (t // kw, t % kw), channel c),
-  * output       (B, Ho, Wo, Cout) int8 codes (requant) or f32 (dequant).
+  * output       (B, Ho, Wo, Cout) int8 codes (requant) or f32 (dequant);
+                 (B, Ho // ph, Wo // pw, Cout) with ``pool=(ph, pw)``.
 
 For a CUDA tensor the wrapper launches ``csrc/fq_conv.cu``, which gathers
 each window in place with zero padding by bounds check; for a CPU tensor it
 runs the plain version, :func:`fq_conv2d_plain`. The reference's block
 picker and autotune table have no counterpart yet: the CUDA kernel's tile
-is fixed. The fused max-pool epilogue, ADC noise and packed weights are
-later slices of the port and are refused here.
+is fixed. ADC noise and packed weights are later slices of the port.
 """
 from __future__ import annotations
 
@@ -26,7 +27,9 @@ from . import _build
 from .fq_matmul import check_operands
 from .ref import ref_fq_conv2d as fq_conv2d_plain
 
-_SIG = {"fq_conv2d_s8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18
+_CONV_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+_SIG = {"fq_conv2d_s8": _CONV_ARGS + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "fq_conv2d_pool_s8": _CONV_ARGS + [ctypes.c_int] * 5
         + [ctypes.c_void_p]}
 
 
@@ -43,10 +46,12 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
               pool: Optional[Tuple[int, int]] = None,
               epilogue: str = "requant", n_out: int = 7,
               lo: int = 0) -> torch.Tensor:
-    """Fused int8 NHWC conv2d with the requant/dequant epilogue."""
-    if pool is not None:
-        raise NotImplementedError(
-            "fq_conv2d: the fused max-pool epilogue is not ported yet")
+    """Fused int8 NHWC conv2d with the requant/dequant epilogue.
+
+    ``pool=(ph, pw)`` fuses a non-overlapping max-pool, floor mode, on the
+    int32 accumulator before the epilogue (K3b); its launches are counted
+    on :func:`fq_conv2d_pool`.
+    """
     b, h, w, cin = a_codes.shape
     kcin, cout = w_codes.shape
     if kcin != kh * kw * cin:
@@ -59,32 +64,55 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
                          f"{tuple(a_codes.shape)}, kernel ({kh}, {kw}), "
                          f"stride {stride}, padding {padding}, dilation "
                          f"{dilation}")
+    if pool is not None:
+        if min(pool) < 1 or ho < pool[0] or wo < pool[1]:
+            raise ValueError(f"fq_conv2d: pool {pool} does not fit the conv "
+                             f"output ({ho}, {wo})")
     if a_codes.device.type == "cpu":
         return fq_conv2d_plain(a_codes, w_codes, scale, kh=kh, kw=kw,
                                stride=stride, padding=padding,
-                               dilation=dilation, epilogue=epilogue,
-                               n_out=n_out, lo=lo)
-    check_operands("fq_conv2d", scale, epilogue, a_codes, w_codes)
+                               dilation=dilation, pool=pool,
+                               epilogue=epilogue, n_out=n_out, lo=lo)
+    what = "fq_conv2d" if pool is None else "fq_conv2d_pool"
+    check_operands(what, scale, epilogue, a_codes, w_codes)
     if a_codes.numel() >= 2 ** 31:
-        raise ValueError("fq_conv2d: the CUDA kernel indexes activations "
+        raise ValueError(f"{what}: the CUDA kernel indexes activations "
                          "with 32-bit offsets (< 2^31 elements)")
     dequant = epilogue == "dequant"
-    out = torch.empty((b, ho, wo, cout), device=a_codes.device,
+    oh, ow = (ho, wo) if pool is None else (ho // pool[0], wo // pool[1])
+    out = torch.empty((b, oh, ow, cout), device=a_codes.device,
                       dtype=torch.float32 if dequant else torch.int8)
     lib = _build.library("fq_conv", _SIG)
+    shape = (b, h, w, cin, cout, kh, kw, *stride, *padding, *dilation, ho, wo)
+    tail = (int(dequant), int(lo), int(n_out))
     with torch.cuda.device(a_codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fq_conv2d_s8(
-            _build.ptr(a_codes), _build.ptr(w_codes), _build.ptr(scale),
-            _build.ptr(out), b, h, w, cin, cout, kh, kw, *stride, *padding,
-            *dilation, ho, wo, int(dequant), int(lo), int(n_out),
-            ctypes.c_void_p(stream))
-    _build.check(err, "fq_conv2d", lib)
-    fq_conv2d.launches += 1
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        ptrs = (_build.ptr(a_codes), _build.ptr(w_codes), _build.ptr(scale),
+                _build.ptr(out))
+        if pool is None:
+            err = lib.fq_conv2d_s8(*ptrs, *shape, *tail, stream)
+        else:
+            err = lib.fq_conv2d_pool_s8(*ptrs, *shape, *pool, *tail, stream)
+    _build.check(err, what, lib)
+    if pool is None:
+        fq_conv2d.launches += 1
+    else:
+        fq_conv2d_pool.launches += 1
     return out
 
 
 fq_conv2d.launches = 0
+
+
+def fq_conv2d_pool(a_codes: torch.Tensor, w_codes: torch.Tensor,
+                   scale: torch.Tensor, *, kh: int, kw: int,
+                   pool: Tuple[int, int], **opts) -> torch.Tensor:
+    """K3b: :func:`fq_conv2d` with the fused max-pool epilogue."""
+    return fq_conv2d(a_codes, w_codes, scale, kh=kh, kw=kw, pool=pool,
+                     **opts)
+
+
+fq_conv2d_pool.launches = 0
 
 
 def fq_conv1d(a_codes: torch.Tensor, w_codes: torch.Tensor,

@@ -6,6 +6,9 @@
     GEMM kernel K3, ``"im2col"`` builds patches and runs K2 (the parity
     oracle, as in the reference). Unset means fused on CUDA and im2col on
     the CPU.
+  * conv2d + max-pool: ``"fused"`` is K3b (the pool on the int32
+    accumulator in the conv's epilogue), ``"im2col"`` is K2 followed by
+    :func:`maxpool2d` on the codes.
 
 Noise and packed weight formats are later slices of the port; they are
 refused here, on every device.
@@ -73,7 +76,7 @@ def quantize_to_codes(x, s, *, bits: int, b: float, inv_scale=None):
     """
     if inv_scale is None:
         inv_scale = torch.exp(-s)
-    flat = x.reshape(-1, x.shape[-1])
+    flat = x.reshape(-1, x.shape[-1]).contiguous()
     codes = quantize_codes(flat, inv_scale, n=n_levels(bits), b=b)
     return codes.reshape(x.shape)
 
@@ -138,3 +141,40 @@ def fq_conv2d_int(a_codes, w_codes, scale, *, ksize: int, stride: int = 1,
     y = fq_matmul(patches.reshape(b * ho * wo, -1), w_codes, scale,
                   epilogue=epilogue, n_out=n_out, lo=lo)
     return y.reshape(b, ho, wo, -1)
+
+
+def maxpool2d(y, *, window: int = 2, stride: int = 2):
+    """VALID max-pool, floor mode, on int8 codes or f32 activations (NHWC).
+
+    On codes this is exact because the learned quantizer is monotone: max
+    commutes with requantization. Plain PyTorch (a strided window view and
+    ``amax``): the reference computes it with ``reduce_window``, outside
+    any Pallas kernel, and ``F.max_pool2d`` has no int8 CUDA kernel.
+    """
+    win = y.unfold(1, window, stride).unfold(2, window, stride)
+    return win.amax(dim=(-2, -1)).contiguous()
+
+
+def fq_conv2d_pool_int(a_codes, w_codes, scale, *, ksize: int,
+                       stride: int = 1, padding: int = 0, dilation: int = 1,
+                       pool: int = 2, epilogue="requant", n_out=7, lo=0,
+                       impl=None, noise_sigma_acc=None,
+                       weight_format="int8"):
+    """int8 conv2d + non-overlapping (pool, pool) max-pool.
+
+    "fused" pools the int32 accumulator in the conv kernel's epilogue
+    (K3b), so only the pooled codes reach device memory; "im2col" runs the
+    unfused conv and :func:`maxpool2d` on its output, the parity oracle
+    (bit-exact because the epilogue is monotone for scale > 0).
+    """
+    refuse_unported("fq_conv2d_pool_int", weight_format=weight_format,
+                    noise=noise_sigma_acc)
+    if conv_impl(impl, a_codes.device) == "fused":
+        return fq_conv2d(a_codes, w_codes, scale, kh=ksize, kw=ksize,
+                         stride=(stride, stride), padding=(padding, padding),
+                         dilation=(dilation, dilation), pool=(pool, pool),
+                         epilogue=epilogue, n_out=n_out, lo=lo)
+    y = fq_conv2d_int(a_codes, w_codes, scale, ksize=ksize, stride=stride,
+                      padding=padding, dilation=dilation, epilogue=epilogue,
+                      n_out=n_out, lo=lo, impl="im2col")
+    return maxpool2d(y, window=pool, stride=pool)

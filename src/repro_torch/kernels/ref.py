@@ -11,7 +11,7 @@ int32 ``torch.matmul``, and the float64 sum is exact in any order because
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,12 +59,18 @@ def ref_fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
                   stride: Tuple[int, int] = (1, 1),
                   padding: Tuple[int, int] = (0, 0),
                   dilation: Tuple[int, int] = (1, 1),
+                  pool: Optional[Tuple[int, int]] = None,
                   epilogue: str = "requant", n_out: int = 7,
                   lo: int = 0) -> torch.Tensor:
     """NHWC int8 conv as a sum over taps of window @ tap weights.
 
     a_codes (B, H, W, Cin); w_codes (kh*kw*Cin, Cout), tap-major (row
     t*Cin + c is tap (t // kw, t % kw), channel c); zero padding.
+
+    ``pool=(ph, pw)`` takes the max of the int32 accumulator over
+    non-overlapping (ph, pw) windows, floor mode (rows and columns past
+    (Ho // ph) * ph and (Wo // pw) * pw are dropped), before the epilogue:
+    the order of the fused max-pool epilogue.
     """
     b, h, w, cin = a_codes.shape
     cout = w_codes.shape[1]
@@ -81,6 +87,10 @@ def ref_fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
             win = x[:, th * dh: th * dh + (ho - 1) * sh + 1: sh,
                     tw * dw: tw * dw + (wo - 1) * sw + 1: sw, :]
             acc += win.reshape(-1, cin) @ wf[t * cin:(t + 1) * cin]
-    y = apply_epilogue(acc.to(torch.int32), scale, epilogue=epilogue,
-                       n_out=n_out, lo=lo)
-    return y.reshape(b, ho, wo, cout)
+    acc = acc.to(torch.int32).reshape(b, ho, wo, cout)
+    if pool is not None:
+        qh, qw = pool
+        hp, wp = ho // qh, wo // qw
+        acc = acc[:, :hp * qh, :wp * qw].reshape(b, hp, qh, wp, qw, cout)
+        acc = acc.amax(dim=(2, 4))
+    return apply_epilogue(acc, scale, epilogue=epilogue, n_out=n_out, lo=lo)

@@ -19,9 +19,10 @@ from repro_torch.core import integer_inference as tii
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.fq_conv import fq_conv2d
+from repro_torch.kernels.fq_conv import fq_conv2d, fq_conv2d_pool
 from repro_torch.kernels.fq_matmul import fq_matmul
 from repro_torch.kernels.quantize import quantize_codes
+from repro_torch.models import darknet as tdn
 from repro_torch.models import kws as tkws
 
 pytestmark = pytest.mark.cuda
@@ -161,3 +162,77 @@ def test_kws_serving_on_the_card(cuda):
     gpu = tkws.int_core(stack, codes.to(cuda), qcfg, cfg)
     cpu = tkws.int_core(stack.to("cpu"), codes, qcfg, cfg)
     assert torch.equal(gpu.cpu(), cpu)
+
+
+# (B, H, W, Cin, Cout) of DarkNet-19's four pooled convs at 224 x 224, B=1
+DARKNET_POOLED = [(1, 112, 112, 32, 64), (1, 56, 56, 64, 128),
+                  (1, 28, 28, 128, 256), (1, 14, 14, 256, 512)]
+
+
+@pytest.mark.parametrize("shape", DARKNET_POOLED + [(2, 13, 15, 40, 70)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("pool", [2, 3])
+@pytest.mark.parametrize("epilogue,lo", [("requant", 0), ("requant", -7),
+                                         ("dequant", 0)])
+def test_fq_conv2d_pool_matches_plain(cuda, shape, pool, epilogue, lo):
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(h + cin + pool)
+    a = _codes(rng, (b, h, w, cin), 0, 7, cuda)
+    wc = _codes(rng, (9 * cin, cout), -1, 1, cuda)
+    s = torch.tensor(np.float32(0.0131), device=cuda)
+    kw = dict(kh=3, kw=3, padding=(1, 1), pool=(pool, pool),
+              epilogue=epilogue, n_out=7, lo=lo)
+    before = fq_conv2d.launches, fq_conv2d_pool.launches
+    got = fq_conv2d(a, wc, s, **kw)
+    torch.cuda.synchronize()
+    assert (fq_conv2d.launches, fq_conv2d_pool.launches) == \
+        (before[0], before[1] + 1)
+    assert got.shape == (b, h // pool, w // pool, cout)
+    assert torch.equal(got, tref.ref_fq_conv2d(a, wc, s, **kw))
+    im2col = tops.fq_conv2d_pool_int(a, wc, s, ksize=3, padding=1, pool=pool,
+                                     epilogue=epilogue, n_out=7, lo=lo,
+                                     impl="im2col")
+    assert torch.equal(got, im2col)
+
+
+def _darknet_reduced_stack(dev):
+    """The port's reduced DarkNet stack, s_out set per layer so codes stay
+    live, with the hand-off contract enforced."""
+    cfg, qcfg = tdn.DarkNetConfig.reduced(), QuantConfig(2, 4, 4, fq=True)
+    params, state = tdn.init(torch.Generator().manual_seed(0), cfg,
+                             device=dev)
+    params = tdn.to_fq(params, state, cfg)
+    names = tdn.int_conv_names(cfg)
+    params[names[0]] = {**params[names[0]],
+                        "s_in": torch.tensor(0.5, device=dev)}
+    for i, n in enumerate(names):
+        params[n] = {**params[n], "s_out": torch.tensor(0.5 + 0.3 * i,
+                                                        device=dev)}
+    stack = tdn.convert_int(tii.sync_handoff(params, names), state, qcfg,
+                            cfg)
+    return cfg, qcfg, stack
+
+
+def test_darknet_reduced_serving_on_the_card(cuda):
+    """fused, fused without pool fusion and im2col give identical logits and
+    codes; the GPU int_core equals the CPU one given the same entry codes."""
+    cfg, qcfg, stack = _darknet_reduced_stack(cuda)
+    assert stack.device.type == "cuda"
+    x = np.random.default_rng(1).standard_normal((4, 16, 16, 3)).astype(
+        np.float32)
+    ways = [dict(impl="fused"), dict(impl="fused", fuse_pool=False),
+            dict(impl="im2col")]
+    before = fq_conv2d_pool.launches
+    logits = [tdn.int_serve_fn(stack, qcfg, cfg, **kw)(x) for kw in ways]
+    assert fq_conv2d_pool.launches == before + 1
+    for other in logits[1:]:
+        assert torch.equal(logits[0], other)
+    assert torch.isfinite(logits[0]).all()
+    codes = torch.randint(0, 8, (4, 8, 8, 8), dtype=torch.int8,
+                          generator=torch.Generator().manual_seed(2))
+    gpu = [tdn.int_core(stack, codes.to(cuda), qcfg, cfg, **kw)
+           for kw in ways]
+    cpu = tdn.int_core(stack.to("cpu"), codes, qcfg, cfg)
+    for g in gpu:
+        assert torch.equal(g.cpu(), cpu)
+    assert (cpu != 0).any()

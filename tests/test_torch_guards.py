@@ -20,7 +20,9 @@ import torch
 
 import repro_torch
 from repro_torch import interop
+from repro_torch.core import integer_inference as tii
 from repro_torch.core.quant import QuantConfig
+from repro_torch.models import darknet as tdn
 from repro_torch.models import kws as tkws
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -50,7 +52,7 @@ def test_source_imports_no_jax_or_reference(path):
 
 def test_import_leaves_jax_and_reference_unloaded():
     code = ("import sys, repro_torch.models.kws, repro_torch.interop, "
-            "repro_torch.kernels.ops\n"
+            "repro_torch.kernels.ops, repro_torch.models.darknet\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
@@ -88,11 +90,28 @@ def test_entry_points_raise_without_cuda(no_cuda):
     assert params["conv0"]["w"].device.type == "cpu"
     np_params = {"conv0": {"w": np.zeros((3, 2, 2), np.float32)}}
     with pytest.raises(RuntimeError):
-        interop.kws_params_from_numpy(np_params, {})
-    p, _ = interop.kws_params_from_numpy(np_params, {}, device="cpu")
+        interop.params_from_numpy(np_params, {})
+    p, _ = interop.params_from_numpy(np_params, {}, device="cpu")
     assert p["conv0"]["w"].device.type == "cpu"
     with pytest.raises(RuntimeError):
         interop.stack_from_numpy({}, {}, QuantConfig(2, 4, 4, True), [])
+
+
+def test_darknet_entry_points_raise_without_cuda(no_cuda):
+    cfg = tdn.DarkNetConfig.reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdn.init(torch.Generator().manual_seed(0), cfg)
+    params, state = tdn.init(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    assert params["conv1"]["w"].device.type == "cpu"
+    params = tii.sync_handoff(tdn.to_fq(params, state, cfg),
+                              tdn.int_conv_names(cfg))
+    stack = tdn.convert_int(params, state, QuantConfig(2, 4, 4, True), cfg)
+    with pytest.raises(RuntimeError):
+        stack.to(repro_torch.resolve_device())
+    logits = tdn.int_serve_fn(stack, QuantConfig(2, 4, 4, True), cfg)(
+        np.zeros((1, 16, 16, 3), np.float32))
+    assert logits.device.type == "cpu" and logits.shape == (1, 16)
 
 
 def _run_smoke(cwd, script, env_extra=None):

@@ -1,9 +1,10 @@
-"""K1-K3 of repro_torch against the JAX package's kernels and oracles.
+"""K1-K3b of repro_torch against the JAX package's kernels and oracles.
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
 The JAX side runs as its own tests run it on the CPU: the Pallas kernels in
 interpret mode, plus the pure-jnp oracles in ``repro.kernels.ref``. Convs
-are held against ``repro.kernels.ops.fq_conv*_int(impl="im2col")``, the
+are held against ``repro.kernels.ops.fq_conv*_int(impl="im2col")`` (and
+the conv + max-pool against ``fq_conv2d_pool_int(impl="im2col")``), the
 reference's declared parity oracle (its fused Pallas conv does not trace on
 current jax). The port runs on ``device="cpu"``, where each wrapper takes
 its plain PyTorch version. Every compare is bit-exact: int8 codes, and f32
@@ -203,6 +204,80 @@ def test_fq_conv2d_bit_exact(ksize, stride, padding, dilation, epilogue, lo):
     np.testing.assert_array_equal(im2col.numpy(), want)
 
 
+# (B, H, W, Cin, Cout, ksize): DarkNet's four pooled layers at narrow
+# widths, odd Ho / Wo, and a 1x1 conv
+POOL_SHAPES = [(2, 16, 16, 4, 8, 3), (1, 12, 12, 8, 16, 3),
+               (2, 13, 15, 6, 10, 3), (1, 9, 7, 5, 9, 1)]
+
+
+@pytest.mark.parametrize("shape", POOL_SHAPES, ids=lambda s: "x".join(
+    map(str, s)))
+@pytest.mark.parametrize("pool", [2, 3])
+@pytest.mark.parametrize("epilogue,lo", [("requant", 0), ("requant", -7),
+                                         ("dequant", 0)])
+def test_fq_conv2d_pool_bit_exact(shape, pool, epilogue, lo):
+    """K3b's plain version (max of the int32 accumulator, then the
+    epilogue) and the im2col + code-pool path against the reference's
+    conv + reduce_window oracle."""
+    b, h, w, cin, cout, ks = shape
+    rng = np.random.default_rng(h * 100 + w * 10 + cin + pool)
+    a = _codes(rng, (b, h, w, cin), 0, 7)
+    wc = _codes(rng, (ks * ks * cin, cout), -7, 7)
+    scale = np.float32(0.0131)
+    kw = dict(ksize=ks, padding=ks // 2, pool=pool, epilogue=epilogue,
+              n_out=7, lo=lo)
+    want = np.asarray(jops.fq_conv2d_pool_int(
+        jnp.asarray(a), jnp.asarray(wc), jnp.float32(scale), impl="im2col",
+        **kw))
+    ta, tw, ts = _t(a), _t(wc), torch.tensor(scale)
+    plain = tref.ref_fq_conv2d(ta, tw, ts, kh=ks, kw=ks,
+                               padding=(ks // 2, ks // 2), pool=(pool, pool),
+                               epilogue=epilogue, n_out=7, lo=lo)
+    fused = tops.fq_conv2d_pool_int(ta, tw, ts, impl="fused", **kw)
+    im2col = tops.fq_conv2d_pool_int(ta, tw, ts, impl="im2col", **kw)
+    assert plain.shape == (b, h // pool, w // pool, cout)
+    assert plain.dtype == (torch.int8 if epilogue == "requant"
+                           else torch.float32)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(fused.numpy(), want)
+    np.testing.assert_array_equal(im2col.numpy(), want)
+
+
+def test_fq_conv2d_pool_strided_dilated_non_square():
+    """The fused wrapper takes any (ph, pw) on any conv; its plain version
+    equals conv -> requant -> max-pool of the codes."""
+    rng = np.random.default_rng(23)
+    a = _t(_codes(rng, (2, 13, 15, 6), 0, 7))
+    w = _t(_codes(rng, (9 * 6, 10), -7, 7))
+    s = torch.tensor(np.float32(0.047))
+    kw = dict(kh=3, kw=3, stride=(2, 2), padding=(1, 1), dilation=(2, 2),
+              n_out=7, lo=-7)
+    got = fq_conv2d(a, w, s, pool=(2, 3), **kw)
+    conv = fq_conv2d(a, w, s, **kw)
+    ho, wo = conv.shape[1:3]
+    want = conv[:, :ho // 2 * 2, :wo // 3 * 3].reshape(
+        2, ho // 2, 2, wo // 3, 3, 10).amax(dim=(2, 4))
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="pool"):
+        fq_conv2d(a, w, s, pool=(ho + 1, 1), **kw)
+
+
+@pytest.mark.parametrize("hw,window,stride", [((9, 11), 2, 2), ((7, 7), 3, 3),
+                                              ((8, 5), 3, 2), ((4, 6), 1, 1)])
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_maxpool2d_bit_exact(hw, window, stride, dtype):
+    rng = np.random.default_rng(hw[0] * 10 + hw[1] + window)
+    if dtype == "int8":
+        y = _codes(rng, (2, *hw, 5), -7, 7)
+    else:
+        y = rng.standard_normal((2, *hw, 5)).astype(np.float32)
+    want = np.asarray(jops.maxpool2d(jnp.asarray(y), window=window,
+                                     stride=stride))
+    got = tops.maxpool2d(_t(y), window=window, stride=stride)
+    assert got.dtype == _t(y).dtype and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_fq_conv1d_dequant_bit_exact():
     rng = np.random.default_rng(11)
     a = _codes(rng, (3, 20, 5), 0, 7)
@@ -241,7 +316,11 @@ def test_unported_options_refused_on_cpu():
     with pytest.raises(NotImplementedError):
         tops.int_matmul(a[0], w[:4], s, weight_format="int4")
     with pytest.raises(NotImplementedError):
-        fq_conv2d(a.unsqueeze(2), w, s, kh=3, kw=1, pool=(2, 1))
+        tops.fq_conv2d_pool_int(a.unsqueeze(2), w, s, ksize=1,
+                                noise_sigma_acc=0.5)
+    with pytest.raises(NotImplementedError):
+        tops.fq_conv2d_pool_int(a.unsqueeze(2), w, s, ksize=1,
+                                weight_format="int4")
 
 
 def test_cpu_path_launches_no_kernel():
@@ -249,9 +328,13 @@ def test_cpu_path_launches_no_kernel():
     a = torch.zeros(1, 8, 4, dtype=torch.int8)
     tops.fq_conv1d_int(a, torch.zeros(12, 3, dtype=torch.int8),
                        torch.tensor(0.1), ksize=3, impl="fused")
+    tops.fq_conv2d_pool_int(torch.zeros(1, 6, 6, 4, dtype=torch.int8),
+                            torch.zeros(36, 3, dtype=torch.int8),
+                            torch.tensor(0.1), ksize=3, padding=1,
+                            impl="fused")
     quantize_codes(torch.zeros(4, 4), torch.tensor(1.0), n=7, b=0.0)
     assert tkernels.launch_counts() == {"quantize_codes": 0, "fq_matmul": 0,
-                                        "fq_conv2d": 0}
+                                        "fq_conv2d": 0, "fq_conv2d_pool": 0}
 
 
 def test_wrappers_refuse_other_devices():

@@ -164,8 +164,8 @@ def test_port_conversion_matches_reference(name):
     """The port's own convert_int on the reference's float params: weight
     codes bit-exact, folded rescales within 2 ulp (torch vs XLA exp)."""
     fq_params, state, ip = _reference(name)
-    params, st = interop.kws_params_from_numpy(_np(fq_params), _np(state),
-                                               device="cpu")
+    params, st = interop.params_from_numpy(_np(fq_params), _np(state),
+                                           device="cpu")
     stack = tkws.convert_int(params, st, QCFG, CFGS[name][1])
     for n in ip.layer_names:
         np.testing.assert_array_equal(stack[n]["w_codes"].numpy(),
@@ -205,8 +205,8 @@ def test_noise_and_packed_formats_refused():
     with pytest.raises(NotImplementedError):
         tkws.int_apply(st, x, QCFG, tcfg, noise=object())
     fq_params, state, _ = _reference("reduced")
-    params, bn = interop.kws_params_from_numpy(_np(fq_params), _np(state),
-                                               device="cpu")
+    params, bn = interop.params_from_numpy(_np(fq_params), _np(state),
+                                           device="cpu")
     with pytest.raises(NotImplementedError):
         tkws.convert_int(params, bn, QCFG, tcfg, weight_format="ternary")
 
