@@ -31,7 +31,19 @@ Phases, each of which must pass:
    It checks the three identical, the exact launch counts, the GPU integer
    core against the port's CPU run, the logits against the CPU run, the
    entry codes flipped by conv0's sum order, and that no layer's output
-   codes are all zero.
+   codes are all zero;
+6. kernels_packed: K5, the packed-weight prologue, in K2, K3 and K3b: each
+   held bit-exact against its plain version for ternary and int4 weights
+   at every KWS and DarkNet shape above (K2 with ``pack_codes`` weights),
+   plus off-path shapes (ragged cin 5 and 45, K not a multiple of the pack
+   factor, dequant, lo < 0, a 3 x 3 pool), and timed beside its int8 twin;
+7. serve_kws and serve_darknet also build the ternary (``weight_format=
+   "auto"``) and int4 stacks from the same params and serve the same
+   requests with every conv impl, each format counted in a run of its own.
+   They check packed fused == packed im2col == int8 fused (codes and
+   logits), that the fused path launched only packed K3 / K3b, that fused
+   DarkNet runs as many device ops as with int8 weights, the digests, and
+   print the weight bytes on the device.
 
 It imports nothing of JAX or of the JAX package ``repro``. The second-to-
 last lines are the ``{"kernels": [...]}`` record (one entry per kernel and
@@ -81,6 +93,26 @@ SOURCES = {
 }
 PATH_KERNELS = {"kws": ("quantize_codes", "fq_matmul", "fq_conv2d"),
                 "darknet": tuple(REPLACES)}
+# K5, the packed prologue, in each kernel that takes weights
+PACKED_FORMATS = ("ternary", "int4")
+PACKED_REPLACES = {"fq_matmul": "src/repro/kernels/fq_matmul.py:86",
+                   "fq_conv2d": "src/repro/kernels/fq_conv.py:330",
+                   "fq_conv2d_pool": "src/repro/kernels/fq_conv.py:330"}
+PROLOGUE = "src/repro_torch/kernels/csrc/igemm.cuh"
+# the packed kernels the serving paths launch (K2 takes packed weights only
+# off the model path: the im2col oracle unpacks first)
+PACKED_PATH_KERNELS = {
+    "kws": tuple(f"fq_conv2d_{f}" for f in PACKED_FORMATS),
+    "darknet": tuple(f"{k}_{f}" for f in PACKED_FORMATS
+                     for k in ("fq_conv2d", "fq_conv2d_pool"))}
+
+
+def base_kernel(name: str) -> str:
+    """"fq_conv2d_pool_ternary" -> "fq_conv2d_pool"; int8 names unchanged."""
+    for f in PACKED_FORMATS:
+        if name.endswith("_" + f):
+            return name[:-len(f) - 1]
+    return name
 
 
 def fail(msg: str) -> None:
@@ -176,13 +208,15 @@ def max_abs_err(torch, got, want) -> float:
 class Rows:
     """Parity and timing rows of one path's kernels, one per shape."""
 
-    def __init__(self, torch, path):
+    def __init__(self, torch, path, names=None):
         self.torch, self.path = torch, path
-        self.rows = {k: [] for k in PATH_KERNELS[path]}
+        self.rows = {k: [] for k in (names or PATH_KERNELS[path])}
         self.extra_err = {}
 
     def record(self, name, batch, shape, got, want, fn, plain, lib, bytes_,
-               ops, peak, layer=None):
+               ops, peak, layer=None, twin=None):
+        """``twin``: the int8 kernel on the same work, timed beside a packed
+        one."""
         torch = self.torch
         err = max_abs_err(torch, got, want)
         b_ms, b_by = bound(bytes_, ops, peak)
@@ -191,11 +225,14 @@ class Rows:
                "library_ms": None if lib is None else device_ms(torch, lib),
                "eager_ms": eager_ms(torch, fn), "bound_ms": b_ms,
                "bound_by": b_by, "bytes": bytes_, "ops": ops, "peak": peak}
+        if twin is not None:
+            row["int8_ms"] = device_ms(torch, twin)
         self.rows[name].append(row)
         lib_s = ("-" if row["library_ms"] is None
                  else f"{row['library_ms']:.5f}")
+        twin_s = ("" if twin is None else f" int8_ms={row['int8_ms']:.5f}")
         print(f"  {self.path:7s} {name:14s} B={batch:<3d} {str(shape):26s} "
-              f"max_abs_err={err:g} ms={row['ms']:.5f} "
+              f"max_abs_err={err:g} ms={row['ms']:.5f}{twin_s} "
               f"plain_ms={row['plain_ms']:.5f} library_ms={lib_s} "
               f"eager_ms={row['eager_ms']:.5f} bound_ms={b_ms:.6f} "
               f"({b_by})", flush=True)
@@ -482,6 +519,212 @@ def phase_kernels_darknet(torch, dev):
     return out
 
 
+def phase_kernels_packed(torch, dev):
+    """K5: parity and timing of K2, K3 and K3b on packed (ternary, int4)
+    weights at every KWS and DarkNet main-path shape, each beside its int8
+    twin on the same codes, plus off-path shapes."""
+    import numpy as np
+    from repro_torch.core import quant
+    from repro_torch.core.quant import n_levels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fq_conv import fq_conv1d, fq_conv2d
+    from repro_torch.kernels.fq_matmul import fq_matmul
+    from repro_torch.models.darknet import DarkNetConfig
+    from repro_torch.models.kws import KWSConfig
+
+    rng = np.random.default_rng(SEED + 4)
+    n = n_levels(4)
+
+    def codes(shape, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi + 1, size=shape).astype(
+            np.int8)).to(dev)
+
+    def names(path):
+        return [f"{k}_{f}" for f in PACKED_FORMATS
+                for k in PATH_KERNELS[path] if k in PACKED_REPLACES]
+
+    out = {"kws": Rows(torch, "kws", names("kws")),
+           "darknet": Rows(torch, "darknet", names("darknet"))}
+    print("packed-weight kernels (bit-exact vs plain on the card), device "
+          "times beside the int8 kernel on the same codes:", flush=True)
+    cfg = KWSConfig()
+    record = out["kws"].record
+    for fmt in PACKED_FORMATS:
+        r = quant.format_range(fmt)
+        for batch in BATCHES:
+            for t, cin, dil, t_out in kws_layer_shapes(cfg):
+                a3 = codes((batch, t, cin), 0, n)
+                w = codes((cfg.ksize * cin, cfg.filters), -r, r)
+                wp = quant.pack_im2col_codes(w, cfg.ksize, fmt)
+                s = torch.tensor(np.float32(0.05), device=dev)
+                m, k, nn = batch * t_out, cfg.ksize * cin, cfg.filters
+                ops_ = 2 * m * k * nn
+                kw = dict(ksize=cfg.ksize, dilation=dil, n_out=n, lo=0)
+                rk = dict(kh=cfg.ksize, kw=1, dilation=(dil, 1), n_out=n,
+                          lo=0, weight_format=fmt)
+                record(f"fq_conv2d_{fmt}", batch, (batch, t, cin, dil),
+                       fq_conv1d(a3, wp, s, weight_format=fmt, **kw),
+                       ref.ref_fq_conv2d(a3.unsqueeze(2), wp, s, **rk)
+                       .squeeze(2),
+                       lambda: fq_conv1d(a3, wp, s, weight_format=fmt, **kw),
+                       lambda: ref.ref_fq_conv2d(a3.unsqueeze(2), wp, s,
+                                                 **rk),
+                       None, a3.numel() + wp.numel() + m * nn + 4, ops_,
+                       INT8_OPS_PER_S, twin=lambda: fq_conv1d(a3, w, s, **kw))
+                pa = torch.cat([a3[:, i * dil: i * dil + t_out]
+                                for i in range(cfg.ksize)], -1).reshape(m, k)
+                bp = quant.pack_codes(w, fmt)
+                mk = dict(n_out=n, lo=0)
+                record(f"fq_matmul_{fmt}", batch, (m, k, nn),
+                       fq_matmul(pa, bp, s, weight_format=fmt, **mk),
+                       ref.ref_fq_matmul(pa, bp, s, weight_format=fmt, **mk),
+                       lambda: fq_matmul(pa, bp, s, weight_format=fmt, **mk),
+                       lambda: ref.ref_fq_matmul(pa, bp, s,
+                                                 weight_format=fmt, **mk),
+                       None, pa.numel() + bp.numel() + m * nn + 4, ops_,
+                       INT8_OPS_PER_S, twin=lambda: fq_matmul(pa, w, s, **mk))
+
+    dcfg = DarkNetConfig()
+    layers = darknet_int_layers(dcfg, DN_SIZE)
+    record = out["darknet"].record
+    for fmt in PACKED_FORMATS:
+        r = quant.format_range(fmt)
+        for batch in DN_BATCHES:
+            for name, side, cin, cout, ks, pooled in layers:
+                a = codes((batch, side, side, cin), 0, n)
+                w = codes((ks * ks * cin, cout), -r, r)
+                wp = quant.pack_im2col_codes(w, ks * ks, fmt)
+                s = torch.tensor(np.float32(0.02), device=dev)
+                m, k = batch * side * side, ks * ks * cin
+                ops_ = 2 * m * k * cout
+                kw = dict(kh=ks, kw=ks, padding=(ks // 2, ks // 2), n_out=n,
+                          lo=0)
+                pk = dict(kw, weight_format=fmt)
+                shape = (batch, side, side, cin, cout, ks)
+                record(f"fq_conv2d_{fmt}", batch, shape,
+                       fq_conv2d(a, wp, s, **pk),
+                       ref.ref_fq_conv2d(a, wp, s, **pk),
+                       lambda a=a, wp=wp, s=s, pk=pk: fq_conv2d(a, wp, s,
+                                                                **pk),
+                       lambda a=a, wp=wp, s=s, pk=pk: ref.ref_fq_conv2d(
+                           a, wp, s, **pk),
+                       None, a.numel() + wp.numel() + m * cout + 4, ops_,
+                       INT8_OPS_PER_S, layer=name,
+                       twin=lambda a=a, w=w, s=s, kw=kw: fq_conv2d(a, w, s,
+                                                                   **kw))
+                if pooled:
+                    pp = dict(pk, pool=(2, 2))
+                    p8 = dict(kw, pool=(2, 2))
+                    record(f"fq_conv2d_pool_{fmt}", batch, shape,
+                           fq_conv2d(a, wp, s, **pp),
+                           ref.ref_fq_conv2d(a, wp, s, **pp),
+                           lambda a=a, wp=wp, s=s, pp=pp: fq_conv2d(
+                               a, wp, s, **pp),
+                           lambda a=a, wp=wp, s=s, pp=pp: ref.ref_fq_conv2d(
+                               a, wp, s, **pp),
+                           None, a.numel() + wp.numel() + m // 4 * cout + 4,
+                           ops_, INT8_OPS_PER_S, layer=name,
+                           twin=lambda a=a, w=w, s=s, p8=p8: fq_conv2d(
+                               a, w, s, **p8))
+                pa = ops._im2col_2d(a, ks, 1, ks // 2)[0].reshape(m, k)
+                bp = quant.pack_codes(w, fmt)
+                mk = dict(n_out=n, lo=0)
+                record(f"fq_matmul_{fmt}", batch, (m, k, cout),
+                       fq_matmul(pa, bp, s, weight_format=fmt, **mk),
+                       ref.ref_fq_matmul(pa, bp, s, weight_format=fmt, **mk),
+                       lambda pa=pa, bp=bp, s=s: fq_matmul(
+                           pa, bp, s, weight_format=fmt, **mk),
+                       lambda pa=pa, bp=bp, s=s: ref.ref_fq_matmul(
+                           pa, bp, s, weight_format=fmt, **mk),
+                       None, pa.numel() + bp.numel() + m * cout + 4, ops_,
+                       INT8_OPS_PER_S, layer=name,
+                       twin=lambda pa=pa, w=w, s=s: fq_matmul(pa, w, s, **mk))
+
+    # off the paths: ragged cin (5, 45: the reduction runs over taps x
+    # cin_p with the pad channels masked), a strided dilated conv, pools
+    # 2x2 and 3x3, K2 with K not a multiple of the factor, dequant, lo < 0
+    s = torch.tensor(np.float32(0.0131), device=dev)
+    epis = (("requant", -n), ("requant", 0), ("dequant", 0))
+    for fmt in PACKED_FORMATS:
+        r = quant.format_range(fmt)
+        conv_errs, mm_errs = [], []
+        for cin in (5, 45):
+            x = codes((2, 13, 15, cin), 0, n)
+            w = codes((9 * cin, 70), -r, r)
+            wp = quant.pack_im2col_codes(w, 9, fmt)
+            for pool, stride, dil in ((None, 1, 1), (None, 2, 2),
+                                      ((2, 2), 1, 1), ((3, 3), 1, 1),
+                                      ((2, 3), 2, 2)):
+                for epi, lo in epis:
+                    kw = dict(kh=3, kw=3, stride=(stride, stride),
+                              padding=(1, 1), dilation=(dil, dil), pool=pool,
+                              epilogue=epi, n_out=n, lo=lo)
+                    got = fq_conv2d(x, wp, s, weight_format=fmt, **kw)
+                    conv_errs += [
+                        max_abs_err(torch, got, ref.ref_fq_conv2d(
+                            x, wp, s, weight_format=fmt, **kw)),
+                        max_abs_err(torch, got, fq_conv2d(x, w, s, **kw))]
+            a3 = codes((3, 40, cin), 0, n)
+            w1 = codes((3 * cin, 45), -r, r)
+            w1p = quant.pack_im2col_codes(w1, 3, fmt)
+            got = fq_conv1d(a3, w1p, s, ksize=3, dilation=4, n_out=n,
+                            weight_format=fmt)
+            conv_errs.append(max_abs_err(torch, got, ops.fq_conv1d_int(
+                a3, w1p, s, ksize=3, dilation=4, n_out=n, impl="im2col",
+                weight_format=fmt)))
+        for k in (13, 135, 257):
+            a = codes((300, k), -n, n)
+            b = codes((k, 45), -r, r)
+            bp = quant.pack_codes(b, fmt)
+            for epi, lo in epis:
+                kw = dict(epilogue=epi, n_out=n, lo=lo)
+                got = fq_matmul(a, bp, s, weight_format=fmt, **kw)
+                mm_errs += [max_abs_err(torch, got, ref.ref_fq_matmul(
+                    a, bp, s, weight_format=fmt, **kw)),
+                    max_abs_err(torch, got, fq_matmul(a, b, s, **kw))]
+        torch.cuda.synchronize()
+        print(f"  off-path {fmt} checks: K3/K3b at cin 5 and 45 (strided, "
+              f"dilated, pools 2x2, 3x3, 2x3, lo={-n} and 0, dequant; against "
+              f"plain and int8) max_abs_err={max(conv_errs):g}; K2 at K 13, "
+              f"135, 257 max_abs_err={max(mm_errs):g}", flush=True)
+        if max(conv_errs + mm_errs) != 0.0:
+            raise AssertionError(f"off-path {fmt} kernel checks disagree")
+        for path in out:
+            out[path].extra_err[f"fq_matmul_{fmt}"] = max(mm_errs)
+            out[path].extra_err[f"fq_conv2d_{fmt}"] = max(conv_errs)
+            out[path].extra_err[f"fq_conv2d_pool_{fmt}"] = max(conv_errs)
+    for path, rows in out.items():
+        for name, all_rows in rows.rows.items():
+            ratio = (sum(r["ms"] for r in all_rows)
+                     / sum(r["int8_ms"] for r in all_rows))
+            print(f"  {path} {name}: summed over {len(all_rows)} shapes, "
+                  f"packed / int8 device time {ratio:.4f}", flush=True)
+    return out
+
+
+def weight_bytes(stack) -> int:
+    """Bytes of the integer layers' weight codes, as stored."""
+    return sum(stack[n]["w_codes"].numel() * stack[n]["w_codes"]
+               .element_size() for n in stack.layer_names)
+
+
+def counted(torch, kernels, fn):
+    """(result, launch counts, packed launch counts) of ``fn()`` with every
+    counter set to 0 just before it and read just after."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, kernels.launch_counts(), kernels.packed_launch_counts()
+
+
+def launch_line(label, counts, packed):
+    on = " ".join(f"{k}={v}" for k, v in packed.items() if v)
+    return (f"kernels ({label}): " + " ".join(f"{k}={v}"
+                                            for k, v in counts.items())
+            + f" (packed {on or 'none'})")
+
+
 def phase_serve_kws(torch, dev):
     """The KWS path: the port's KWS integer serving, both conv impls."""
     import numpy as np
@@ -573,7 +816,79 @@ def phase_serve_kws(torch, dev):
     if frac > MAX_FLIP_FRACTION:
         raise AssertionError(f"flip fraction {frac} > {MAX_FLIP_FRACTION}")
     serve_timing(torch, "kws", serve, requests, (BATCHES[0], BATCHES[-1]))
-    return counts
+
+    # -- the packed stacks, each format counted in a run of its own -------
+    stacks = {"int8": stack}
+    for fmt in ("auto", "int4"):
+        st = kws.convert_int(params, state, qcfg, cfg, weight_format=fmt)
+        stacks[st.specs[0].weight_format] = st
+    ways = {impl: dict(impl=impl) for impl in serve}
+    result, packed_serve = serve_packed(
+        torch, kws, "kws", stacks, ways, requests, logits, expect,
+        lambda x: entry(stack, x.to(dev)), qcfg, cfg)
+    check_stacks(torch, ii, "kws", stacks, {n: params[n] for n in names})
+    serve_timing(torch, "kws ternary", packed_serve["ternary"], requests,
+                 (BATCHES[0], BATCHES[-1]))
+    return {"int8": counts, **result}
+
+
+def serve_packed(torch, model, path, stacks, ways, requests, logits, expect,
+                 entry, qcfg, cfg):
+    """Serve the int8 run's requests from each packed stack every way, each
+    format counted in a run of its own: the same launches as int8 with
+    every K3 / K3b launch packed, and codes and logits equal to int8
+    fused. Returns ({format: counts}, {format: {way: serve fn}})."""
+    from repro_torch import kernels
+    result, fns_of = {}, {}
+    for fmt in PACKED_FORMATS:
+        st = stacks[fmt]
+        fns = fns_of[fmt] = {way: model.int_serve_fn(st, qcfg, cfg, **kw)
+                             for way, kw in ways.items()}
+        got, c, pc = counted(torch, kernels, lambda: {
+            (b, way): fn(requests[b]) for b in requests
+            for way, fn in fns.items()})
+        print(launch_line(f"{path}, {fmt}", c, pc), flush=True)
+        want_pc = dict.fromkeys(pc, 0)
+        for k in ("fq_conv2d", "fq_conv2d_pool"):
+            if expect[k]:
+                want_pc[f"{k}_{fmt}"] = expect[k]
+        if c != expect or pc != want_pc:
+            raise AssertionError(f"{fmt} launch counts {c} {pc} != expected "
+                                 f"{expect} {want_pc}")
+        result[fmt] = {**c, **pc}
+        for b in requests:
+            codes = entry(torch.from_numpy(requests[b]))
+            want = model.int_core(stacks["int8"], codes, qcfg, cfg,
+                                  impl="fused")
+            for way, kw in ways.items():
+                if not torch.equal(got[(b, way)], logits[(b, "fused")]):
+                    raise AssertionError(f"B={b}: {fmt} {way} logits != "
+                                         "int8 fused")
+                if not torch.equal(model.int_core(st, codes, qcfg, cfg, **kw),
+                                   want):
+                    raise AssertionError(f"B={b}: {fmt} {way} codes != "
+                                         "int8 fused")
+        print(f"serve {path} {fmt}: B={tuple(requests)}: " + " == ".join(
+            f"{fmt} {way}" for way in ways) + " == int8 fused (codes and "
+            "logits)", flush=True)
+    return result, fns_of
+
+
+def check_stacks(torch, ii, path, stacks, layer_params):
+    """Weight bytes on the device per format; the digests of the formats
+    differ, and rederive on unchanged params keeps the ternary digest."""
+    nbytes = {f: weight_bytes(st) for f, st in stacks.items()}
+    digests = {f: ii.stack_digest(st) for f, st in stacks.items()}
+    again = ii.stack_digest(stacks["ternary"].rederive(layer_params))
+    print(f"serve {path}: integer weight bytes on the device: " + ", ".join(
+        f"{f} {v} ({v / nbytes['int8']:.4f} of int8)"
+        for f, v in nbytes.items()) + "; stack_digest " + ", ".join(
+        f"{f} {d}" for f, d in digests.items())
+        + f"; ternary rederive(unchanged params) {again}", flush=True)
+    if len(set(digests.values())) != len(digests):
+        raise AssertionError(f"{path}: formats share a digest {digests}")
+    if again != digests["ternary"]:
+        raise AssertionError(f"{path}: rederive changed the digest")
 
 
 def serve_timing(torch, path, serve, requests, profiled):
@@ -611,18 +926,27 @@ def q99_positive(torch, a):
 
 
 def darknet_live_stack(torch, cfg, qcfg, calib, device):
-    """The port's own DarkNet stack from seed SEED, calibrated live on the
+    """:func:`darknet_live_params` -> convert_int: (stack, liveness)."""
+    from repro_torch.models import darknet
+    params, state, live = darknet_live_params(torch, cfg, qcfg, calib,
+                                              device)
+    return darknet.convert_int(params, state, qcfg, cfg), live
+
+
+def darknet_live_params(torch, cfg, qcfg, calib, device):
+    """The port's own DarkNet params from seed SEED, calibrated live on the
     float images ``calib``: init -> to_fq; conv1's s_in covers the QUANTILE
     of the positive pre-entry activations; then per integer conv, in plan
     order, s_out = s_in + s_w + log(q(acc > 0) / (n_a n_w)) from the exact
     int32 accumulator of the current codes, handed off to the next layer's
-    s_in, and the layer runs to give the next codes; -> convert_int.
+    s_in, and the layer runs to give the next codes.
 
     The uniform recipe (one s_out for every layer) leaves the full-width net
     dead: a uniform s_out cancels out of every inner rescale, and the codes
     are all 0 from conv12 or conv13 on.
 
-    Returns (stack, {layer: share of nonzero output codes on ``calib``}).
+    Returns (params, state, {layer: share of nonzero output codes on
+    ``calib``}).
     """
     from repro_torch.core import fq_layers as fql
     from repro_torch.core import integer_inference as ii
@@ -665,7 +989,7 @@ def darknet_live_stack(torch, cfg, qcfg, calib, device):
                     padding=ks // 2)
         live[name] = float((codes != 0).double().mean())
         s_in = p["s_out"]
-    return darknet.convert_int(params, state, qcfg, cfg), live
+    return params, state, live
 
 
 def phase_serve_darknet(torch, dev):
@@ -685,7 +1009,8 @@ def phase_serve_darknet(torch, dev):
     calib = torch.from_numpy(rng.standard_normal(
         (DN_CALIB, DN_SIZE, DN_SIZE, cfg.in_channels)).astype(np.float32))
     t0 = time.perf_counter()
-    stack, live = darknet_live_stack(torch, cfg, qcfg, calib, dev)
+    params, state, live = darknet_live_params(torch, cfg, qcfg, calib, dev)
+    stack = darknet.convert_int(params, state, qcfg, cfg)
     print(f"serve darknet: live stack from seed {SEED} calibrated on "
           f"{DN_CALIB} images in {time.perf_counter() - t0:.1f} s; nonzero "
           "output codes per layer on them: " + " ".join(
@@ -797,23 +1122,63 @@ def phase_serve_darknet(torch, dev):
     if dead:
         raise AssertionError(f"layers with all-zero output codes: {dead}")
     serve_timing(torch, "darknet", serve, requests, DN_BATCHES)
-    return counts
+
+    # -- the packed stacks, each format counted in a run of its own -------
+    stacks = {"int8": stack}
+    for fmt in ("auto", "int4"):
+        st = darknet.convert_int(params, state, qcfg, cfg, weight_format=fmt)
+        stacks[st.specs[0].weight_format] = st
+    result, packed_serve = serve_packed(
+        torch, darknet, "darknet", stacks, ways, requests, logits, expect,
+        lambda x: entry(stack, x.to(dev)), qcfg, cfg)
+    big = DN_BATCHES[-1]
+    for fmt in PACKED_FORMATS:
+        _, c1, pc1 = counted(torch, kernels,
+                             lambda: packed_serve[fmt]["fused"](requests[big]))
+        one = {"fq_conv2d": n_conv - n_pooled, "fq_conv2d_pool": n_pooled}
+        if (any(c1[k] != v or pc1[f"{k}_{fmt}"] != v for k, v in one.items())
+                or c1["fq_matmul"] or c1["quantize_codes"] != 1):
+            raise AssertionError(f"one fused {fmt} int_apply at B={big}: "
+                                 f"{c1} {pc1}, expected {one} all packed")
+        print(f"serve darknet {fmt}: one fused int_apply at B={big} launched "
+              f"fq_conv2d={c1['fq_conv2d']} fq_conv2d_pool="
+              f"{c1['fq_conv2d_pool']}, all packed", flush=True)
+    n_ops = {}
+    for fmt, fn in (("int8", serve["fused"]),
+                    ("ternary", packed_serve["ternary"]["fused"])):
+        # a lost profiler event can only lower a count: the most of three
+        n_ops[fmt] = max(device_profile(torch, lambda: fn(requests[big]))[2]
+                         for _ in range(3))
+    print(f"serve darknet B={big} fused: device ops per request (profiled) "
+          f"int8 {n_ops['int8']:g}, ternary {n_ops['ternary']:g}", flush=True)
+    if n_ops["int8"] != n_ops["ternary"]:
+        raise AssertionError(f"the ternary fused path runs other device ops "
+                             f"than the int8 one: {n_ops}")
+    check_stacks(torch, ii, "darknet", stacks,
+                 {n: params[n] for n in stack.layer_names})
+    serve_timing(torch, "darknet ternary", packed_serve["ternary"], requests,
+                 DN_BATCHES)
+    return {"int8": counts, **result}
 
 
-def kernels_record(rows, counts, batch, per_apply):
-    """One entry per kernel of one path: the work of one int_apply at
-    request batch ``batch`` (``per_apply`` picks the rows one call runs),
-    summed, with the launches of that path's counted run."""
+def kernels_record(rows, counts, batch, per_apply, names=None):
+    """One entry per kernel of one path (or per kernel in ``names``): the
+    work of one int_apply at request batch ``batch`` (``per_apply`` picks
+    the rows one call runs), summed, with the launches of that path's
+    counted run."""
     out = []
-    for name, all_rows in rows.rows.items():
+    for name in names or rows.rows:
+        all_rows = rows.rows[name]
         top = [r for r in all_rows if r["batch"] == batch
                and per_apply(name, r)]
         t_bytes = sum(r["bytes"] for r in top) / HBM_BYTES_PER_S
         t_ops = sum(r["ops"] / r["peak"] for r in top)
         libs = [r["library_ms"] for r in top]
-        out.append({
+        base = base_kernel(name)
+        entry = {
             "name": name, "path": rows.path, "route": "cuda",
-            "source": SOURCES[name], "replaces": REPLACES[name],
+            "source": SOURCES[base],
+            "replaces": (REPLACES if base == name else PACKED_REPLACES)[base],
             "launches": counts[name],
             "max_abs_err": max(max(r["err"] for r in all_rows),
                                rows.extra_err.get(name, 0.0)),
@@ -825,8 +1190,65 @@ def kernels_record(rows, counts, batch, per_apply):
                            else sum(libs)),
             "eager_ms": sum(r["eager_ms"] for r in top),
             "batch": batch, "calls": len(top),
-        })
+        }
+        if base != name:
+            entry["prologue"] = PROLOGUE
+            entry["int8_ms"] = sum(r["int8_ms"] for r in top)
+        out.append(entry)
     return out
+
+
+def kernels_record_all(torch, results):
+    """The ``{"kernels": [...]}`` entries of every path and kernel."""
+    # int_apply(impl="fused") runs K3 on the unpooled layers and K3b on the
+    # pooled ones; impl="im2col" runs K2 on every layer
+    pooled = {r["layer"] for r in results["kernels_darknet"].rows[
+        "fq_conv2d_pool"]}
+
+    def per_apply(name, r):
+        return base_kernel(name) != "fq_conv2d" or r["layer"] not in pooled
+
+    record = kernels_record(results["kernels_kws"],
+                            results["serve_kws"]["int8"], max(BATCHES),
+                            lambda name, r: True)
+    record += kernels_record(results["kernels_darknet"],
+                             results["serve_darknet"]["int8"],
+                             max(DN_BATCHES), per_apply)
+    # K5: the packed K3 / K3b the serving paths launch, each format's
+    # launches from its own counted run. Packed K2 is off those paths (the
+    # im2col oracle unpacks first): its sums are printed, not recorded.
+    off_path = []
+    for path, batch in (("kws", max(BATCHES)), ("darknet", max(DN_BATCHES))):
+        rows = results["kernels_packed"][path]
+        for fmt in PACKED_FORMATS:
+            for e in kernels_record(
+                    rows, results[f"serve_{path}"][fmt], batch, per_apply,
+                    [k for k in rows.rows if k.endswith("_" + fmt)]):
+                on = e["name"] in PACKED_PATH_KERNELS[path]
+                (record if on else off_path).append(e)
+    print("packed K2 per int_apply, launched by no serving path and so not "
+          "in the record: " + json.dumps(off_path), flush=True)
+    # the same sums at every request batch, a measurement beside the record
+    for path, batches in (("kws", BATCHES), ("darknet", DN_BATCHES)):
+        for batch in batches:
+            sums = []
+            for rows in (results[f"kernels_{path}"],
+                         results["kernels_packed"][path]):
+                for name in rows.rows:
+                    top = [r for r in rows.rows[name]
+                           if r["batch"] == batch and per_apply(name, r)]
+                    twin = (f" (int8 {sum(r['int8_ms'] for r in top):.5f})"
+                            if base_kernel(name) != name else "")
+                    sums.append(f"{name}={sum(r['ms'] for r in top):.5f}"
+                                + twin)
+            print(f"device ms per int_apply, {path} B={batch}: "
+                  + " ".join(sums), flush=True)
+    print(f"kernels record: launches from each path's counted serve run "
+          f"(packed kernels: that format's run); times per int_apply, KWS at "
+          f"request batch {max(BATCHES)}, DarkNet at {max(DN_BATCHES)} "
+          f"(quantize_codes once, fq_matmul once per conv, fq_conv2d once per "
+          f"unpooled conv and fq_conv2d_pool once per pooled conv, summed)")
+    return record
 
 
 def main() -> int:
@@ -863,6 +1285,7 @@ def main() -> int:
             ("build", lambda: phase_build(torch)),
             ("kernels_kws", lambda: phase_kernels_kws(torch, dev)),
             ("kernels_darknet", lambda: phase_kernels_darknet(torch, dev)),
+            ("kernels_packed", lambda: phase_kernels_packed(torch, dev)),
             ("serve_kws", lambda: phase_serve_kws(torch, dev)),
             ("serve_darknet", lambda: phase_serve_darknet(torch, dev))):
         print(f"== phase {name}", flush=True)
@@ -882,25 +1305,12 @@ def main() -> int:
 
     for path, phase in (("kws", "serve_kws"), ("darknet", "serve_darknet")):
         counts = results[phase]
-        missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+        missing = [k for k in PATH_KERNELS[path] if counts["int8"][k] == 0]
+        missing += [k for k in PACKED_PATH_KERNELS[path]
+                    if counts[k.rsplit("_", 1)[1]][k] == 0]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
-    record = kernels_record(results["kernels_kws"], results["serve_kws"],
-                            max(BATCHES), lambda name, r: True)
-    # int_apply(impl="fused") runs K3 on the unpooled layers and K3b on the
-    # pooled ones; impl="im2col" runs K2 on every layer
-    pooled = {r["layer"] for r in results["kernels_darknet"].rows[
-        "fq_conv2d_pool"]}
-    record += kernels_record(
-        results["kernels_darknet"], results["serve_darknet"],
-        max(DN_BATCHES),
-        lambda name, r: name != "fq_conv2d" or r["layer"] not in pooled)
-    print(f"kernels record: launches from each path's counted serve run; "
-          f"times per int_apply, KWS at request batch {max(BATCHES)}, "
-          f"DarkNet at {max(DN_BATCHES)} (quantize_codes once, fq_matmul "
-          f"once per conv, fq_conv2d once per unpooled conv and "
-          f"fq_conv2d_pool once per pooled conv, summed)")
-    print(json.dumps({"kernels": record}))
+    print(json.dumps({"kernels": kernels_record_all(torch, results)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

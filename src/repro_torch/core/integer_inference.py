@@ -1,27 +1,34 @@
 """Integer-only inference (paper eq. 4 + §3.4 deployment story).
 
-Counterpart of ``repro.core.integer_inference``, noise-free and int8 only.
-A trained FQ layer collapses to
+Counterpart of ``repro.core.integer_inference``, noise-free. A trained FQ
+layer collapses to
 
     int8 weight codes  +  one folded rescale scalar per layer,
 
 and the conv stack runs integer-in / integer-out on the K2/K3/K3b kernels.
-Only the final decode scale escapes to float, for the FP pooling and head.
+The weight codes may be stored packed, 2 (int4) or 4 (ternary) per byte;
+the kernels then read the packed bytes. Only the final decode scale escapes
+to float, for the FP pooling and head.
 
 The deployment artifact is a :class:`ConvertedStack`: per-layer codes and
 folded scalars plus the float-side extras (FP edge layers, entry quantizer,
-final decode scale). It is mapping-compatible (``stack["conv0"]``), and
-``.to(device)`` takes the place of the reference's ``place_stack``.
+final decode scale). It is mapping-compatible (``stack["conv0"]``), carries
+its conversion recipe (:meth:`ConvertedStack.rederive`) and a content
+digest (:func:`stack_digest`), and ``.to(device)`` takes the place of the
+reference's ``place_stack``.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..kernels import ops
+from . import quant
 from .quant import (QuantConfig, RELU_BOUND, WEIGHT_BOUND, n_levels,
                     quantize_to_int)
 
@@ -35,7 +42,8 @@ def _validate_layer(p, out, name: Optional[str]):
     if not bool(torch.isfinite(p["w"]).all()):
         raise ValueError(f"{tag}: non-finite weights (quantize_to_int would "
                          "cast NaN/inf to garbage int8 codes)")
-    c = out["w_codes"]
+    # packed codes are decoded first; the zero pad lanes are in range
+    c = quant.unpack_codes(out["w_codes"], out.get("weight_format", "int8"))
     lo, hi = int(c.min()), int(c.max())
     if lo < -out["n_w"] or hi > out["n_w"]:
         raise ValueError(f"{tag}: weight codes [{lo}, {hi}] outside the "
@@ -52,17 +60,37 @@ def convert_layer(p, qcfg: QuantConfig, *, relu_out: bool = True,
                   weight_format: str = "int8"):
     """Trained FQ layer params -> integer deployment params.
 
-    Returns ``w_codes`` in the im2col layout (taps*cin, cout) plus the folded
-    epilogue scalar: ``rescale`` (inner layers) or ``alpha`` (final layer).
+    Returns ``w_codes`` plus the folded epilogue scalar: ``rescale`` (inner
+    layers) or ``alpha`` (final layer). ``weight_format`` "int8" keeps the
+    im2col layout (taps*cin, cout) int8; "int4"/"ternary" pack 2/4 codes
+    per byte, conv weights with cin padded per tap to the pack factor. A
+    format too narrow for bits_w codes raises (never clip a trained code).
     The codes and the scalar are validated; a bad layer raises.
     """
     assert qcfg.fq and qcfg.bits_out is not None and qcfg.bits_w is not None
-    ops.refuse_unported(f"convert_layer({name or 'layer'})",
-                        weight_format=weight_format)
+    tag = f"convert_layer({name or 'layer'})"
+    if weight_format not in quant.WEIGHT_FORMATS:
+        raise ValueError(f"{tag}: unknown weight_format {weight_format!r}; "
+                         f"expected one of {quant.WEIGHT_FORMATS}")
+    if quant.format_range(weight_format) < n_levels(qcfg.bits_w):
+        raise ValueError(
+            f"{tag}: weight_format={weight_format!r} holds codes in "
+            f"+-{quant.format_range(weight_format)} but bits_w="
+            f"{qcfg.bits_w} trains codes in +-{n_levels(qcfg.bits_w)}: "
+            "refusing to clip")
     w_codes = quantize_to_int(p["w"], p["s_w"], bits=qcfg.bits_w,
                               b=WEIGHT_BOUND)
+    flat = w_codes.reshape(-1, w_codes.shape[-1]).contiguous()
+    if weight_format == "int8":
+        stored = flat
+    elif w_codes.dim() >= 3:
+        # conv weights (taps..., cin, cout): every tap owns whole byte rows
+        stored = quant.pack_im2col_codes(flat, math.prod(w_codes.shape[:-2]),
+                                         weight_format)
+    else:
+        stored = quant.pack_codes(flat, weight_format)
     out = {
-        "w_codes": w_codes.reshape(-1, w_codes.shape[-1]).contiguous(),
+        "w_codes": stored,
         "weight_format": weight_format,
         "n_out": n_levels(qcfg.bits_out),
         "lo": 0 if relu_out else -n_levels(qcfg.bits_out),
@@ -84,7 +112,8 @@ def convert_layer(p, qcfg: QuantConfig, *, relu_out: bool = True,
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    """Static per-layer conversion recipe."""
+    """Static per-layer conversion recipe. ``weight_format`` is part of it:
+    :meth:`ConvertedStack.rederive` re-packs with the same format."""
     name: str
     relu_out: bool = True
     final: bool = False
@@ -108,9 +137,12 @@ class ConvertedStack:
     * ``layers``: {name: converted dict} from :func:`convert_layer`.
     * ``extras``: what the integer core does not own (FP edge layers, the
       ``entry`` quantizer scale, the ``s_out_last`` decode scale).
-    * ``specs``/``qcfg``: the static conversion recipe.
+    * ``specs``/``qcfg``: the static conversion recipe, so the stack can
+      re-derive itself from updated float weights (:meth:`rederive`).
 
-    ``stack["conv0"]`` resolves layers first, then extras.
+    ``stack["conv0"]`` resolves layers first, then extras. The reference's
+    residual-DAG hand-off edges have no counterpart yet: the ported stacks
+    are chains.
     """
 
     def __init__(self, qcfg: QuantConfig, specs: Sequence[LayerSpec],
@@ -154,6 +186,37 @@ class ConvertedStack:
                               to_device(self.layers, device),
                               to_device(self.extras, device))
 
+    def rederive(self, layer_params: Dict[str, dict], *, extras=None,
+                 check_handoff: bool = True) -> "ConvertedStack":
+        """Updated float layer params -> a freshly converted stack.
+
+        Re-runs the same recipe (specs, with their weight formats, and
+        qcfg) over ``layer_params``; from unchanged params it gives the same
+        codes, bytes and scalars. The extras that are functions of the
+        layer params are re-derived too: the ``entry`` scale (first layer's
+        s_in, with the port's ``inv_scale`` = e^{-s_in} where the stack
+        carries one) and the ``s_out_last`` decode scale. ``extras=None``
+        keeps the other extras (FP edge layers).
+        """
+        if check_handoff:
+            _check_handoff(layer_params, self.specs)
+        layers = {
+            s.name: convert_layer(layer_params[s.name], self.qcfg,
+                                  relu_out=s.relu_out, final=s.final,
+                                  name=s.name, weight_format=s.weight_format)
+            for s in self.specs
+        }
+        extras = dict(self.extras if extras is None else extras)
+        if "entry" in extras:
+            s_in = layer_params[self.specs[0].name]["s_in"]
+            entry = {"s_in": s_in}
+            if "inv_scale" in extras["entry"]:
+                entry["inv_scale"] = torch.exp(-torch.as_tensor(s_in))
+            extras["entry"] = entry
+        if "s_out_last" in extras:
+            extras["s_out_last"] = layer_params[self.specs[-1].name]["s_out"]
+        return ConvertedStack(self.qcfg, self.specs, layers, extras)
+
 
 def _check_handoff(layer_params: Dict[str, dict], specs: Sequence[LayerSpec],
                    *, atol: float = 1e-6):
@@ -181,10 +244,20 @@ def convert_stack(layer_params: Dict[str, dict], qcfg: QuantConfig, *,
                   specs: Sequence[LayerSpec], extras: Dict[str, Any],
                   weight_format: Optional[str] = None) -> ConvertedStack:
     """Convert an ordered chain of trained FQ layers into a ConvertedStack,
-    after checking the hand-off contract along the chain."""
+    after checking the hand-off contract along the chain.
+
+    ``weight_format`` overrides every spec's storage format: a format name,
+    or "auto" for the densest one that holds bits_w codes (ternary for
+    bits_w = 2). The resolved format is recorded on the specs, so
+    :meth:`ConvertedStack.rederive` re-packs identically. ``None`` keeps
+    each spec's own format.
+    """
     specs = tuple(specs)
     if weight_format is not None:
-        ops.refuse_unported("convert_stack", weight_format=weight_format)
+        fmt = (quant.auto_weight_format(n_levels(qcfg.bits_w))
+               if weight_format == "auto" else weight_format)
+        specs = tuple(dataclasses.replace(s, weight_format=fmt)
+                      for s in specs)
     _check_handoff(layer_params, specs)
     layers = {
         s.name: convert_layer(layer_params[s.name], qcfg,
@@ -193,6 +266,60 @@ def convert_stack(layer_params: Dict[str, dict], qcfg: QuantConfig, *,
         for s in specs
     }
     return ConvertedStack(qcfg, specs, layers, extras)
+
+
+def stack_digest(stack: ConvertedStack) -> str:
+    """Short content digest of a deployment artifact.
+
+    The reference's function, byte for byte: the qcfg label, the specs
+    (with their weight formats), then every layer's and every extra's
+    leaves in sorted-key order, a python number as its ``repr`` and an
+    array as dtype, shape and bytes. So a stack carried across with
+    ``interop`` digests to the reference's hex. Each tensor is hashed as
+    the numpy array the reference would hold (same dtype, shape and
+    C-order bytes, whatever its device). The port's ``entry.inv_scale``
+    (e^{-s_in}, carried so the entry quantizer needs no ``exp``) has no
+    reference leaf: it is a function of the hashed ``s_in`` and is left
+    out. A packed stack digests apart from its int8 twin: the format is in
+    the specs and the bytes differ.
+    """
+    h = hashlib.blake2s(digest_size=10)
+    h.update(stack.qcfg.label().encode())
+    for s in stack.specs:
+        h.update(f"{s.name}:{int(s.relu_out)}:{int(s.final)}"
+                 f":{s.weight_format}".encode())
+
+    def leaf(x):
+        if isinstance(x, (int, float, bool)):
+            h.update(repr(x).encode())
+            return
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        a = np.ascontiguousarray(np.asarray(x))
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                h.update(str(k).encode())
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        else:
+            leaf(x)
+
+    for name in stack.layer_names:
+        h.update(name.encode())
+        walk(stack.layers[name])
+    extras = dict(stack.extras)
+    if "entry" in extras:
+        extras["entry"] = {k: v for k, v in extras["entry"].items()
+                           if k != "inv_scale"}
+    walk(extras)
+    return h.hexdigest()
 
 
 def entry_codes(x, p, qcfg: QuantConfig, *, b_in: float = RELU_BOUND):

@@ -4,10 +4,11 @@ The reference (``repro``) and the port draw different random numbers and
 round ``exp`` differently (XLA's float32 ``exp`` is not torch's), so a port
 that re-derived the folded scalars could flip codes at rounding
 boundaries. These loaders take the reference's arrays, as numpy, and copy
-them bit for bit: int8 weight codes, the folded float32 ``rescale`` /
-``alpha`` / ``s_out`` scalars, the float edge layers (KWS's embedding, BN
-and head; DarkNet's conv0 and head), the entry scale and the decode scale. Nothing here imports the reference; callers hand over numpy arrays
-and plain objects.
+them bit for bit: int8 weight codes or packed (int4 / ternary) uint8
+bytes, the folded float32 ``rescale`` / ``alpha`` / ``s_out`` scalars, the
+float edge layers (KWS's embedding, BN and head; DarkNet's conv0 and head),
+the entry scale and the decode scale. Nothing here imports the reference;
+callers hand over numpy arrays and plain objects.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from .core.integer_inference import ConvertedStack, LayerSpec, to_device
-from .core.quant import QuantConfig
+from .core.quant import WEIGHT_FORMATS, QuantConfig
 from .device import DeviceLike, resolve_device
 
 
@@ -55,10 +56,14 @@ def stack_from_numpy(layers: Dict[str, dict], extras: Dict[str, Any], qcfg,
     specs = [_spec(s) for s in specs]
     for s in specs:
         fmt = layers[s.name].get("weight_format", "int8")
-        if s.weight_format != "int8" or fmt != "int8":
-            raise NotImplementedError(
-                f"stack_from_numpy({s.name}): weight_format={fmt!r} is not "
-                "ported yet (int8 only)")
+        if fmt != s.weight_format or fmt not in WEIGHT_FORMATS:
+            raise ValueError(f"stack_from_numpy({s.name}): layer format "
+                             f"{fmt!r} vs spec {s.weight_format!r}")
+        got = np.asarray(layers[s.name]["w_codes"]).dtype
+        want = np.dtype(np.int8 if fmt == "int8" else np.uint8)
+        if got != want:
+            raise ValueError(f"stack_from_numpy({s.name}): {fmt} codes are "
+                             f"{want}, got {got}")
     extras = _tensors(extras)
     if entry_inv_scale is not None:
         extras["entry"] = {**extras["entry"],

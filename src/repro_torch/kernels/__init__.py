@@ -4,7 +4,9 @@ K1 ``quantize.quantize_codes``, K2 ``fq_matmul.fq_matmul``, K3
 ``fq_conv.fq_conv2d`` and K3b ``fq_conv.fq_conv2d_pool`` (``fq_conv2d``
 with ``pool=``) each count their kernel launches in a ``launches``
 attribute on the wrapper; :func:`launch_counts` reads them and
-:func:`reset_launch_counts` sets them to 0.
+:func:`reset_launch_counts` sets them to 0. K2, K3 and K3b also count the
+launches that took packed weights (K5, the packed prologue) per format in
+``packed_launches``, which :func:`packed_launch_counts` reads.
 """
 from __future__ import annotations
 
@@ -16,12 +18,22 @@ from .quantize import quantize_codes
 
 _WRAPPERS = {"quantize_codes": quantize_codes, "fq_matmul": fq_matmul,
              "fq_conv2d": fq_conv2d, "fq_conv2d_pool": fq_conv2d_pool}
+PACKED = ("fq_matmul", "fq_conv2d", "fq_conv2d_pool")
 
 
 def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel, whatever the weight format."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
+def packed_launch_counts() -> Dict[str, int]:
+    """Launches on packed weights, as ``"<kernel>_<format>"``: n."""
+    return {f"{name}_{fmt}": n for name in PACKED
+            for fmt, n in _WRAPPERS[name].packed_launches.items()}
+
+
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS.values():
+    for name, fn in _WRAPPERS.items():
         fn.launches = 0
+        if name in PACKED:
+            fn.packed_launches = dict.fromkeys(fn.packed_launches, 0)

@@ -36,6 +36,17 @@
 // K step, so a gathered byte costs one add and a bounds test. The MACs are
 // __dp4a on CUDA cores: tensor-core mma, TMA gathers and a tile table per
 // shape are left for the PRs that make it fast.
+//
+// K5, packed weights (replaces fq_conv.py:330-333 and, for the channel
+// padding, :442-452): weights of factor 2 (int4) or 4 (ternary) hold
+// taps x cin_p rows, cin padded per tap to a multiple of the factor
+// (core/quant.py::pack_im2col_codes), packed factor rows per byte. The
+// TPU kernel pads the activations to cin_p channels with a copy; here the
+// reduction runs over taps x cin_p, index k -> (t, c) = (k / cin_p,
+// k % cin_p), and the gather loads 0 for c >= cin: no activation copy, and
+// the pad rows' codes meet zeros. The shared tile loop decodes each
+// weight byte once into the shared B tile (igemm.cuh). For int8,
+// cin_p == cin and the gather is the int8 one.
 #include <climits>
 
 #include "igemm.cuh"
@@ -108,9 +119,12 @@ struct PassRows {
 // The thread's ROWS output rows, resolved once per block to window origins
 // kept in registers; each K step adds one column offset (tap, channel).
 // Offsets are int32: the wrapper refuses activations of 2^31 bytes or more.
+// The reduction runs over kh * kw taps x Cin_p channels, Cin_p being Cin
+// padded to the weights' pack FACTOR; channels past Cin load 0.
+template <int FACTOR>
 struct ConvA {
   const int8_t* x;
-  int H, W, Cin, kw, dh, dw, K;
+  int H, W, Cin, Cin_p, kw, dh, dw, K;
   int off[fq::ROWS];  // ((b * H + h0) * W + w0) * Cin of the window origin
   int h0[fq::ROWS];   // ho * sh - ph; far out of range for rows past M
   int w0[fq::ROWS];   // wo * sw - pw
@@ -118,8 +132,9 @@ struct ConvA {
   template <class Rows>
   __device__ __forceinline__ ConvA(const int8_t* x_, const ConvShape& c,
                                    const Rows& rows, int tid)
-      : x(x_), H(c.H), W(c.W), Cin(c.Cin), kw(c.kw), dh(c.dh), dw(c.dw),
-        K(c.kh * c.kw * c.Cin) {
+      : x(x_), H(c.H), W(c.W), Cin(c.Cin),
+        Cin_p((c.Cin + FACTOR - 1) / FACTOR * FACTOR), kw(c.kw), dh(c.dh),
+        dw(c.dw), K(c.kh * c.kw * Cin_p) {
 #pragma unroll
     for (int q = 0; q < fq::ROWS; ++q) {
       int b = 0, ho = 0, wo = 0;
@@ -136,7 +151,8 @@ struct ConvA {
   }
   __device__ __forceinline__ Col col(int k) const {
     if (k >= K) return {0, 0, 0, false};
-    const int t = k / Cin, ch = k - t * Cin;
+    const int t = k / Cin_p, ch = k - t * Cin_p;
+    if (FACTOR > 1 && ch >= Cin) return {0, 0, 0, false};
     const int dy = (t / kw) * dh, dx = (t % kw) * dw;
     return {dy, dx, (dy * W + dx) * Cin + ch, true};
   }
@@ -147,7 +163,7 @@ struct ConvA {
   }
 };
 
-template <bool DEQUANT>
+template <bool DEQUANT, int FACTOR>
 __global__ void __launch_bounds__(fq::THREADS)
 fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ scale, void* __restrict__ out,
@@ -157,14 +173,15 @@ fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int M = c.B * c.Ho * c.Wo;
   const int m0 = blockIdx.x * fq::BM, n0 = blockIdx.y * fq::BN;
   int acc[4][4] = {};
-  const ConvA load_a(x, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo}, tid);
-  fq::mainloop(s, load_a, w, load_a.K, c.Cout, n0, tid, acc);
+  const ConvA<FACTOR> load_a(x, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo}, tid);
+  fq::mainloop<FACTOR>(s, load_a, w, load_a.K, load_a.K / FACTOR, c.Cout, n0,
+                       tid, acc);
   fq::store<DEQUANT>(out, acc, *scale, lo, n_out, M, c.Cout, m0, n0, tid);
 }
 
 // K3b, 2 x 2: thread (tx, ty) holds rows ty + 16 i, the four positions of
 // window g0 + ty, and columns tx + 16 j.
-template <bool DEQUANT>
+template <bool DEQUANT, int FACTOR>
 __global__ void __launch_bounds__(fq::THREADS)
 fq_conv_pool2_kernel(const int8_t* __restrict__ x,
                      const int8_t* __restrict__ w,
@@ -174,8 +191,9 @@ fq_conv_pool2_kernel(const int8_t* __restrict__ x,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int g0 = blockIdx.x * POOL2_WINDOWS, n0 = blockIdx.y * fq::BN;
   int acc[4][4] = {};
-  const ConvA load_a(x, c, Pool2Rows{win, g0}, tid);
-  fq::mainloop(s, load_a, w, load_a.K, c.Cout, n0, tid, acc);
+  const ConvA<FACTOR> load_a(x, c, Pool2Rows{win, g0}, tid);
+  fq::mainloop<FACTOR>(s, load_a, w, load_a.K, load_a.K / FACTOR, c.Cout, n0,
+                       tid, acc);
   const int g = g0 + ty;
   if (g >= win.Mp) return;
   const float sc = *scale;
@@ -189,7 +207,7 @@ fq_conv_pool2_kernel(const int8_t* __restrict__ x,
 }
 
 // K3b, any (qh, qw): one tile loop per window position, running max.
-template <bool DEQUANT>
+template <bool DEQUANT, int FACTOR>
 __global__ void __launch_bounds__(fq::THREADS)
 fq_conv_pool_kernel(const int8_t* __restrict__ x,
                     const int8_t* __restrict__ w,
@@ -206,8 +224,9 @@ fq_conv_pool_kernel(const int8_t* __restrict__ x,
   for (int di = 0; di < win.qh; ++di) {
     for (int dj = 0; dj < win.qw; ++dj) {
       int acc[4][4] = {};
-      const ConvA load_a(x, c, PassRows{win, g0, di, dj}, tid);
-      fq::mainloop(s, load_a, w, load_a.K, c.Cout, n0, tid, acc);
+      const ConvA<FACTOR> load_a(x, c, PassRows{win, g0, di, dj}, tid);
+      fq::mainloop<FACTOR>(s, load_a, w, load_a.K, load_a.K / FACTOR, c.Cout,
+                           n0, tid, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -217,44 +236,50 @@ fq_conv_pool_kernel(const int8_t* __restrict__ x,
   fq::store<DEQUANT>(out, mx, *scale, lo, n_out, win.Mp, c.Cout, g0, n0, tid);
 }
 
-template <bool DEQUANT>
+template <bool DEQUANT, int FACTOR>
 void launch_pool(const int8_t* x, const int8_t* w, const float* scale,
                  void* out, const ConvShape& c, const Windows& win, int lo,
                  int n_out, cudaStream_t st) {
   const unsigned gy = (c.Cout + fq::BN - 1) / fq::BN;
   if (win.qh == 2 && win.qw == 2) {
     dim3 grid((win.Mp + POOL2_WINDOWS - 1) / POOL2_WINDOWS, gy);
-    fq_conv_pool2_kernel<DEQUANT><<<grid, fq::THREADS, 0, st>>>(
+    fq_conv_pool2_kernel<DEQUANT, FACTOR><<<grid, fq::THREADS, 0, st>>>(
         x, w, scale, out, c, win, lo, n_out);
   } else {
     dim3 grid((win.Mp + fq::BM - 1) / fq::BM, gy);
-    fq_conv_pool_kernel<DEQUANT><<<grid, fq::THREADS, 0, st>>>(
+    fq_conv_pool_kernel<DEQUANT, FACTOR><<<grid, fq::THREADS, 0, st>>>(
         x, w, scale, out, c, win, lo, n_out);
   }
 }
 
 }  // namespace
 
+// factor: codes per weight byte (1 int8, 2 int4, 4 ternary); w holds
+// kh * kw * cin_p / factor rows.
 extern "C" int fq_conv2d_s8(const void* x, const void* w, const void* scale,
                             void* out, int B, int H, int W, int Cin, int Cout,
                             int kh, int kw, int sh, int sw, int ph, int pw,
-                            int dh, int dw, int Ho, int Wo, int dequant,
-                            int lo, int n_out, void* stream) {
+                            int dh, int dw, int Ho, int Wo, int factor,
+                            int dequant, int lo, int n_out, void* stream) {
   const ConvShape c{B, H, W, Cin, Cout, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo};
   const int M = B * Ho * Wo;
+  cudaError_t err = cudaSuccess;
   if (M > 0 && Cout > 0) {
     dim3 grid((M + fq::BM - 1) / fq::BM, (Cout + fq::BN - 1) / fq::BN);
     cudaStream_t st = (cudaStream_t)stream;
-    if (dequant)
-      fq_conv_kernel<true><<<grid, fq::THREADS, 0, st>>>(
-          (const int8_t*)x, (const int8_t*)w, (const float*)scale, out, c, lo,
-          n_out);
-    else
-      fq_conv_kernel<false><<<grid, fq::THREADS, 0, st>>>(
-          (const int8_t*)x, (const int8_t*)w, (const float*)scale, out, c, lo,
-          n_out);
+    const int8_t *xs = (const int8_t*)x, *ws = (const int8_t*)w;
+    const float* sc = (const float*)scale;
+    err = fq::with_factor(factor, [&](auto f) {
+      constexpr int F = decltype(f)::value;
+      if (dequant)
+        fq_conv_kernel<true, F><<<grid, fq::THREADS, 0, st>>>(
+            xs, ws, sc, out, c, lo, n_out);
+      else
+        fq_conv_kernel<false, F><<<grid, fq::THREADS, 0, st>>>(
+            xs, ws, sc, out, c, lo, n_out);
+    });
   }
-  return (int)cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // K3b: (Ho, Wo) is the conv output; the output is (B, Ho / qh, Wo / qw, Cout).
@@ -263,19 +288,23 @@ extern "C" int fq_conv2d_pool_s8(const void* x, const void* w,
                                  int W, int Cin, int Cout, int kh, int kw,
                                  int sh, int sw, int ph, int pw, int dh,
                                  int dw, int Ho, int Wo, int qh, int qw,
-                                 int dequant, int lo, int n_out,
+                                 int factor, int dequant, int lo, int n_out,
                                  void* stream) {
   const ConvShape c{B, H, W, Cin, Cout, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo};
   const int Hp = Ho / qh, Wp = Wo / qw;
   const Windows win{B * Hp * Wp, Hp * Wp, Wp, qh, qw};
+  cudaError_t err = cudaSuccess;
   if (win.Mp > 0 && Cout > 0) {
     const int8_t *xs = (const int8_t*)x, *ws = (const int8_t*)w;
     const float* sc = (const float*)scale;
     cudaStream_t st = (cudaStream_t)stream;
-    if (dequant)
-      launch_pool<true>(xs, ws, sc, out, c, win, lo, n_out, st);
-    else
-      launch_pool<false>(xs, ws, sc, out, c, win, lo, n_out, st);
+    err = fq::with_factor(factor, [&](auto f) {
+      constexpr int F = decltype(f)::value;
+      if (dequant)
+        launch_pool<true, F>(xs, ws, sc, out, c, win, lo, n_out, st);
+      else
+        launch_pool<false, F>(xs, ws, sc, out, c, win, lo, n_out, st);
+    });
   }
-  return (int)cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

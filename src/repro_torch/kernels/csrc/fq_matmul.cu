@@ -15,6 +15,11 @@
 // tile, with __dp4a on shared-memory staged codes and no padded copies in
 // device memory; the scale is read from a device pointer. Tensor-core mma
 // and TMA are left for the PRs that make it fast.
+//
+// K5: with packed B (factor 2 or 4: (ceil(K / factor), N) uint8 bytes from
+// core/quant.py::pack_codes) the tile loop decodes each byte into the
+// shared B tile (igemm.cuh, load_b_tile); the pad rows past K meet A lanes
+// that load 0. The weight bytes read fall by the factor.
 #include "igemm.cuh"
 
 namespace {
@@ -34,7 +39,7 @@ struct MatA {
   }
 };
 
-template <bool DEQUANT>
+template <bool DEQUANT, int FACTOR>
 __global__ void __launch_bounds__(fq::THREADS)
 fq_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
                  const float* __restrict__ scale, void* __restrict__ out,
@@ -44,26 +49,33 @@ fq_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
   const int m0 = blockIdx.x * fq::BM, n0 = blockIdx.y * fq::BN;
   int acc[4][4] = {};
   const MatA load_a(a, M, K, m0, tid);
-  fq::mainloop(s, load_a, w, K, N, n0, tid, acc);
+  fq::mainloop<FACTOR>(s, load_a, w, K, (K + FACTOR - 1) / FACTOR, N, n0,
+                       tid, acc);
   fq::store<DEQUANT>(out, acc, *scale, lo, n_out, M, N, m0, n0, tid);
 }
 
 }  // namespace
 
+// factor: codes per byte of w (1 int8, 2 int4, 4 ternary); w holds
+// ceil(K / factor) rows.
 extern "C" int fq_matmul_s8(const void* a, const void* w, const void* scale,
-                            void* out, int M, int N, int K, int dequant,
-                            int lo, int n_out, void* stream) {
+                            void* out, int M, int N, int K, int factor,
+                            int dequant, int lo, int n_out, void* stream) {
+  cudaError_t err = cudaSuccess;
   if (M > 0 && N > 0) {
     dim3 grid((M + fq::BM - 1) / fq::BM, (N + fq::BN - 1) / fq::BN);
     cudaStream_t st = (cudaStream_t)stream;
-    if (dequant)
-      fq_matmul_kernel<true><<<grid, fq::THREADS, 0, st>>>(
-          (const int8_t*)a, (const int8_t*)w, (const float*)scale, out, M, N,
-          K, lo, n_out);
-    else
-      fq_matmul_kernel<false><<<grid, fq::THREADS, 0, st>>>(
-          (const int8_t*)a, (const int8_t*)w, (const float*)scale, out, M, N,
-          K, lo, n_out);
+    const int8_t *as = (const int8_t*)a, *ws = (const int8_t*)w;
+    const float* sc = (const float*)scale;
+    err = fq::with_factor(factor, [&](auto f) {
+      constexpr int F = decltype(f)::value;
+      if (dequant)
+        fq_matmul_kernel<true, F><<<grid, fq::THREADS, 0, st>>>(
+            as, ws, sc, out, M, N, K, lo, n_out);
+      else
+        fq_matmul_kernel<false, F><<<grid, fq::THREADS, 0, st>>>(
+            as, ws, sc, out, M, N, K, lo, n_out);
+    });
   }
-  return (int)cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -13,7 +13,19 @@
 // which makes any K (300 and 135 on the KWS path) legal. The A operand is
 // a loader, so K2 reads a row-major matrix and K3 gathers the convolution
 // window in place (implicit GEMM) through the same loop.
+//
+// K5, the packed-weight prologue (replaces the unpack in the MAC prologue
+// of repro/kernels/fq_matmul.py:86-90 and fq_conv.py:330-333): B may hold
+// FACTOR codes per byte (1: int8, 2: int4, 4: ternary), a compile-time
+// parameter. Reduction row k lives in byte row k / FACTOR, bit field
+// k % FACTOR, little-endian in the byte, two's complement
+// (core/quant.py::pack_codes). Each thread loads one byte and writes its
+// FACTOR decoded codes into the shared B tile, so the dp4a loop below is
+// the int8 one and the FACTOR = 1 instantiation is the int8 loader. The
+// weights' device bytes shrink by FACTOR; the MACs do not change.
 #pragma once
+
+#include <type_traits>
 
 #include "epilogue.cuh"
 
@@ -31,21 +43,42 @@ struct Tiles {
   int b[BN][KW];
 };
 
-// B is (K, N) row-major int8. Thread tid loads column tid % BN of rows
-// tid / BN + 4 q: neighbouring threads read neighbouring bytes.
+// One field of a packed byte p: ((p >> (i * bits)) & mask ^ sign) - sign.
+template <int FACTOR>
+__device__ __forceinline__ int8_t unpack_field(int p, int i) {
+  constexpr int BITS = 8 / FACTOR;
+  constexpr int MASK = (1 << BITS) - 1, SIGN = 1 << (BITS - 1);
+  return (int8_t)((((p >> (i * BITS)) & MASK) ^ SIGN) - SIGN);
+}
+
+// B is (rows, N) row-major bytes: int8 codes (FACTOR = 1, rows = K) or
+// packed ones (rows = ceil(K / FACTOR)). A step covers BK / FACTOR byte
+// rows; thread tid loads column tid % BN of byte rows tid / BN + 4 q, so
+// neighbouring threads read neighbouring bytes, and writes the byte's
+// FACTOR codes to reduction lanes FACTOR * row + i of the shared tile.
+template <int FACTOR>
 __device__ __forceinline__ void load_b_tile(Tiles& s, const int8_t* __restrict__ w,
-                                            int K, int N, int k0, int n0,
+                                            int rows, int N, int k0, int n0,
                                             int tid) {
+  static_assert(FACTOR == 1 || FACTOR == 2 || FACTOR == 4, "1, 2 or 4");
   int8_t* bs = reinterpret_cast<int8_t*>(s.b);
   const int nl = tid % BN;
   const int n = n0 + nl;
+  const int r0 = k0 / FACTOR;
 #pragma unroll
-  for (int q = 0; q < BN * BK / THREADS; ++q) {
-    const int kl = tid / BN + q * (THREADS / BN);
-    const int k = k0 + kl;
+  for (int q = 0; q < BN * (BK / FACTOR) / THREADS; ++q) {
+    const int rl = tid / BN + q * (THREADS / BN);
+    const int r = r0 + rl;
     int8_t v = 0;
-    if (k < K && n < N) v = w[(long long)k * N + n];
-    bs[nl * (KW * 4) + kl] = v;
+    if (r < rows && n < N) v = w[(long long)r * N + n];
+    if (FACTOR == 1) {
+      bs[nl * (KW * 4) + rl] = v;
+    } else {
+      const int p = (uint8_t)v;
+#pragma unroll
+      for (int i = 0; i < FACTOR; ++i)
+        bs[nl * (KW * 4) + rl * FACTOR + i] = unpack_field<FACTOR>(p, i);
+    }
   }
 }
 
@@ -57,10 +90,12 @@ constexpr int ROW_STEP = THREADS / BK;
 // LoadA is built per thread and keeps its ROWS rows' state in registers:
 //   Col col(int k) const;                per-step prep of reduction index k
 //   int8_t at(int q, const Col&) const;  A[m0 + row q][k], 0 outside
-template <class LoadA>
+// K is the reduction length (A's lanes at or past it load 0); rows is B's
+// count of byte rows.
+template <int FACTOR, class LoadA>
 __device__ __forceinline__ void mainloop(Tiles& s, const LoadA& load_a,
                                          const int8_t* __restrict__ w, int K,
-                                         int N, int n0, int tid,
+                                         int rows, int N, int n0, int tid,
                                          int acc[4][4]) {
   int8_t* as = reinterpret_cast<int8_t*>(s.a);
   const int tx = tid % 16, ty = tid / 16;
@@ -72,7 +107,7 @@ __device__ __forceinline__ void mainloop(Tiles& s, const LoadA& load_a,
       const int r = tid / BK + q * ROW_STEP;
       as[r * (KW * 4) + kl] = load_a.at(q, col);
     }
-    load_b_tile(s, w, K, N, k0, n0, tid);
+    load_b_tile<FACTOR>(s, w, rows, N, k0, n0, tid);
     __syncthreads();
 #pragma unroll 4
     for (int kw = 0; kw < BK / 4; ++kw) {
@@ -88,6 +123,18 @@ __device__ __forceinline__ void mainloop(Tiles& s, const LoadA& load_a,
     }
     __syncthreads();
   }
+}
+
+// Host side: calls f(std::integral_constant<int, FACTOR>) for a weight
+// format's factor (1, 2 or 4); any other factor is cudaErrorInvalidValue.
+template <class F>
+inline cudaError_t with_factor(int factor, F&& f) {
+  switch (factor) {
+    case 1: f(std::integral_constant<int, 1>{}); return cudaSuccess;
+    case 2: f(std::integral_constant<int, 2>{}); return cudaSuccess;
+    case 4: f(std::integral_constant<int, 4>{}); return cudaSuccess;
+  }
+  return cudaErrorInvalidValue;
 }
 
 // One output element through the shared epilogue: f32 or int8 at out[o].

@@ -6,7 +6,10 @@ the reference and the im2col path:
 
   * activations  (B, H, W, Cin) int8 codes, NHWC,
   * weights      (kh*kw*Cin, Cout) int8 codes, tap-major (row t*Cin + c is
-                 tap (t // kw, t % kw), channel c),
+                 tap (t // kw, t % kw), channel c); packed (``weight_format``
+                 "int4" or "ternary", K5): (kh*kw*cin_p/factor, Cout) uint8,
+                 cin padded per tap to cin_p, a multiple of the factor
+                 (``core.quant.pack_im2col_codes``),
   * output       (B, Ho, Wo, Cout) int8 codes (requant) or f32 (dequant);
                  (B, Ho // ph, Wo // pw, Cout) with ``pool=(ph, pw)``.
 
@@ -14,7 +17,10 @@ For a CUDA tensor the wrapper launches ``csrc/fq_conv.cu``, which gathers
 each window in place with zero padding by bounds check; for a CPU tensor it
 runs the plain version, :func:`fq_conv2d_plain`. The reference's block
 picker and autotune table have no counterpart yet: the CUDA kernel's tile
-is fixed. ADC noise and packed weights are later slices of the port.
+is fixed. With packed weights the kernel reduces over taps x cin_p and
+decodes the bytes in its tile loop; the activations are not padded.
+``launches`` counts every launch, ``packed_launches[fmt]`` the packed ones.
+ADC noise is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -23,19 +29,36 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.quant import format_factor
 from . import _build
-from .fq_matmul import check_operands
+from .fq_matmul import check_operands, packed_counts
 from .ref import ref_fq_conv2d as fq_conv2d_plain
 
 _CONV_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
-_SIG = {"fq_conv2d_s8": _CONV_ARGS + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-        "fq_conv2d_pool_s8": _CONV_ARGS + [ctypes.c_int] * 5
+_SIG = {"fq_conv2d_s8": _CONV_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "fq_conv2d_pool_s8": _CONV_ARGS + [ctypes.c_int] * 6
         + [ctypes.c_void_p]}
 
 
 def conv_out_size(size: int, k: int, stride: int, padding: int,
                   dilation: int) -> int:
     return (size + 2 * padding - (k - 1) * dilation - 1) // stride + 1
+
+
+def check_weights(what: str, w_codes: torch.Tensor, taps: int, cin: int,
+                  weight_format: str) -> int:
+    """Check conv weights against their format's layout, (taps*cin, Cout)
+    int8 or (taps*cin_p/factor, Cout) packed uint8; returns the factor."""
+    factor = format_factor(weight_format)
+    cin_p = -(-cin // factor) * factor
+    if w_codes.shape[0] * factor != taps * cin_p:
+        raise ValueError(f"{what}: weights {tuple(w_codes.shape)} do not "
+                         f"match {taps} taps x cin={cin} ({weight_format}, "
+                         f"cin_p={cin_p})")
+    if factor > 1 and w_codes.dtype != torch.uint8:
+        raise ValueError(f"{what}: {weight_format} weights are packed "
+                         f"uint8, got {w_codes.dtype}")
+    return factor
 
 
 def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
@@ -45,18 +68,17 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
               dilation: Tuple[int, int] = (1, 1),
               pool: Optional[Tuple[int, int]] = None,
               epilogue: str = "requant", n_out: int = 7,
-              lo: int = 0) -> torch.Tensor:
+              lo: int = 0, weight_format: str = "int8") -> torch.Tensor:
     """Fused int8 NHWC conv2d with the requant/dequant epilogue.
 
     ``pool=(ph, pw)`` fuses a non-overlapping max-pool, floor mode, on the
     int32 accumulator before the epilogue (K3b); its launches are counted
-    on :func:`fq_conv2d_pool`.
+    on :func:`fq_conv2d_pool`. ``weight_format`` "int4" or "ternary" takes
+    packed weights, (kh*kw*cin_p/factor, Cout) uint8.
     """
     b, h, w, cin = a_codes.shape
-    kcin, cout = w_codes.shape
-    if kcin != kh * kw * cin:
-        raise ValueError(f"fq_conv2d: weights {tuple(w_codes.shape)} do not "
-                         f"match kh={kh} kw={kw} cin={cin}")
+    cout = w_codes.shape[1]
+    factor = check_weights("fq_conv2d", w_codes, kh * kw, cin, weight_format)
     ho = conv_out_size(h, kh, stride[0], padding[0], dilation[0])
     wo = conv_out_size(w, kw, stride[1], padding[1], dilation[1])
     if ho <= 0 or wo <= 0:
@@ -72,9 +94,10 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
         return fq_conv2d_plain(a_codes, w_codes, scale, kh=kh, kw=kw,
                                stride=stride, padding=padding,
                                dilation=dilation, pool=pool,
-                               epilogue=epilogue, n_out=n_out, lo=lo)
+                               epilogue=epilogue, n_out=n_out, lo=lo,
+                               weight_format=weight_format)
     what = "fq_conv2d" if pool is None else "fq_conv2d_pool"
-    check_operands(what, scale, epilogue, a_codes, w_codes)
+    check_operands(what, scale, epilogue, a_codes, w_codes, weight_format)
     if a_codes.numel() >= 2 ** 31:
         raise ValueError(f"{what}: the CUDA kernel indexes activations "
                          "with 32-bit offsets (< 2^31 elements)")
@@ -84,7 +107,7 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
                       dtype=torch.float32 if dequant else torch.int8)
     lib = _build.library("fq_conv", _SIG)
     shape = (b, h, w, cin, cout, kh, kw, *stride, *padding, *dilation, ho, wo)
-    tail = (int(dequant), int(lo), int(n_out))
+    tail = (factor, int(dequant), int(lo), int(n_out))
     with torch.cuda.device(a_codes.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         ptrs = (_build.ptr(a_codes), _build.ptr(w_codes), _build.ptr(scale),
@@ -94,14 +117,15 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
         else:
             err = lib.fq_conv2d_pool_s8(*ptrs, *shape, *pool, *tail, stream)
     _build.check(err, what, lib)
-    if pool is None:
-        fq_conv2d.launches += 1
-    else:
-        fq_conv2d_pool.launches += 1
+    counted = fq_conv2d if pool is None else fq_conv2d_pool
+    counted.launches += 1
+    if factor > 1:
+        counted.packed_launches[weight_format] += 1
     return out
 
 
 fq_conv2d.launches = 0
+fq_conv2d.packed_launches = packed_counts()
 
 
 def fq_conv2d_pool(a_codes: torch.Tensor, w_codes: torch.Tensor,
@@ -113,12 +137,13 @@ def fq_conv2d_pool(a_codes: torch.Tensor, w_codes: torch.Tensor,
 
 
 fq_conv2d_pool.launches = 0
+fq_conv2d_pool.packed_launches = packed_counts()
 
 
 def fq_conv1d(a_codes: torch.Tensor, w_codes: torch.Tensor,
               scale: torch.Tensor, *, ksize: int, dilation: int = 1,
               epilogue: str = "requant", n_out: int = 7,
-              lo: int = 0) -> torch.Tensor:
+              lo: int = 0, weight_format: str = "int8") -> torch.Tensor:
     """Fused int8 1-D conv (VALID, dilated: the paper's KWS layers).
 
     A (ksize, 1) conv2d over a width-1 axis: conv1d's tap-major weights are
@@ -126,5 +151,5 @@ def fq_conv1d(a_codes: torch.Tensor, w_codes: torch.Tensor,
     """
     y = fq_conv2d(a_codes.unsqueeze(2), w_codes, scale, kh=ksize, kw=1,
                   dilation=(dilation, 1), epilogue=epilogue, n_out=n_out,
-                  lo=lo)
+                  lo=lo, weight_format=weight_format)
     return y.squeeze(2)

@@ -7,8 +7,13 @@ Counterpart of ``repro.kernels.fq_matmul`` (Pallas). (M, K) int8 codes x
 (:func:`apply_epilogue`): ``requant`` gives the next layer's int8 codes,
 ``dequant`` gives f32 values. For a CUDA tensor the wrapper launches
 ``csrc/fq_matmul.cu``; for a CPU tensor it runs the plain version,
-:func:`fq_matmul_plain`. The ADC-noise epilogue and packed weight formats
-are later slices of the port.
+:func:`fq_matmul_plain`.
+
+Packed weights (``weight_format`` "int4" or "ternary", K5): B is
+(ceil(K/factor), N) uint8 from ``core.quant.pack_codes`` and the kernel
+decodes it in its tile loop. ``fq_matmul.launches`` counts every launch,
+``fq_matmul.packed_launches[fmt]`` the packed ones. The ADC-noise epilogue
+is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -16,26 +21,35 @@ import ctypes
 
 import torch
 
+from ..core.quant import WEIGHT_FORMATS, format_factor
 from . import _build
 from .ref import apply_epilogue, ref_fq_matmul as fq_matmul_plain
 
 __all__ = ["apply_epilogue", "fq_matmul", "fq_matmul_plain"]
 
-_SIG = {"fq_matmul_s8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_SIG = {"fq_matmul_s8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
         + [ctypes.c_void_p]}
 
 
+def packed_counts() -> dict:
+    """A fresh per-format counter of packed launches."""
+    return {f: 0 for f in WEIGHT_FORMATS if f != "int8"}
+
+
 def check_operands(what: str, scale: torch.Tensor, epilogue: str,
-                   *codes: torch.Tensor) -> None:
-    """Validate what the CUDA kernels take: contiguous int8 codes and a
-    one-element float32 scale, all on one CUDA device."""
-    dev = codes[0].device
+                   a_codes: torch.Tensor, w: torch.Tensor,
+                   weight_format: str = "int8") -> None:
+    """Validate what the CUDA kernels take: contiguous int8 activation codes,
+    contiguous weights in the format's dtype (int8, or uint8 when packed)
+    and a one-element float32 scale, all on one CUDA device."""
+    dev = a_codes.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    for c in codes:
-        if c.dtype != torch.int8 or not c.is_contiguous() or c.device != dev:
-            raise ValueError(f"{what}: codes must be contiguous int8 on {dev}, "
-                             f"got {c.dtype} on {c.device}")
+    w_dtype = torch.int8 if weight_format == "int8" else torch.uint8
+    for c, dtype in ((a_codes, torch.int8), (w, w_dtype)):
+        if c.dtype != dtype or not c.is_contiguous() or c.device != dev:
+            raise ValueError(f"{what}: operands must be contiguous {dtype} "
+                             f"on {dev}, got {c.dtype} on {c.device}")
     if (scale.device != dev or scale.dtype != torch.float32
             or scale.numel() != 1):
         raise ValueError(f"{what}: scale must be one float32 element on {dev}")
@@ -46,21 +60,30 @@ def check_operands(what: str, scale: torch.Tensor, epilogue: str,
 
 def fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
               scale: torch.Tensor, *, epilogue: str = "requant",
-              n_out: int = 7, lo: int = 0) -> torch.Tensor:
+              n_out: int = 7, lo: int = 0,
+              weight_format: str = "int8") -> torch.Tensor:
     """int8 (M, K) x int8 (K, N) with the fused requant/dequant epilogue.
 
     ``scale`` is the folded rescale (requant) or alpha (dequant), a
-    one-element float32 tensor on the codes' device.
+    one-element float32 tensor on the codes' device. Packed B
+    (``weight_format`` "int4" or "ternary") is (rows_p, N) uint8 with
+    0 <= rows_p * factor - K < factor.
     """
+    factor = format_factor(weight_format)
     m, k = a_codes.shape
-    k2, n = b_codes.shape
-    if k != k2:
+    rows, n = b_codes.shape
+    if not 0 <= rows * factor - k < factor:
         raise ValueError(f"fq_matmul: {tuple(a_codes.shape)} x "
-                         f"{tuple(b_codes.shape)}")
+                         f"{tuple(b_codes.shape)} ({weight_format})")
+    if factor > 1 and b_codes.dtype != torch.uint8:
+        raise ValueError(f"fq_matmul: {weight_format} weights are packed "
+                         f"uint8, got {b_codes.dtype}")
     if a_codes.device.type == "cpu":
         return fq_matmul_plain(a_codes, b_codes, scale, epilogue=epilogue,
-                               n_out=n_out, lo=lo)
-    check_operands("fq_matmul", scale, epilogue, a_codes, b_codes)
+                               n_out=n_out, lo=lo,
+                               weight_format=weight_format)
+    check_operands("fq_matmul", scale, epilogue, a_codes, b_codes,
+                   weight_format)
     dequant = epilogue == "dequant"
     out = torch.empty((m, n), device=a_codes.device,
                       dtype=torch.float32 if dequant else torch.int8)
@@ -69,11 +92,14 @@ def fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fq_matmul_s8(
             _build.ptr(a_codes), _build.ptr(b_codes), _build.ptr(scale),
-            _build.ptr(out), m, n, k, int(dequant), int(lo), int(n_out),
-            ctypes.c_void_p(stream))
+            _build.ptr(out), m, n, k, factor, int(dequant), int(lo),
+            int(n_out), ctypes.c_void_p(stream))
     _build.check(err, "fq_matmul", lib)
     fq_matmul.launches += 1
+    if factor > 1:
+        fq_matmul.packed_launches[weight_format] += 1
     return out
 
 
 fq_matmul.launches = 0
+fq_matmul.packed_launches = packed_counts()

@@ -9,9 +9,12 @@
   * conv2d + max-pool: ``"fused"`` is K3b (the pool on the int32
     accumulator in the conv's epilogue), ``"im2col"`` is K2 followed by
     :func:`maxpool2d` on the codes.
+  * packed weights (``weight_format`` "int4" or "ternary"): the fused
+    kernels read the packed bytes (K5, their packed prologue); im2col
+    unpacks them to the int8 layout first and stays the parity oracle for
+    every format, as in the reference.
 
-Noise and packed weight formats are later slices of the port; they are
-refused here, on every device.
+Noise is a later slice of the port; it is refused here, on every device.
 """
 from __future__ import annotations
 
@@ -20,21 +23,25 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.quant import n_levels
-from .fq_conv import conv_out_size, fq_conv1d, fq_conv2d
+from ..core.quant import n_levels, unpack_im2col_codes
+from .fq_conv import check_weights, conv_out_size, fq_conv1d, fq_conv2d
 from .fq_matmul import fq_matmul
 from .quantize import quantize_codes
 
 
-def refuse_unported(what: str, *, weight_format: str = "int8",
-                    noise=None) -> None:
+def refuse_unported(what: str, *, noise=None) -> None:
     """Raise for the options whose kernels are not ported yet."""
-    if weight_format != "int8":
-        raise NotImplementedError(
-            f"{what}: weight_format={weight_format!r} is not ported yet "
-            "(int8 only)")
     if noise is not None:
         raise NotImplementedError(f"{what}: the noise model is not ported yet")
+
+
+def oracle_weights(what: str, w_codes, taps: int, cin: int,
+                   weight_format: str):
+    """The im2col oracle's int8 (taps*cin, Cout) weights: checked as the
+    fused kernels check them, and unpacked when packed."""
+    if check_weights(what, w_codes, taps, cin, weight_format) == 1:
+        return w_codes
+    return unpack_im2col_codes(w_codes, taps, cin, weight_format)
 
 
 def conv_impl(explicit: Optional[str] = None,
@@ -62,10 +69,10 @@ def fold_alpha(s_a, s_w, *, bits_a: int, bits_w: int):
 
 def int_matmul(a_codes, b_codes, scale, *, epilogue="requant", n_out=7, lo=0,
                noise_sigma_acc=None, weight_format="int8"):
-    refuse_unported("int_matmul", weight_format=weight_format,
-                    noise=noise_sigma_acc)
+    """K2; packed B ((ceil(K/factor), N) uint8) goes to the kernel as is."""
+    refuse_unported("int_matmul", noise=noise_sigma_acc)
     return fq_matmul(a_codes, b_codes, scale, epilogue=epilogue, n_out=n_out,
-                     lo=lo)
+                     lo=lo, weight_format=weight_format)
 
 
 def quantize_to_codes(x, s, *, bits: int, b: float, inv_scale=None):
@@ -109,14 +116,16 @@ def fq_conv1d_int(a_codes, w_codes, scale, *, ksize: int, dilation: int = 1,
                   noise_sigma_acc=None, weight_format="int8"):
     """int8 1-D convolution (B, T, Cin) -> (B, T_out, Cout), VALID, dilated.
 
-    w_codes: (ksize*Cin, Cout) int8, tap-major.
+    w_codes: (ksize*Cin, Cout) int8, tap-major, or the ``weight_format``
+    packed uint8 layout (``core.quant.pack_im2col_codes``).
     """
-    refuse_unported("fq_conv1d_int", weight_format=weight_format,
-                    noise=noise_sigma_acc)
+    refuse_unported("fq_conv1d_int", noise=noise_sigma_acc)
     if conv_impl(impl, a_codes.device) == "fused":
         return fq_conv1d(a_codes, w_codes, scale, ksize=ksize,
                          dilation=dilation, epilogue=epilogue, n_out=n_out,
-                         lo=lo)
+                         lo=lo, weight_format=weight_format)
+    w_codes = oracle_weights("fq_conv1d_int", w_codes, ksize,
+                             a_codes.shape[-1], weight_format)
     b = a_codes.shape[0]
     patches, t_out = _im2col_1d(a_codes, ksize, dilation)
     y = fq_matmul(patches.reshape(b * t_out, -1), w_codes, scale,
@@ -128,14 +137,16 @@ def fq_conv2d_int(a_codes, w_codes, scale, *, ksize: int, stride: int = 1,
                   padding: int = 0, dilation: int = 1, epilogue="requant",
                   n_out=7, lo=0, impl=None, noise_sigma_acc=None,
                   weight_format="int8"):
-    """int8 2-D convolution (NHWC); w_codes (ksize*ksize*Cin, Cout) int8."""
-    refuse_unported("fq_conv2d_int", weight_format=weight_format,
-                    noise=noise_sigma_acc)
+    """int8 2-D convolution (NHWC); w_codes (ksize*ksize*Cin, Cout) int8, or
+    the ``weight_format`` packed uint8 layout, which im2col unpacks first."""
+    refuse_unported("fq_conv2d_int", noise=noise_sigma_acc)
     if conv_impl(impl, a_codes.device) == "fused":
         return fq_conv2d(a_codes, w_codes, scale, kh=ksize, kw=ksize,
                          stride=(stride, stride), padding=(padding, padding),
                          dilation=(dilation, dilation), epilogue=epilogue,
-                         n_out=n_out, lo=lo)
+                         n_out=n_out, lo=lo, weight_format=weight_format)
+    w_codes = oracle_weights("fq_conv2d_int", w_codes, ksize * ksize,
+                             a_codes.shape[-1], weight_format)
     b = a_codes.shape[0]
     patches, ho, wo = _im2col_2d(a_codes, ksize, stride, padding, dilation)
     y = fq_matmul(patches.reshape(b * ho * wo, -1), w_codes, scale,
@@ -167,14 +178,15 @@ def fq_conv2d_pool_int(a_codes, w_codes, scale, *, ksize: int,
     unfused conv and :func:`maxpool2d` on its output, the parity oracle
     (bit-exact because the epilogue is monotone for scale > 0).
     """
-    refuse_unported("fq_conv2d_pool_int", weight_format=weight_format,
-                    noise=noise_sigma_acc)
+    refuse_unported("fq_conv2d_pool_int", noise=noise_sigma_acc)
     if conv_impl(impl, a_codes.device) == "fused":
         return fq_conv2d(a_codes, w_codes, scale, kh=ksize, kw=ksize,
                          stride=(stride, stride), padding=(padding, padding),
                          dilation=(dilation, dilation), pool=(pool, pool),
-                         epilogue=epilogue, n_out=n_out, lo=lo)
+                         epilogue=epilogue, n_out=n_out, lo=lo,
+                         weight_format=weight_format)
     y = fq_conv2d_int(a_codes, w_codes, scale, ksize=ksize, stride=stride,
                       padding=padding, dilation=dilation, epilogue=epilogue,
-                      n_out=n_out, lo=lo, impl="im2col")
+                      n_out=n_out, lo=lo, impl="im2col",
+                      weight_format=weight_format)
     return maxpool2d(y, window=pool, stride=pool)

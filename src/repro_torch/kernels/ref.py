@@ -5,6 +5,9 @@ kernel wrappers use them for CPU tensors, and the tests and ``chip_smoke.py``
 hold the CUDA kernels against them on the card. They are no yardstick of
 speed.
 
+Packed weights (``weight_format`` "int4" or "ternary") are unpacked to the
+int8 layout first; the int8 arithmetic then runs unchanged.
+
 Integer products run in float64 and are cast back to int32: CUDA has no
 int32 ``torch.matmul``, and the float64 sum is exact in any order because
 |acc| <= 127 * 127 * K < 2^53 for every K this package meets.
@@ -15,6 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..core.quant import unpack_codes, unpack_im2col_codes
 
 
 def apply_epilogue(acc: torch.Tensor, scale: torch.Tensor, *, epilogue: str,
@@ -41,8 +46,16 @@ def int_accumulate(a_codes: torch.Tensor, b_codes: torch.Tensor) -> torch.Tensor
 
 def ref_fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
                   scale: torch.Tensor, *, epilogue: str = "requant",
-                  n_out: int = 7, lo: int = 0) -> torch.Tensor:
-    """int8 (M, K) x int8 (K, N) -> int32, then the fused epilogue."""
+                  n_out: int = 7, lo: int = 0,
+                  weight_format: str = "int8") -> torch.Tensor:
+    """int8 (M, K) x int8 (K, N) -> int32, then the fused epilogue.
+
+    Packed B is (ceil(K/factor), N) uint8 (``core.quant.pack_codes``); its
+    pad rows past K are dropped.
+    """
+    if weight_format != "int8":
+        b_codes = unpack_codes(b_codes, weight_format,
+                               rows=a_codes.shape[1])
     return apply_epilogue(int_accumulate(a_codes, b_codes), scale,
                           epilogue=epilogue, n_out=n_out, lo=lo)
 
@@ -61,11 +74,13 @@ def ref_fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
                   dilation: Tuple[int, int] = (1, 1),
                   pool: Optional[Tuple[int, int]] = None,
                   epilogue: str = "requant", n_out: int = 7,
-                  lo: int = 0) -> torch.Tensor:
+                  lo: int = 0, weight_format: str = "int8") -> torch.Tensor:
     """NHWC int8 conv as a sum over taps of window @ tap weights.
 
     a_codes (B, H, W, Cin); w_codes (kh*kw*Cin, Cout), tap-major (row
-    t*Cin + c is tap (t // kw, t % kw), channel c); zero padding.
+    t*Cin + c is tap (t // kw, t % kw), channel c); zero padding. Packed
+    weights are (kh*kw*cin_p/factor, Cout) uint8, cin padded per tap to
+    cin_p (``core.quant.pack_im2col_codes``).
 
     ``pool=(ph, pw)`` takes the max of the int32 accumulator over
     non-overlapping (ph, pw) windows, floor mode (rows and columns past
@@ -73,6 +88,8 @@ def ref_fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
     the order of the fused max-pool epilogue.
     """
     b, h, w, cin = a_codes.shape
+    if weight_format != "int8":
+        w_codes = unpack_im2col_codes(w_codes, kh * kw, cin, weight_format)
     cout = w_codes.shape[1]
     (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
     x = F.pad(a_codes.to(torch.float64), (0, 0, pw, pw, ph, ph))

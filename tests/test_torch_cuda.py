@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core import integer_inference as tii
+from repro_torch.core import quant as tq
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -195,7 +196,7 @@ def test_fq_conv2d_pool_matches_plain(cuda, shape, pool, epilogue, lo):
     assert torch.equal(got, im2col)
 
 
-def _darknet_reduced_stack(dev):
+def _darknet_reduced_stack(dev, weight_format=None):
     """The port's reduced DarkNet stack, s_out set per layer so codes stay
     live, with the hand-off contract enforced."""
     cfg, qcfg = tdn.DarkNetConfig.reduced(), QuantConfig(2, 4, 4, fq=True)
@@ -209,7 +210,7 @@ def _darknet_reduced_stack(dev):
         params[n] = {**params[n], "s_out": torch.tensor(0.5 + 0.3 * i,
                                                         device=dev)}
     stack = tdn.convert_int(tii.sync_handoff(params, names), state, qcfg,
-                            cfg)
+                            cfg, weight_format=weight_format)
     return cfg, qcfg, stack
 
 
@@ -236,3 +237,111 @@ def test_darknet_reduced_serving_on_the_card(cuda):
     for g in gpu:
         assert torch.equal(g.cpu(), cpu)
     assert (cpu != 0).any()
+
+
+# ---------------------------------------------------------------------------
+# K5: packed weights (int4, ternary) in K2, K3 and K3b
+# ---------------------------------------------------------------------------
+
+PACKED = ("int4", "ternary")
+
+
+@pytest.mark.parametrize("fmt", PACKED)
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES + [(8 * 138, 300, 45)])
+@pytest.mark.parametrize("epilogue,lo", [("requant", 0), ("requant", -7),
+                                         ("dequant", 0)])
+def test_fq_matmul_packed_matches_plain(cuda, fmt, m, k, n, epilogue, lo):
+    """K not a multiple of the factor (13, 257, 135 ...) included."""
+    rng = np.random.default_rng(m + k + n + len(fmt))
+    r = tq.format_range(fmt)
+    a = _codes(rng, (m, k), -127, 127, cuda)
+    w = _codes(rng, (k, n), -r, r, cuda)
+    b = tq.pack_codes(w, fmt)
+    s = torch.tensor(np.float32(1e-3), device=cuda)
+    kw = dict(epilogue=epilogue, n_out=7, lo=lo)
+    before = fq_matmul.packed_launches[fmt]
+    got = fq_matmul(a, b, s, weight_format=fmt, **kw)
+    torch.cuda.synchronize()
+    assert fq_matmul.packed_launches[fmt] == before + 1
+    assert torch.equal(got, tref.ref_fq_matmul(a, b, s, weight_format=fmt,
+                                               **kw))
+    assert torch.equal(got, fq_matmul(a, w, s, **kw))
+
+
+@pytest.mark.parametrize("fmt", PACKED)
+@pytest.mark.parametrize("cin", [5, 45, 64])
+@pytest.mark.parametrize("pool", [None, 2, 3])
+@pytest.mark.parametrize("epilogue,lo", [("requant", 0), ("requant", -7),
+                                         ("dequant", 0)])
+def test_fq_conv2d_packed_matches_plain(cuda, fmt, cin, pool, epilogue, lo):
+    """Ragged cin: the kernel reduces over taps x cin_p and loads 0 for the
+    pad channels, on a strided, padded, dilated conv and with K3b."""
+    rng = np.random.default_rng(cin + (pool or 0))
+    r = tq.format_range(fmt)
+    a = _codes(rng, (2, 17, 13, cin), 0, 15, cuda)
+    w = _codes(rng, (9 * cin, 67), -r, r, cuda)
+    wp = tq.pack_im2col_codes(w, 9, fmt)
+    s = torch.tensor(np.float32(0.011), device=cuda)
+    kw = dict(kh=3, kw=3, stride=(1, 2), padding=(1, 1), dilation=(2, 1),
+              pool=None if pool is None else (pool, pool),
+              epilogue=epilogue, n_out=15, lo=lo)
+    counted = fq_conv2d if pool is None else fq_conv2d_pool
+    before = counted.packed_launches[fmt]
+    got = fq_conv2d(a, wp, s, weight_format=fmt, **kw)
+    torch.cuda.synchronize()
+    assert counted.packed_launches[fmt] == before + 1
+    assert torch.equal(got, tref.ref_fq_conv2d(a, wp, s, weight_format=fmt,
+                                               **kw))
+    assert torch.equal(got, fq_conv2d(a, w, s, **kw))
+
+
+@pytest.mark.parametrize("fmt", PACKED)
+@pytest.mark.parametrize("t,cin,dil", KWS_LAYERS)
+def test_kws_conv_packed_fused_equals_im2col(cuda, fmt, t, cin, dil):
+    rng = np.random.default_rng(t + dil + len(fmt))
+    a = _codes(rng, (8, t, cin), 0, 7, cuda)
+    w = tq.pack_im2col_codes(_codes(rng, (3 * cin, 45), -1, 1, cuda), 3, fmt)
+    s = torch.tensor(np.float32(0.0213), device=cuda)
+    kw = dict(ksize=3, dilation=dil, n_out=7, lo=0, weight_format=fmt)
+    fused = tops.fq_conv1d_int(a, w, s, impl="fused", **kw)
+    im2col = tops.fq_conv1d_int(a, w, s, impl="im2col", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, im2col)
+
+
+def test_packed_stacks_serve_like_int8_on_the_card(cuda):
+    """KWS full width and reduced DarkNet: ternary and int4 stacks give the
+    int8 stack's logits under every impl, through the packed kernels."""
+    from repro_torch import kernels
+    cfg, qcfg = tkws.KWSConfig(), QuantConfig(2, 4, 4, fq=True)
+    params, state = tkws.init(torch.Generator().manual_seed(0), cfg)
+    params = tkws.to_fq(params, state, cfg)
+    names = tkws.conv_names(cfg)
+    for n in names:
+        params[n] = {**params[n], "s_out": torch.tensor(0.1, device=cuda)}
+    params = tii.sync_handoff(params, names)
+    x = np.random.default_rng(1).standard_normal(
+        (4, cfg.seq_len, cfg.n_mfcc)).astype(np.float32)
+    want = tkws.int_serve_fn(tkws.convert_int(params, state, qcfg, cfg),
+                             qcfg, cfg, impl="fused")(x)
+    for fmt in ("auto", "int4"):
+        stack = tkws.convert_int(params, state, qcfg, cfg, weight_format=fmt)
+        kernels.reset_launch_counts()
+        fused = tkws.int_serve_fn(stack, qcfg, cfg, impl="fused")(x)
+        torch.cuda.synchronize()
+        packed = kernels.packed_launch_counts()
+        f = "ternary" if fmt == "auto" else fmt
+        assert packed[f"fq_conv2d_{f}"] == len(names)
+        assert torch.equal(fused, want)
+        assert torch.equal(tkws.int_serve_fn(stack, qcfg, cfg,
+                                             impl="im2col")(x), want)
+    dcfg, dq, d8 = _darknet_reduced_stack(cuda)
+    xd = np.random.default_rng(1).standard_normal((4, 16, 16, 3)).astype(
+        np.float32)
+    want = tdn.int_serve_fn(d8, dq, dcfg, impl="fused")(xd)
+    for fmt in PACKED:
+        _, _, stack = _darknet_reduced_stack(cuda, weight_format=fmt)
+        for kw in (dict(impl="fused"), dict(impl="fused", fuse_pool=False),
+                   dict(impl="im2col")):
+            assert torch.equal(tdn.int_serve_fn(stack, dq, dcfg, **kw)(xd),
+                               want)

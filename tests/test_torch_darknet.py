@@ -12,6 +12,8 @@ conv13 on, and a parity test on such a stack checks nothing there.
 
 The reference runs its im2col impl (its fused Pallas conv does not trace on
 current jax); the port runs on ``device="cpu"``, through the plain versions.
+The ternary twin of each stack (``convert_int(weight_format="auto")``, from
+the same calibrated params) is carried and checked the same way.
 
 Tolerances:
   * stack, entry codes (given the same float pre-entry activations) and
@@ -348,7 +350,68 @@ def test_port_builds_and_serves_its_own_reduced_stack():
                 fuse_pool=fuse_pool))
 
 
-def test_noise_packed_and_quantized_modes_refused():
+@functools.lru_cache(maxsize=None)
+def _ternary(name):
+    """(reference ternary stack, the port's carried copy)."""
+    fq_params, state, _ = _reference(name)
+    ip = jdn.convert_int(fq_params, state, JQCFG, CFGS[name][0],
+                         weight_format="auto")
+    return ip, interop.stack_from_numpy(
+        _np(ip.layers), _np(ip.extras), ip.qcfg, ip.specs,
+        entry_inv_scale=np.asarray(jnp.exp(-ip["entry"]["s_in"])),
+        device="cpu")
+
+
+@pytest.mark.parametrize("name", list(CFGS))
+def test_ternary_stack_carried_bit_for_bit(name):
+    """Every cin here is a multiple of 4, so the ternary stack is a quarter
+    of the int8 one's bytes; the digests equal the reference's."""
+    ip, st = _ternary(name)
+    ip8 = _reference(name)[2]
+    for n in ip.layer_names:
+        assert st[n]["w_codes"].dtype == torch.uint8
+        np.testing.assert_array_equal(st[n]["w_codes"].numpy(),
+                                      np.asarray(ip[n]["w_codes"]))
+        assert 4 * st[n]["w_codes"].numel() == _carried(name)[n][
+            "w_codes"].numel()
+    assert tii.stack_digest(st) == jii.stack_digest(ip)
+    assert tii.stack_digest(_carried(name)) == jii.stack_digest(ip8)
+
+
+@pytest.mark.parametrize("name", list(CFGS))
+@pytest.mark.parametrize("fuse_pool", [True, False])
+@pytest.mark.parametrize("impl", ["fused", "im2col"])
+def test_ternary_int_core_bit_exact(name, impl, fuse_pool):
+    ip, st = _ternary(name)
+    jcfg, tcfg, _, _ = CFGS[name]
+    codes = _ref_entry(name)[1]
+    want = _ref_core(name)
+    if impl == "im2col" and fuse_pool:  # the reference's ternary oracle
+        want = np.asarray(jdn.int_core(ip, jnp.asarray(codes), JQCFG, jcfg,
+                                       impl="im2col"))
+        np.testing.assert_array_equal(want, _ref_core(name))
+    got = tdn.int_core(st, torch.from_numpy(codes), QCFG, tcfg, impl=impl,
+                       fuse_pool=fuse_pool)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", list(CFGS))
+def test_ternary_logits_within_tolerance(name):
+    ip, st = _ternary(name)
+    jcfg, tcfg, _, batch = CFGS[name]
+    x = _images(name)
+    want = np.asarray(jdn.int_apply(ip, jnp.asarray(x), JQCFG, jcfg,
+                                    impl="im2col"))
+    got = tdn.int_apply(st, torch.from_numpy(x), QCFG, tcfg)
+    assert got.shape == (batch, jcfg.num_classes)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
+def test_noise_and_quantized_modes_refused_packed_served():
+    """Noise and the quantized float modes are not ported and raise; the
+    packed formats are: a packed stack serves the int8 stack's logits under
+    every impl, and an unknown format raises."""
     st, tcfg = _carried("reduced"), CFGS["reduced"][1]
     x = torch.from_numpy(_images("reduced"))
     with pytest.raises(NotImplementedError):
@@ -358,8 +421,19 @@ def test_noise_packed_and_quantized_modes_refused():
     fq_params, state, _ = _reference("reduced")
     params, bn = interop.params_from_numpy(_np(fq_params), _np(state),
                                            device="cpu")
+    want = tdn.int_apply(tdn.convert_int(params, bn, QCFG, tcfg), x, QCFG,
+                         tcfg)
     for fmt in ("ternary", "int4"):
+        packed = tdn.convert_int(params, bn, QCFG, tcfg, weight_format=fmt)
+        assert packed["conv1"]["w_codes"].dtype == torch.uint8
         with pytest.raises(NotImplementedError):
-            tdn.convert_int(params, bn, QCFG, tcfg, weight_format=fmt)
+            tdn.int_apply(packed, x, QCFG, tcfg, noise=object())
+        for impl in ("fused", "im2col"):
+            for fuse_pool in (True, False):
+                assert torch.equal(tdn.int_apply(
+                    packed, x, QCFG, tcfg, impl=impl, fuse_pool=fuse_pool),
+                    want)
+    with pytest.raises(ValueError):
+        tdn.convert_int(params, bn, QCFG, tcfg, weight_format="int2")
     with pytest.raises(NotImplementedError):
         tfql.fq_conv2d(params["conv0"], x, QCFG)

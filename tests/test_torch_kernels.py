@@ -306,21 +306,41 @@ def test_conv_impl_dispatch():
 
 
 def test_unported_options_refused_on_cpu():
-    a = torch.zeros(2, 8, 4, dtype=torch.int8)
-    w = torch.zeros(12, 3, dtype=torch.int8)
+    """Noise is still refused; packed formats are accepted and give the int8
+    result, and an unknown format or a mismatched packed operand raises
+    ValueError."""
+    from repro_torch.core import quant as tq
+    rng = np.random.default_rng(5)
+    a = _t(_codes(rng, (2, 8, 4), 0, 7))
+    w = _t(_codes(rng, (12, 3), -1, 1))
     s = torch.tensor(0.1)
-    with pytest.raises(NotImplementedError):
-        tops.fq_conv1d_int(a, w, s, ksize=3, weight_format="ternary")
     with pytest.raises(NotImplementedError):
         tops.fq_conv1d_int(a, w, s, ksize=3, noise_sigma_acc=0.5)
     with pytest.raises(NotImplementedError):
-        tops.int_matmul(a[0], w[:4], s, weight_format="int4")
-    with pytest.raises(NotImplementedError):
         tops.fq_conv2d_pool_int(a.unsqueeze(2), w, s, ksize=1,
                                 noise_sigma_acc=0.5)
-    with pytest.raises(NotImplementedError):
-        tops.fq_conv2d_pool_int(a.unsqueeze(2), w, s, ksize=1,
-                                weight_format="int4")
+    for fmt in ("ternary", "int4"):
+        wp = tq.pack_im2col_codes(w, 3, fmt)
+        for impl in ("fused", "im2col"):
+            assert torch.equal(
+                tops.fq_conv1d_int(a, wp, s, ksize=3, impl=impl,
+                                   weight_format=fmt),
+                tops.fq_conv1d_int(a, w, s, ksize=3, impl=impl))
+        assert torch.equal(
+            tops.int_matmul(a[0], tq.pack_codes(w[:4], fmt), s,
+                            weight_format=fmt),
+            tops.int_matmul(a[0], w[:4], s))
+        with pytest.raises(ValueError):
+            tops.fq_conv1d_int(a, w, s, ksize=3, impl="im2col",
+                               weight_format=fmt)
+        with pytest.raises(ValueError):
+            tops.fq_conv1d_int(a, w, s, ksize=3, impl="fused",
+                               weight_format=fmt)
+    with pytest.raises(ValueError):
+        tops.int_matmul(a[0], w[:4], s, weight_format="int2")
+    with pytest.raises(ValueError):
+        tops.fq_conv2d_pool_int(a.unsqueeze(2), w[:4], s, ksize=1,
+                                weight_format="int2")
 
 
 def test_cpu_path_launches_no_kernel():

@@ -5,7 +5,9 @@ The reference stack is the shared trained-checkpoint stand-in
 carried into the port bit for bit with ``interop.stack_from_numpy``,
 together with the reference's own entry ``inv_scale`` (XLA's f32 ``exp`` is
 not torch's). The reference runs its im2col impl, its declared parity
-oracle; the port runs on ``device="cpu"``.
+oracle; the port runs on ``device="cpu"``. The ternary twin of each stack
+(``convert_int(weight_format="auto")``, 4 codes per byte) is carried and
+checked the same way, at request batch 2.
 
 Tolerances:
   * entry codes, given the same float input, and the integer core, given
@@ -199,7 +201,75 @@ def test_port_builds_and_serves_its_own_stack():
         tkws.convert_int(bad, state, QCFG, cfg)
 
 
-def test_noise_and_packed_formats_refused():
+@functools.lru_cache(maxsize=None)
+def _ternary(name):
+    """(reference ternary stack, the port's carried copy)."""
+    fq_params, state, _ = _reference(name)
+    ip = jkws.convert_int(fq_params, state, JQCFG, CFGS[name][0],
+                          weight_format="auto")
+    return ip, interop.stack_from_numpy(
+        _np(ip.layers), _np(ip.extras), ip.qcfg, ip.specs,
+        entry_inv_scale=np.asarray(jnp.exp(-ip["entry"]["s_in"])),
+        device="cpu")
+
+
+@pytest.mark.parametrize("name", list(CFGS))
+def test_ternary_stack_carried_and_converted_bit_for_bit(name):
+    """Packed bytes of the carried stack and of the port's own conversion
+    equal the reference's; digests equal the reference's, and differ from
+    the int8 stack's."""
+    ip, st = _ternary(name)
+    fq_params, state, ip8 = _reference(name)
+    params, bn = interop.params_from_numpy(_np(fq_params), _np(state),
+                                           device="cpu")
+    own = tkws.convert_int(params, bn, QCFG, CFGS[name][1],
+                           weight_format="auto")
+    assert {s.weight_format for s in st.specs} == {"ternary"}
+    assert own.specs == st.specs
+    for n in ip.layer_names:
+        want = np.asarray(ip[n]["w_codes"])
+        assert st[n]["w_codes"].dtype == torch.uint8
+        assert st[n]["weight_format"] == "ternary"
+        np.testing.assert_array_equal(st[n]["w_codes"].numpy(), want)
+        np.testing.assert_array_equal(own[n]["w_codes"].numpy(), want)
+    assert tii.stack_digest(st) == jii.stack_digest(ip)
+    assert tii.stack_digest(_carried(name)) == jii.stack_digest(ip8)
+    assert tii.stack_digest(st) != tii.stack_digest(_carried(name))
+
+
+@pytest.mark.parametrize("name", list(CFGS))
+@pytest.mark.parametrize("impl", ["fused", "im2col"])
+def test_ternary_int_core_bit_exact(name, impl):
+    """Request batch 2: the port's int_core on the ternary stack equals the
+    reference's im2col oracle on its ternary stack, and the int8 core."""
+    ip, st = _ternary(name)
+    jcfg, tcfg, _ = CFGS[name]
+    codes = jii.entry_codes(_ref_h(ip, _inputs(name)[:2]), ip["entry"],
+                            JQCFG, b_in=RELU_BOUND)
+    want = np.asarray(jkws.int_core(ip, codes, JQCFG, jcfg, impl="im2col"))
+    got = tkws.int_core(st, torch.from_numpy(np.array(codes)), QCFG, tcfg,
+                        impl=impl)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, tkws.int_core(
+        _carried(name), torch.from_numpy(np.array(codes)), QCFG, tcfg,
+        impl=impl))
+
+
+@pytest.mark.parametrize("name", list(CFGS))
+def test_ternary_logits_within_tolerance(name):
+    ip, st = _ternary(name)
+    jcfg, tcfg, _ = CFGS[name]
+    x = _inputs(name)[:2]
+    want = np.asarray(jkws.int_apply(ip, jnp.asarray(x), JQCFG, jcfg,
+                                     impl="im2col"))
+    got = tkws.int_apply(st, torch.from_numpy(x), QCFG, tcfg)
+    assert got.shape == (2, jcfg.num_classes)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_noise_refused_and_packed_formats_served():
+    """Noise is not ported and raises; the packed formats are: a packed stack
+    serves the int8 stack's logits, and an unknown format raises."""
     st, tcfg = _carried("reduced"), CFGS["reduced"][1]
     x = torch.from_numpy(_inputs("reduced"))
     with pytest.raises(NotImplementedError):
@@ -207,8 +277,18 @@ def test_noise_and_packed_formats_refused():
     fq_params, state, _ = _reference("reduced")
     params, bn = interop.params_from_numpy(_np(fq_params), _np(state),
                                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        tkws.convert_int(params, bn, QCFG, tcfg, weight_format="ternary")
+    want = tkws.int_apply(tkws.convert_int(params, bn, QCFG, tcfg), x, QCFG,
+                          tcfg)
+    for fmt in ("ternary", "int4", "auto"):
+        packed = tkws.convert_int(params, bn, QCFG, tcfg, weight_format=fmt)
+        assert packed["conv0"]["w_codes"].dtype == torch.uint8
+        with pytest.raises(NotImplementedError):
+            tkws.int_apply(packed, x, QCFG, tcfg, noise=object())
+        for impl in ("fused", "im2col"):
+            assert torch.equal(tkws.int_apply(packed, x, QCFG, tcfg,
+                                              impl=impl), want)
+    with pytest.raises(ValueError):
+        tkws.convert_int(params, bn, QCFG, tcfg, weight_format="int2")
 
 
 def test_stack_to_device_copies_every_tensor():
