@@ -37,13 +37,29 @@ Phases, each of which must pass:
    at every KWS and DarkNet shape above (K2 with ``pack_codes`` weights),
    plus off-path shapes (ragged cin 5 and 45, K not a multiple of the pack
    factor, dequant, lo < 0, a 3 x 3 pool), and timed beside its int8 twin;
-7. serve_kws and serve_darknet also build the ternary (``weight_format=
+7. kernels_noise: K4, the ADC-noise epilogue, in K2, K3 and K3b. It first
+   checks the port's threefry on the card against two values taken from
+   ``jax.random`` (jax 0.9), then holds each noisy kernel bit-exact against
+   its plain version for int8, int4 and ternary weights at mac_chunks 1 and
+   4, at every KWS and DarkNet shape above and at off-path shapes (ragged
+   cin, odd N, a 3 x 3 pool, lo < 0, dequant), and times it beside the
+   clean kernel on the same operands at the record batches;
+8. serve_kws and serve_darknet also build the ternary (``weight_format=
    "auto"``) and int4 stacks from the same params and serve the same
    requests with every conv impl, each format counted in a run of its own.
    They check packed fused == packed im2col == int8 fused (codes and
    logits), that the fused path launched only packed K3 / K3b, that fused
    DarkNet runs as many device ops as with int8 weights, the digests, and
-   print the weight bytes on the device.
+   print the weight bytes on the device;
+9. serve_kws and serve_darknet then serve the same requests again with the
+   paper's §4.4 noise (Table 7's noisiest condition, a fixed key) at
+   mac_chunks 1 and 4, from every format under every conv impl, each
+   (format, chunks) counted in a run of its own. They check the impls
+   identical (codes and logits), the GPU integer core against the port's
+   CPU run given the same entry codes and key (codes that differ are
+   counted: the normal draws are not bit-exact across devices), that every
+   conv launch was noisy and the fused path launched only K3 / K3b, and
+   that the noise moved the logits; they time noisy serving.
 
 It imports nothing of JAX or of the JAX package ``repro``. The second-to-
 last lines are the ``{"kernels": [...]}`` record (one entry per kernel and
@@ -76,8 +92,19 @@ QUANTILE = 0.99          # the live calibration's percentile
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-FP32_OPS_PER_S = 67e12
+# the clock of the float32 peak: 67e12 = 132 SMs x 128 lanes x 2 x 1.98 GHz
+SM_CLOCKS_PER_S = 132 * 1.98e9
+# peak rate of each type of work, in operations per second: the tensor
+# cores' int8 MACs and float32 outside them (data sheet); then per SM and
+# clock (CUDA programming guide, arithmetic throughput, compute capability
+# 9.0): 64 lanes of the integer ALU pipe (shifts, logic, IADD3), 64 of
+# IMAD on the fmaheavy pipe, 16 int-to-float conversions, and 128
+# instructions dispatched (4 schedulers x 32 threads), whatever their pipe
+PEAKS = {"int8": 1979e12, "fp32": 67e12,
+         "alu": 64 * SM_CLOCKS_PER_S, "imad": 64 * SM_CLOCKS_PER_S,
+         "i2f": 16 * SM_CLOCKS_PER_S, "dispatch": 128 * SM_CLOCKS_PER_S}
+# float32 adds and multiplies share the 128 fma lanes (fmaheavy and
+# fmalite) with IMAD, and dispatch with everything: they bound nothing alone
 
 REPLACES = {
     "quantize_codes": "src/repro/kernels/quantize.py:25",
@@ -99,6 +126,37 @@ PACKED_REPLACES = {"fq_matmul": "src/repro/kernels/fq_matmul.py:86",
                    "fq_conv2d": "src/repro/kernels/fq_conv.py:330",
                    "fq_conv2d_pool": "src/repro/kernels/fq_conv.py:330"}
 PROLOGUE = "src/repro_torch/kernels/csrc/igemm.cuh"
+# K4, the ADC-noise epilogue, in each kernel that has an epilogue
+NOISE_REPLACES = {"fq_matmul": "src/repro/kernels/fq_matmul.py:98",
+                  "fq_conv2d": "src/repro/kernels/fq_conv.py:342",
+                  "fq_conv2d_pool": "src/repro/kernels/fq_conv.py:342"}
+NOISE_EPILOGUE = "src/repro_torch/kernels/csrc/noise.cuh"
+CHUNKS = (1, 4)            # mac_chunks of the noisy runs
+NOISE_KEY = 5              # PRNGKey of the noisy serving runs
+# the field's instructions per conv/GEMM output element and chunk
+# (noise.cuh), counting only what depends on the output index (the seed's
+# hash, one per chunk, is the same for every output): 13 hashes of 3
+# shifts, 3 xors and 2 wrapping multiplies; the index xor; 12 salted adds
+# and 12 ">> 8"; 12 int-to-float conversions; 12 float adds, the 2^-24
+# multiply, the -6 add and the add to the chunk sum
+FIELD_PER_CHUNK = {"alu": 13 * 6 + 1 + 12 + 12, "imad": 13 * 2, "i2f": 12,
+                   "fadd": 12 + 3}
+
+
+def field_work(outputs: int, chunks: int) -> dict:
+    """{type of work: instructions} of the noise field over ``outputs``
+    output elements at ``chunks`` chunks. Once per output besides: the
+    index (one IMAD), f32(acc) (one I2F), the sigma / K multiply and the
+    add to f32(acc), less the first chunk's add to the sum."""
+    n = {k: outputs * chunks * v for k, v in FIELD_PER_CHUNK.items()}
+    n["imad"] += outputs
+    n["i2f"] += outputs
+    n["fadd"] += outputs
+    return {"alu": n["alu"], "imad": n["imad"], "i2f": n["i2f"],
+            "dispatch": sum(n.values())}
+# reference values from jax 0.9 (jax_threefry_partitionable on)
+THREEFRY_SPLIT0 = [2724472204, 3573582090]   # split(PRNGKey(5), 3)[0]
+THREEFRY_SEED2 = 4107458132                  # bits(split(PRNGKey(5), 3)[2])
 # the packed kernels the serving paths launch (K2 takes packed weights only
 # off the model path: the im2col oracle unpacks first)
 PACKED_PATH_KERNELS = {
@@ -107,12 +165,22 @@ PACKED_PATH_KERNELS = {
                      for k in ("fq_conv2d", "fq_conv2d_pool"))}
 
 
+def variant(name: str):
+    """"fq_conv2d_pool_ternary_noisy_c4" -> ("fq_conv2d_pool", "ternary",
+    4); a clean kernel has chunks None, an int8 one format "int8"."""
+    m = re.fullmatch(r"(.*?)(?:_(ternary|int4))?(?:_noisy_c(\d+))?", name)
+    return (m.group(1), m.group(2) or "int8",
+            int(m.group(3)) if m.group(3) else None)
+
+
 def base_kernel(name: str) -> str:
     """"fq_conv2d_pool_ternary" -> "fq_conv2d_pool"; int8 names unchanged."""
-    for f in PACKED_FORMATS:
-        if name.endswith("_" + f):
-            return name[:-len(f) - 1]
-    return name
+    return variant(name)[0]
+
+
+def noisy_name(kernel: str, fmt: str, chunks: int) -> str:
+    return (kernel + ("" if fmt == "int8" else f"_{fmt}")
+            + f"_noisy_c{chunks}")
 
 
 def fail(msg: str) -> None:
@@ -190,9 +258,13 @@ def device_profile(torch, fn, reps: int = 10):
     return wall * 1e3 / reps, busy_us / 1e3 / reps, len(dev) / reps
 
 
-def bound(bytes_moved: float, ops: float, ops_per_s: float):
-    """(least ms, what bounds it) from bytes over HBM and ops over peak."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
+def bound(bytes_moved: float, work: dict) -> tuple:
+    """(least ms, what bounds it) from bytes over HBM and, for each type of
+    work in ``work`` ({type: count}, a key of PEAKS), its count over its
+    peak rate. The types run on separate units (dispatch bounds them all
+    together), so the slowest one bounds the operations."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(n / PEAKS[kind] for kind, n in work.items())
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -214,23 +286,32 @@ class Rows:
         self.extra_err = {}
 
     def record(self, name, batch, shape, got, want, fn, plain, lib, bytes_,
-               ops, peak, layer=None, twin=None):
-        """``twin``: the int8 kernel on the same work, timed beside a packed
-        one."""
+               ops, kind, layer=None, twin=None, extra_work=None,
+               plain_calls=20):
+        """``ops`` operations of type ``kind`` (a key of PEAKS). ``twin``:
+        the int8 kernel on the same work, timed beside a packed one, or the
+        clean kernel beside a noisy one. ``extra_work``: {type: count} of
+        other types of work (the noise field's); ``plain_calls``: fewer
+        calls to time a slow plain version."""
         torch = self.torch
         err = max_abs_err(torch, got, want)
-        b_ms, b_by = bound(bytes_, ops, peak)
+        work = {kind: ops, **(extra_work or {})}
+        b_ms, b_by = bound(bytes_, work)
         row = {"batch": batch, "shape": shape, "layer": layer, "err": err,
-               "ms": device_ms(torch, fn), "plain_ms": device_ms(torch, plain),
+               "ms": device_ms(torch, fn),
+               "plain_ms": device_ms(torch, plain, calls=plain_calls,
+                                     replays=5 if plain_calls >= 20 else 1),
                "library_ms": None if lib is None else device_ms(torch, lib),
                "eager_ms": eager_ms(torch, fn), "bound_ms": b_ms,
-               "bound_by": b_by, "bytes": bytes_, "ops": ops, "peak": peak}
+               "bound_by": b_by, "bytes": bytes_, "work": work}
+        twin_key = "clean_ms" if variant(name)[2] else "int8_ms"
         if twin is not None:
-            row["int8_ms"] = device_ms(torch, twin)
+            row[twin_key] = device_ms(torch, twin)
         self.rows[name].append(row)
         lib_s = ("-" if row["library_ms"] is None
                  else f"{row['library_ms']:.5f}")
-        twin_s = ("" if twin is None else f" int8_ms={row['int8_ms']:.5f}")
+        twin_s = ("" if twin is None
+                  else f" {twin_key}={row[twin_key]:.5f}")
         print(f"  {self.path:7s} {name:14s} B={batch:<3d} {str(shape):26s} "
               f"max_abs_err={err:g} ms={row['ms']:.5f}{twin_s} "
               f"plain_ms={row['plain_ms']:.5f} library_ms={lib_s} "
@@ -314,7 +395,7 @@ def phase_kernels_kws(torch, dev):
         record("quantize_codes", batch, tuple(x.shape), got, want,
                lambda: quantize_codes(x, inv, n=n, b=0.0),
                lambda: ref.ref_quantize_codes(x, inv, n=n, b=0.0), None,
-               x.numel() * 5 + 4, x.numel() * 5, FP32_OPS_PER_S)
+               x.numel() * 5 + 4, x.numel() * 5, "fp32")
         for t, cin, dil, t_out in kws_layer_shapes(cfg):
             a3 = codes((batch, t, cin), 0, n)
             w = codes((cfg.ksize * cin, cfg.filters), -1, 1)
@@ -337,7 +418,7 @@ def phase_kernels_kws(torch, dev):
                                              dilation=(dil, 1), n_out=n,
                                              lo=0),
                    lambda: F.conv1d(xf, wf, dilation=dil),
-                   a3.numel() + w.numel() + m * nn + 4, ops, INT8_OPS_PER_S)
+                   a3.numel() + w.numel() + m * nn + 4, ops, "int8")
             # K2: the im2col GEMM of the same layer
             pa = torch.cat([a3[:, i * dil: i * dil + t_out]
                             for i in range(cfg.ksize)], -1).reshape(m, k)
@@ -347,7 +428,7 @@ def phase_kernels_kws(torch, dev):
                    lambda: fq_matmul(pa, w, s, n_out=n, lo=0),
                    lambda: ref.ref_fq_matmul(pa, w, s, n_out=n, lo=0),
                    int_mm(torch, pa, w),
-                   pa.numel() + w.numel() + m * nn + 4, ops, INT8_OPS_PER_S)
+                   pa.numel() + w.numel() + m * nn + 4, ops, "int8")
 
     # off the KWS path: the dequant epilogue, lo < 0, and a strided, padded,
     # dilated 2-D conv, held against the plain versions once each
@@ -437,7 +518,7 @@ def phase_kernels_darknet(torch, dev):
                ref.ref_quantize_codes(x, inv, n=n, b=0.0),
                lambda: quantize_codes(x, inv, n=n, b=0.0),
                lambda: ref.ref_quantize_codes(x, inv, n=n, b=0.0), None,
-               x.numel() * 5 + 4, x.numel() * 5, FP32_OPS_PER_S)
+               x.numel() * 5 + 4, x.numel() * 5, "fp32")
         for name, side, cin, cout, ks, pooled in layers:
             a = codes((batch, side, side, cin), 0, n)
             w = codes((ks * ks * cin, cout), -1, 1)
@@ -458,7 +539,7 @@ def phase_kernels_darknet(torch, dev):
                    lambda a=a, w=w, s=s, kw=kw: ref.ref_fq_conv2d(a, w, s,
                                                                   **kw),
                    conv, a.numel() + w.numel() + m * cout + 4, ops_,
-                   INT8_OPS_PER_S, layer=name)
+                   "int8", layer=name)
             if pooled:
                 # K3b: the conv with the fused 2 x 2 max-pool epilogue
                 pk = dict(kw, pool=(2, 2))
@@ -470,7 +551,7 @@ def phase_kernels_darknet(torch, dev):
                            a, w, s, **pk),
                        lambda conv=conv: F.max_pool2d(conv(), 2),
                        a.numel() + w.numel() + m // 4 * cout + 4, ops_,
-                       INT8_OPS_PER_S, layer=name)
+                       "int8", layer=name)
             # K2: the im2col GEMM of the same layer
             pa = ops._im2col_2d(a, ks, 1, ks // 2)[0].reshape(m, k)
             record("fq_matmul", batch, (m, k, cout),
@@ -481,7 +562,7 @@ def phase_kernels_darknet(torch, dev):
                                                              n_out=n, lo=0),
                    int_mm(torch, pa, w),
                    pa.numel() + w.numel() + m * cout + 4, ops_,
-                   INT8_OPS_PER_S, layer=name)
+                   "int8", layer=name)
             # the same library call with the weights stored column-major
             # (cuBLASLt's int8 tensor-core kernels take A row-major, B
             # column-major): a measurement beside the yardstick, no check
@@ -570,7 +651,7 @@ def phase_kernels_packed(torch, dev):
                        lambda: ref.ref_fq_conv2d(a3.unsqueeze(2), wp, s,
                                                  **rk),
                        None, a3.numel() + wp.numel() + m * nn + 4, ops_,
-                       INT8_OPS_PER_S, twin=lambda: fq_conv1d(a3, w, s, **kw))
+                       "int8", twin=lambda: fq_conv1d(a3, w, s, **kw))
                 pa = torch.cat([a3[:, i * dil: i * dil + t_out]
                                 for i in range(cfg.ksize)], -1).reshape(m, k)
                 bp = quant.pack_codes(w, fmt)
@@ -582,7 +663,7 @@ def phase_kernels_packed(torch, dev):
                        lambda: ref.ref_fq_matmul(pa, bp, s,
                                                  weight_format=fmt, **mk),
                        None, pa.numel() + bp.numel() + m * nn + 4, ops_,
-                       INT8_OPS_PER_S, twin=lambda: fq_matmul(pa, w, s, **mk))
+                       "int8", twin=lambda: fq_matmul(pa, w, s, **mk))
 
     dcfg = DarkNetConfig()
     layers = darknet_int_layers(dcfg, DN_SIZE)
@@ -609,7 +690,7 @@ def phase_kernels_packed(torch, dev):
                        lambda a=a, wp=wp, s=s, pk=pk: ref.ref_fq_conv2d(
                            a, wp, s, **pk),
                        None, a.numel() + wp.numel() + m * cout + 4, ops_,
-                       INT8_OPS_PER_S, layer=name,
+                       "int8", layer=name,
                        twin=lambda a=a, w=w, s=s, kw=kw: fq_conv2d(a, w, s,
                                                                    **kw))
                 if pooled:
@@ -623,7 +704,7 @@ def phase_kernels_packed(torch, dev):
                            lambda a=a, wp=wp, s=s, pp=pp: ref.ref_fq_conv2d(
                                a, wp, s, **pp),
                            None, a.numel() + wp.numel() + m // 4 * cout + 4,
-                           ops_, INT8_OPS_PER_S, layer=name,
+                           ops_, "int8", layer=name,
                            twin=lambda a=a, w=w, s=s, p8=p8: fq_conv2d(
                                a, w, s, **p8))
                 pa = ops._im2col_2d(a, ks, 1, ks // 2)[0].reshape(m, k)
@@ -637,7 +718,7 @@ def phase_kernels_packed(torch, dev):
                        lambda pa=pa, bp=bp, s=s: ref.ref_fq_matmul(
                            pa, bp, s, weight_format=fmt, **mk),
                        None, pa.numel() + bp.numel() + m * cout + 4, ops_,
-                       INT8_OPS_PER_S, layer=name,
+                       "int8", layer=name,
                        twin=lambda pa=pa, w=w, s=s: fq_matmul(pa, w, s, **mk))
 
     # off the paths: ragged cin (5, 45: the reduction runs over taps x
@@ -699,6 +780,224 @@ def phase_kernels_packed(torch, dev):
                      / sum(r["int8_ms"] for r in all_rows))
             print(f"  {path} {name}: summed over {len(all_rows)} shapes, "
                   f"packed / int8 device time {ratio:.4f}", flush=True)
+    return out
+
+
+def rows_batch(path: str) -> int:
+    """The request batch whose per-int_apply sums go into the record."""
+    return max(BATCHES) if path == "kws" else max(DN_BATCHES)
+
+
+def phase_kernels_noise(torch, dev):
+    """K4: the port's threefry on the card against the reference values;
+    then K2, K3 and K3b with the ADC-noise epilogue held bit-exact against
+    their plain versions for int8, int4 and ternary weights at mac_chunks 1
+    and 4, at every KWS and DarkNet main-path shape (timed beside the clean
+    kernel on the same operands at the record batches), plus off-path
+    shapes."""
+    import numpy as np
+    from repro_torch.core import prng, quant
+    from repro_torch.core.noise import TABLE7_CONDITIONS, derive_seed
+    from repro_torch.core.quant import n_levels
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fq_conv import fq_conv1d, fq_conv2d
+    from repro_torch.kernels.fq_matmul import fq_matmul
+    from repro_torch.models.darknet import DarkNetConfig
+    from repro_torch.models.kws import KWSConfig
+
+    keys = prng.split(prng.PRNGKey(5, device=dev), 3)
+    split0, seed2 = keys[0].tolist(), int(derive_seed(keys[2]))
+    print(f"  threefry on the card: split(PRNGKey(5), 3)[0] = {split0}, "
+          f"derive_seed(split(PRNGKey(5), 3)[2]) = {seed2}; jax 0.9: "
+          f"{THREEFRY_SPLIT0}, {THREEFRY_SEED2}", flush=True)
+    if split0 != THREEFRY_SPLIT0 or seed2 != THREEFRY_SEED2:
+        raise AssertionError("threefry on the card != jax.random")
+
+    rng = np.random.default_rng(SEED + 5)
+    n = n_levels(4)
+    seed = derive_seed(keys[1])
+    sigma_mac = TABLE7_CONDITIONS[-1].sigma_mac
+
+    def codes(shape, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi + 1, size=shape).astype(
+            np.int8)).to(dev)
+
+    def noise(s, chunks):
+        """sigma in accumulator units, folded as noisy_operands folds it."""
+        return dict(noise_sigma_acc=torch.div(torch.full_like(s, sigma_mac),
+                                              s),
+                    noise_seed=seed, mac_chunks=chunks)
+
+    names = {path: [noisy_name(k, f, c) for f in ("int8",) + PACKED_FORMATS
+                    for c in CHUNKS for k in PATH_KERNELS[path]
+                    if k in NOISE_REPLACES]
+             for path in ("kws", "darknet")}
+    out = {path: Rows(torch, path, names[path]) for path in names}
+
+    def check(path, name, batch, shape, got, fn, plain, twin, bytes_, ops_,
+              outputs, chunks, layer=None):
+        """Parity at every batch; timed beside the clean twin at the
+        record batch."""
+        rows = out[path]
+        if batch == rows_batch(path):
+            rows.record(name, batch, shape, got, plain(), fn, plain, None,
+                        bytes_ + 8, ops_, "int8", layer=layer,
+                        twin=twin, extra_work=field_work(outputs, chunks),
+                        plain_calls=2)
+            return
+        err = max_abs_err(torch, got, plain())
+        rows.extra_err[name] = max(rows.extra_err.get(name, 0.0), err)
+        if err != 0.0:
+            raise AssertionError(f"{name} {shape} B={batch}: noisy kernel != "
+                                 f"plain version (max abs err {err})")
+
+    print("noisy kernels (K4; bit-exact vs plain on the card), device times "
+          "beside the clean kernel on the same operands:", flush=True)
+    cfg = KWSConfig()
+    for fmt in ("int8",) + PACKED_FORMATS:
+        r = quant.format_range(fmt)
+        for batch in BATCHES:
+            for t, cin, dil, t_out in kws_layer_shapes(cfg):
+                a3 = codes((batch, t, cin), 0, n)
+                w = codes((cfg.ksize * cin, cfg.filters), -r, r)
+                wp = (w if fmt == "int8"
+                      else quant.pack_im2col_codes(w, cfg.ksize, fmt))
+                s = torch.tensor(np.float32(0.05), device=dev)
+                m, k, nn = batch * t_out, cfg.ksize * cin, cfg.filters
+                pa = torch.cat([a3[:, i * dil: i * dil + t_out]
+                                for i in range(cfg.ksize)], -1).reshape(m, k)
+                bp = w if fmt == "int8" else quant.pack_codes(w, fmt)
+                for chunks in CHUNKS:
+                    nz = noise(s, chunks)
+                    kw = dict(ksize=cfg.ksize, dilation=dil, n_out=n, lo=0,
+                              weight_format=fmt)
+                    rk = dict(kh=cfg.ksize, kw=1, dilation=(dil, 1), n_out=n,
+                              lo=0, weight_format=fmt)
+                    check("kws", noisy_name("fq_conv2d", fmt, chunks), batch,
+                          (batch, t, cin, dil),
+                          fq_conv1d(a3, wp, s, **kw, **nz),
+                          lambda: fq_conv1d(a3, wp, s, **kw, **nz),
+                          lambda: ref.ref_fq_conv2d(
+                              a3.unsqueeze(2), wp, s, **rk, **nz).squeeze(2),
+                          lambda: fq_conv1d(a3, wp, s, **kw),
+                          a3.numel() + wp.numel() + m * nn + 4,
+                          2 * m * k * nn, m * nn, chunks)
+                    mk = dict(n_out=n, lo=0, weight_format=fmt)
+                    check("kws", noisy_name("fq_matmul", fmt, chunks), batch,
+                          (m, k, nn), fq_matmul(pa, bp, s, **mk, **nz),
+                          lambda: fq_matmul(pa, bp, s, **mk, **nz),
+                          lambda: ref.ref_fq_matmul(pa, bp, s, **mk, **nz),
+                          lambda: fq_matmul(pa, bp, s, **mk),
+                          pa.numel() + bp.numel() + m * nn + 4,
+                          2 * m * k * nn, m * nn, chunks)
+
+    dcfg = DarkNetConfig()
+    for fmt in ("int8",) + PACKED_FORMATS:
+        r = quant.format_range(fmt)
+        for batch in DN_BATCHES:
+            for name, side, cin, cout, ks, pooled in darknet_int_layers(
+                    dcfg, DN_SIZE):
+                a = codes((batch, side, side, cin), 0, n)
+                w = codes((ks * ks * cin, cout), -r, r)
+                wp = (w if fmt == "int8"
+                      else quant.pack_im2col_codes(w, ks * ks, fmt))
+                bp = w if fmt == "int8" else quant.pack_codes(w, fmt)
+                s = torch.tensor(np.float32(0.02), device=dev)
+                m, k = batch * side * side, ks * ks * cin
+                ops_ = 2 * m * k * cout
+                pa = ops._im2col_2d(a, ks, 1, ks // 2)[0].reshape(m, k)
+                shape = (batch, side, side, cin, cout, ks)
+                for chunks in CHUNKS:
+                    nz = noise(s, chunks)
+                    kw = dict(kh=ks, kw=ks, padding=(ks // 2, ks // 2),
+                              n_out=n, lo=0, weight_format=fmt)
+                    check("darknet", noisy_name("fq_conv2d", fmt, chunks),
+                          batch, shape, fq_conv2d(a, wp, s, **kw, **nz),
+                          lambda: fq_conv2d(a, wp, s, **kw, **nz),
+                          lambda: ref.ref_fq_conv2d(a, wp, s, **kw, **nz),
+                          lambda: fq_conv2d(a, wp, s, **kw),
+                          a.numel() + wp.numel() + m * cout + 4, ops_,
+                          m * cout, chunks, layer=name)
+                    if pooled:
+                        pk = dict(kw, pool=(2, 2))
+                        check("darknet",
+                              noisy_name("fq_conv2d_pool", fmt, chunks),
+                              batch, shape, fq_conv2d(a, wp, s, **pk, **nz),
+                              lambda: fq_conv2d(a, wp, s, **pk, **nz),
+                              lambda: ref.ref_fq_conv2d(a, wp, s, **pk,
+                                                        **nz),
+                              lambda: fq_conv2d(a, wp, s, **pk),
+                              a.numel() + wp.numel() + m // 4 * cout + 4,
+                              ops_, m * cout, chunks, layer=name)
+                    mk = dict(n_out=n, lo=0, weight_format=fmt)
+                    check("darknet", noisy_name("fq_matmul", fmt, chunks),
+                          batch, (m, k, cout),
+                          fq_matmul(pa, bp, s, **mk, **nz),
+                          lambda: fq_matmul(pa, bp, s, **mk, **nz),
+                          lambda: ref.ref_fq_matmul(pa, bp, s, **mk, **nz),
+                          lambda: fq_matmul(pa, bp, s, **mk),
+                          pa.numel() + bp.numel() + m * cout + 4, ops_,
+                          m * cout, chunks, layer=name)
+
+    # off the paths: ragged cin (5, 45), odd N (67), strided and dilated
+    # convs, pools 2x2, 3x3 and 2x3, lo < 0, dequant; K2 at ragged K and N
+    s = torch.tensor(np.float32(0.0131), device=dev)
+    epis = (("requant", -n), ("requant", 0), ("dequant", 0))
+    errs = {}
+    for fmt in ("int8",) + PACKED_FORMATS:
+        r = quant.format_range(fmt)
+        for chunks in CHUNKS:
+            nz = noise(s, chunks)
+            conv_errs, mm_errs = [], []
+            for cin in (5, 45):
+                x = codes((2, 13, 15, cin), 0, n)
+                w = codes((9 * cin, 67), -r, r)
+                wp = (w if fmt == "int8"
+                      else quant.pack_im2col_codes(w, 9, fmt))
+                for pool, stride, dil in ((None, 1, 1), (None, 2, 2),
+                                          ((2, 2), 1, 1), ((3, 3), 1, 1),
+                                          ((2, 3), 2, 2)):
+                    for epi, lo in epis:
+                        kw = dict(kh=3, kw=3, stride=(stride, stride),
+                                  padding=(1, 1), dilation=(dil, dil),
+                                  pool=pool, epilogue=epi, n_out=n, lo=lo,
+                                  weight_format=fmt, **nz)
+                        conv_errs.append(max_abs_err(
+                            torch, fq_conv2d(x, wp, s, **kw),
+                            ref.ref_fq_conv2d(x, wp, s, **kw)))
+            for k in (13, 135, 257):
+                a = codes((300, k), -n, n)
+                b = codes((k, 67), -r, r)
+                bp = b if fmt == "int8" else quant.pack_codes(b, fmt)
+                for epi, lo in epis:
+                    kw = dict(epilogue=epi, n_out=n, lo=lo,
+                              weight_format=fmt, **nz)
+                    mm_errs.append(max_abs_err(
+                        torch, fq_matmul(a, bp, s, **kw),
+                        ref.ref_fq_matmul(a, bp, s, **kw)))
+            torch.cuda.synchronize()
+            errs[(fmt, chunks)] = (max(conv_errs), max(mm_errs))
+            for path in out:
+                for k, e in (("fq_conv2d", conv_errs),
+                             ("fq_conv2d_pool", conv_errs),
+                             ("fq_matmul", mm_errs)):
+                    name = noisy_name(k, fmt, chunks)
+                    if name in out[path].rows:
+                        out[path].extra_err[name] = max(
+                            out[path].extra_err.get(name, 0.0), max(e))
+    print("  off-path noisy checks (cin 5 and 45, N 67, strided, dilated, "
+          "pools 2x2, 3x3, 2x3, lo=-7 and 0, dequant; K2 at K 13, 135, 257): "
+          + " ".join(f"{f} c{c} K3/K3b={e[0]:g} K2={e[1]:g}"
+                     for (f, c), e in errs.items()), flush=True)
+    if any(max(e) != 0.0 for e in errs.values()):
+        raise AssertionError("off-path noisy kernel checks disagree")
+    for path, rows in out.items():
+        for name, all_rows in rows.rows.items():
+            ratio = (sum(r["ms"] for r in all_rows)
+                     / sum(r["clean_ms"] for r in all_rows))
+            print(f"  {path} {name}: summed over {len(all_rows)} shapes at "
+                  f"B={rows_batch(path)}, noisy / clean device time "
+                  f"{ratio:.4f}", flush=True)
     return out
 
 
@@ -829,7 +1128,15 @@ def phase_serve_kws(torch, dev):
     check_stacks(torch, ii, "kws", stacks, {n: params[n] for n in names})
     serve_timing(torch, "kws ternary", packed_serve["ternary"], requests,
                  (BATCHES[0], BATCHES[-1]))
-    return {"int8": counts, **result}
+
+    # -- noise (§4.4), each format and mac_chunks counted on its own ------
+    noisy, timed = serve_noisy(
+        torch, kws, "kws", stacks, ways, requests, logits, expect,
+        lambda x: entry(stack, x.to(dev)), qcfg, cfg, lambda *_: True)
+    for chunks, fns in timed.items():
+        serve_timing(torch, f"kws noisy c{chunks}", fns, requests,
+                     (BATCHES[0], BATCHES[-1]))
+    return {"int8": counts, **result, "noisy": noisy}
 
 
 def serve_packed(torch, model, path, stacks, ways, requests, logits, expect,
@@ -872,6 +1179,105 @@ def serve_packed(torch, model, path, stacks, ways, requests, logits, expect,
             f"{fmt} {way}" for way in ways) + " == int8 fused (codes and "
             "logits)", flush=True)
     return result, fns_of
+
+
+def serve_noisy(torch, model, path, stacks, ways, requests, clean, expect,
+                entry, qcfg, cfg, cpu_check):
+    """Serve the same requests with the §4.4 noise (Table 7's noisiest
+    condition, key PRNGKey(NOISE_KEY)) from every format under every way,
+    at each mac_chunks in CHUNKS, each (format, chunks) counted in a run
+    of its own. Checks: every conv launch noisy, the same launches as the
+    clean run; the ways identical (codes and logits); the GPU integer core
+    against the port's CPU run where ``cpu_check(fmt, chunks, batch)``,
+    given the same entry codes and key (differing codes counted, failed
+    above MAX_FLIP_FRACTION); one
+    fused int_apply launches only noisy K3 / K3b; the noise moved the
+    logits. Returns ({noisy kernel name: launches}, {chunks: int8 serve fns
+    with the noise bound})."""
+    from repro_torch import kernels
+    from repro_torch.core import prng
+    from repro_torch.core.noise import TABLE7_CONDITIONS
+    cond = TABLE7_CONDITIONS[-1]
+    key = prng.PRNGKey(NOISE_KEY)
+    launches, timed = {}, {}
+    flips = total = 0
+    for fmt, st in stacks.items():
+        st_cpu = st.to("cpu")
+        for chunks in CHUNKS:
+            fns = {way: model.int_serve_fn(st, qcfg, cfg, mac_chunks=chunks,
+                                           **kw) for way, kw in ways.items()}
+            got, c, pc = counted(torch, kernels, lambda: {
+                (b, way): fn(requests[b], noise=cond, rng=key)
+                for b in requests for way, fn in fns.items()})
+            nc = kernels.noisy_launch_counts()
+            print(launch_line(f"{path}, {fmt}, noisy c{chunks}", c, pc)
+                  + " noisy " + " ".join(f"{k}={v}" for k, v in nc.items()),
+                  flush=True)
+            want_nc = {f"{k}_noisy": expect[k] for k in kernels.NOISY}
+            if c != expect or nc != want_nc:
+                raise AssertionError(f"{fmt} c{chunks}: launch counts {c} "
+                                     f"{nc} != expected {expect} {want_nc}")
+            for k in kernels.NOISY:
+                if not expect[k]:
+                    continue
+                if fmt == "int8":
+                    launches[noisy_name(k, fmt, chunks)] = c[k]
+                elif k != "fq_matmul":   # the im2col oracle unpacks
+                    launches[noisy_name(k, fmt, chunks)] = pc[f"{k}_{fmt}"]
+                    if pc[f"{k}_{fmt}"] != expect[k]:
+                        raise AssertionError(f"{fmt} {k}: {pc} not all "
+                                             "packed")
+            for b in requests:
+                lf = got[(b, "fused")]
+                if not torch.isfinite(lf).all():
+                    raise AssertionError(f"B={b}: noisy logits not finite")
+                if torch.equal(lf, clean[(b, "fused")]):
+                    raise AssertionError(f"B={b} {fmt} c{chunks}: the noise "
+                                         "did not move the logits")
+                codes = entry(torch.from_numpy(requests[b]))
+                core = {way: model.int_core(st, codes, qcfg, cfg, noise=cond,
+                                            rng=key, mac_chunks=chunks, **kw)
+                        for way, kw in ways.items()}
+                for way in ways:
+                    if not torch.equal(got[(b, way)], lf):
+                        raise AssertionError(f"B={b} {fmt} c{chunks}: {way} "
+                                             "noisy logits != fused")
+                    if not torch.equal(core[way], core["fused"]):
+                        raise AssertionError(f"B={b} {fmt} c{chunks}: {way} "
+                                             "noisy codes != fused")
+                if cpu_check(fmt, chunks, b):
+                    t0 = time.perf_counter()
+                    core_cpu = model.int_core(st_cpu, codes.cpu(), qcfg, cfg,
+                                              noise=cond, rng=key,
+                                              mac_chunks=chunks)
+                    n_diff = int((core["fused"].cpu() != core_cpu).sum())
+                    flips += n_diff
+                    total += core_cpu.numel()
+                    print(f"serve {path} {fmt} noisy c{chunks} B={b}: "
+                          + " == ".join(ways) + " (codes and logits); GPU "
+                          f"int_core vs CPU int_core: {n_diff} of "
+                          f"{core_cpu.numel()} codes differ (CPU run "
+                          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+            _, c1, _ = counted(torch, kernels, lambda: fns["fused"](
+                requests[max(requests)], noise=cond, rng=key))
+            nc1 = kernels.noisy_launch_counts()
+            if (c1["fq_matmul"] or any(nc1[f"{k}_noisy"] != c1[k]
+                                       for k in ("fq_conv2d",
+                                                 "fq_conv2d_pool"))):
+                raise AssertionError(f"one fused noisy int_apply: {c1} "
+                                     f"{nc1}, expected only noisy K3 / K3b")
+            if fmt == "int8":
+                timed[chunks] = {"fused": lambda x, fn=fns["fused"]: fn(
+                    x, noise=cond, rng=key)}
+    frac = flips / total
+    print(f"serve {path} noisy: GPU vs CPU int_core, same entry codes and "
+          f"key: {flips} of {total} codes differ ({frac:.2e}); every conv "
+          "launch noisy; one fused int_apply launched only noisy K3 / K3b",
+          flush=True)
+    if frac > MAX_FLIP_FRACTION:
+        raise AssertionError(f"noisy GPU/CPU code difference {frac} > "
+                             f"{MAX_FLIP_FRACTION}")
+    return launches, timed
 
 
 def check_stacks(torch, ii, path, stacks, layer_params):
@@ -1158,7 +1564,19 @@ def phase_serve_darknet(torch, dev):
                  {n: params[n] for n in stack.layer_names})
     serve_timing(torch, "darknet ternary", packed_serve["ternary"], requests,
                  DN_BATCHES)
-    return {"int8": counts, **result}
+
+    # -- noise (§4.4), each format and mac_chunks counted on its own ------
+    noisy, timed = serve_noisy(
+        torch, darknet, "darknet", stacks, ways, requests, logits, expect,
+        lambda x: entry(stack, x.to(dev)), qcfg, cfg,
+        # the CPU core takes seconds per image: every run at B=1, and the
+        # batch of the recorded kernels (B=8) once, packed, at chunks 1
+        lambda fmt, chunks, b: b == DN_BATCHES[0] or (
+            (fmt, chunks, b) == ("ternary", 1, DN_BATCHES[-1])))
+    for chunks, fns in timed.items():
+        serve_timing(torch, f"darknet noisy c{chunks}", fns, requests,
+                     DN_BATCHES)
+    return {"int8": counts, **result, "noisy": noisy}
 
 
 def kernels_record(rows, counts, batch, per_apply, names=None):
@@ -1171,28 +1589,35 @@ def kernels_record(rows, counts, batch, per_apply, names=None):
         all_rows = rows.rows[name]
         top = [r for r in all_rows if r["batch"] == batch
                and per_apply(name, r)]
-        t_bytes = sum(r["bytes"] for r in top) / HBM_BYTES_PER_S
-        t_ops = sum(r["ops"] / r["peak"] for r in top)
+        work = {}
+        for r in top:
+            for kind, n in r["work"].items():
+                work[kind] = work.get(kind, 0) + n
+        bound_ms, bound_by = bound(sum(r["bytes"] for r in top), work)
         libs = [r["library_ms"] for r in top]
-        base = base_kernel(name)
+        base, fmt, chunks = variant(name)
+        replaces = (NOISE_REPLACES if chunks else
+                    REPLACES if fmt == "int8" else PACKED_REPLACES)[base]
         entry = {
             "name": name, "path": rows.path, "route": "cuda",
-            "source": SOURCES[base],
-            "replaces": (REPLACES if base == name else PACKED_REPLACES)[base],
+            "source": SOURCES[base], "replaces": replaces,
             "launches": counts[name],
             "max_abs_err": max(max(r["err"] for r in all_rows),
                                rows.extra_err.get(name, 0.0)),
             "ms": sum(r["ms"] for r in top),
             "plain_ms": sum(r["plain_ms"] for r in top),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": (None if any(v is None for v in libs)
                            else sum(libs)),
             "eager_ms": sum(r["eager_ms"] for r in top),
             "batch": batch, "calls": len(top),
         }
-        if base != name:
+        if fmt != "int8":
             entry["prologue"] = PROLOGUE
+        if chunks:
+            entry.update(epilogue=NOISE_EPILOGUE, mac_chunks=chunks,
+                         clean_ms=sum(r["clean_ms"] for r in top))
+        elif fmt != "int8":
             entry["int8_ms"] = sum(r["int8_ms"] for r in top)
         out.append(entry)
     return out
@@ -1209,36 +1634,53 @@ def kernels_record_all(torch, results):
         return base_kernel(name) != "fq_conv2d" or r["layer"] not in pooled
 
     record = kernels_record(results["kernels_kws"],
-                            results["serve_kws"]["int8"], max(BATCHES),
+                            results["serve_kws"]["int8"], rows_batch("kws"),
                             lambda name, r: True)
     record += kernels_record(results["kernels_darknet"],
                              results["serve_darknet"]["int8"],
-                             max(DN_BATCHES), per_apply)
+                             rows_batch("darknet"), per_apply)
     # K5: the packed K3 / K3b the serving paths launch, each format's
     # launches from its own counted run. Packed K2 is off those paths (the
     # im2col oracle unpacks first): its sums are printed, not recorded.
     off_path = []
-    for path, batch in (("kws", max(BATCHES)), ("darknet", max(DN_BATCHES))):
-        rows = results["kernels_packed"][path]
+    for path in ("kws", "darknet"):
+        rows, batch = results["kernels_packed"][path], rows_batch(path)
         for fmt in PACKED_FORMATS:
             for e in kernels_record(
                     rows, results[f"serve_{path}"][fmt], batch, per_apply,
                     [k for k in rows.rows if k.endswith("_" + fmt)]):
                 on = e["name"] in PACKED_PATH_KERNELS[path]
                 (record if on else off_path).append(e)
-    print("packed K2 per int_apply, launched by no serving path and so not "
-          "in the record: " + json.dumps(off_path), flush=True)
+    # K4: the noisy kernels the serving paths launch, each (format, chunks)
+    # with the launches of its own counted run; packed noisy K2 is off the
+    # paths like packed K2
+    for path in ("kws", "darknet"):
+        rows = results["kernels_noise"][path]
+        launched = results[f"serve_{path}"]["noisy"]
+        for e in kernels_record(rows, dict.fromkeys(rows.rows, 0) | launched,
+                                rows_batch(path), per_apply):
+            (record if e["name"] in launched else off_path).append(e)
+    print("packed K2 per int_apply (clean and noisy), launched by no serving "
+          "path and so not in the record: " + json.dumps(off_path),
+          flush=True)
     # the same sums at every request batch, a measurement beside the record
     for path, batches in (("kws", BATCHES), ("darknet", DN_BATCHES)):
         for batch in batches:
             sums = []
             for rows in (results[f"kernels_{path}"],
-                         results["kernels_packed"][path]):
+                         results["kernels_packed"][path],
+                         results["kernels_noise"][path]):
                 for name in rows.rows:
                     top = [r for r in rows.rows[name]
                            if r["batch"] == batch and per_apply(name, r)]
-                    twin = (f" (int8 {sum(r['int8_ms'] for r in top):.5f})"
-                            if base_kernel(name) != name else "")
+                    if not top:
+                        continue
+                    twin = ""
+                    for key, label in (("int8_ms", "int8"),
+                                       ("clean_ms", "clean")):
+                        if key in top[0]:
+                            twin = (f" ({label} "
+                                    f"{sum(r[key] for r in top):.5f})")
                     sums.append(f"{name}={sum(r['ms'] for r in top):.5f}"
                                 + twin)
             print(f"device ms per int_apply, {path} B={batch}: "
@@ -1286,6 +1728,7 @@ def main() -> int:
             ("kernels_kws", lambda: phase_kernels_kws(torch, dev)),
             ("kernels_darknet", lambda: phase_kernels_darknet(torch, dev)),
             ("kernels_packed", lambda: phase_kernels_packed(torch, dev)),
+            ("kernels_noise", lambda: phase_kernels_noise(torch, dev)),
             ("serve_kws", lambda: phase_serve_kws(torch, dev)),
             ("serve_darknet", lambda: phase_serve_darknet(torch, dev))):
         print(f"== phase {name}", flush=True)
@@ -1308,6 +1751,11 @@ def main() -> int:
         missing = [k for k in PATH_KERNELS[path] if counts["int8"][k] == 0]
         missing += [k for k in PACKED_PATH_KERNELS[path]
                     if counts[k.rsplit("_", 1)[1]][k] == 0]
+        missing += [noisy_name(k, f, c) for k in PATH_KERNELS[path]
+                    if k in NOISE_REPLACES
+                    for f in ("int8",) + PACKED_FORMATS for c in CHUNKS
+                    if (k != "fq_matmul" or f == "int8")
+                    and not counts["noisy"].get(noisy_name(k, f, c))]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
     print(json.dumps({"kernels": kernels_record_all(torch, results)}))

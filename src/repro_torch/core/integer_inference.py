@@ -1,7 +1,7 @@
 """Integer-only inference (paper eq. 4 + §3.4 deployment story).
 
-Counterpart of ``repro.core.integer_inference``, noise-free. A trained FQ
-layer collapses to
+Counterpart of ``repro.core.integer_inference``. A trained FQ layer
+collapses to
 
     int8 weight codes  +  one folded rescale scalar per layer,
 
@@ -16,6 +16,11 @@ final decode scale). It is mapping-compatible (``stack["conv0"]``), carries
 its conversion recipe (:meth:`ConvertedStack.rederive`) and a content
 digest (:func:`stack_digest`), and ``.to(device)`` takes the place of the
 reference's ``place_stack``.
+
+The paper's §4.4 noise model runs at every integer layer boundary when the
+caller passes a :class:`~.noise.NoiseConfig` and a key
+(:func:`noisy_operands`): weight and activation codes perturbed in code
+units, and the ADC noise in the kernels' epilogue (K4).
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from . import quant
+from . import prng, quant
+from .noise import NoiseConfig, derive_seed, perturb_codes
 from .quant import (QuantConfig, RELU_BOUND, WEIGHT_BOUND, n_levels,
                     quantize_to_int)
 
@@ -331,10 +337,50 @@ def entry_codes(x, p, qcfg: QuantConfig, *, b_in: float = RELU_BOUND):
                                  inv_scale=p.get("inv_scale"))
 
 
-def int_linear(ip, codes, *, noise=None):
-    ops.refuse_unported("int_linear", noise=noise)
-    return ops.int_matmul(codes, ip["w_codes"], ip["rescale"],
+def noisy_operands(ip, codes, noise: Optional[NoiseConfig], rng, *,
+                   a_lo: int = 0):
+    """The paper's §4.4 noise model at an integer layer boundary.
+
+    Returns ``(w_codes, a_codes, sigma_acc, seed)``: the weight codes
+    perturbed in code units (memory-cell noise, clipped to [-n_w, n_w];
+    packed weights are unpacked, perturbed, re-packed: the perturbed pad
+    lanes meet zero activations on every impl), the input codes perturbed
+    (DAC noise, clipped to [a_lo, max(n_a, n_out)]), and the ADC noise std
+    in accumulator units, sigma_mac / rescale (float32 tensor), with the
+    uint32 seed of its field. ``rng`` splits into the three keys in that
+    order, as the reference's does.
+
+    With ``noise`` None or all-zero, or ``rng`` None, the operands come back
+    untouched with ``(None, None)``, nothing is drawn and the clean kernels
+    run.
+    """
+    if noise is None or not noise.enabled or rng is None:
+        return ip["w_codes"], codes, None, None
+    k_w, k_a, k_mac = prng.split(rng.to(codes.device), 3)
+    n_w = ip.get("n_w", 127)
+    a_hi = max(ip.get("n_a", 127), ip.get("n_out", 127))
+    fmt = ip.get("weight_format", "int8")
+    w_codes = quant.unpack_codes(ip["w_codes"], fmt)
+    w_codes = perturb_codes(w_codes, k_w, noise.sigma_w, lo=-n_w, hi=n_w)
+    if fmt != "int8":
+        w_codes = quant.pack_codes(w_codes, fmt)
+    a_codes = perturb_codes(codes, k_a, noise.sigma_a, lo=a_lo, hi=a_hi)
+    if noise.sigma_mac > 0:
+        rescale = ip["rescale"]
+        sigma_acc = torch.div(torch.full_like(rescale, noise.sigma_mac),
+                              rescale)
+        return w_codes, a_codes, sigma_acc, derive_seed(k_mac)
+    return w_codes, a_codes, None, None
+
+
+def int_linear(ip, codes, *, noise: Optional[NoiseConfig] = None, rng=None,
+               mac_chunks: int = 1, a_lo: int = 0):
+    w_codes, codes, sig, seed = noisy_operands(ip, codes, noise, rng,
+                                               a_lo=a_lo)
+    return ops.int_matmul(codes, w_codes, ip["rescale"],
                           epilogue="requant", n_out=ip["n_out"], lo=ip["lo"],
+                          noise_sigma_acc=sig, noise_seed=seed,
+                          mac_chunks=mac_chunks,
                           weight_format=ip.get("weight_format", "int8"))
 
 
@@ -345,11 +391,14 @@ def int_linear_final(ip, codes):
 
 
 def int_conv1d(ip, codes, *, ksize: int, dilation: int = 1, impl=None,
-               noise=None):
-    ops.refuse_unported("int_conv1d", noise=noise)
-    return ops.fq_conv1d_int(codes, ip["w_codes"], ip["rescale"],
+               noise: Optional[NoiseConfig] = None, rng=None,
+               mac_chunks: int = 1):
+    w_codes, codes, sig, seed = noisy_operands(ip, codes, noise, rng)
+    return ops.fq_conv1d_int(codes, w_codes, ip["rescale"],
                              ksize=ksize, dilation=dilation,
                              n_out=ip["n_out"], lo=ip["lo"], impl=impl,
+                             noise_sigma_acc=sig, noise_seed=seed,
+                             mac_chunks=mac_chunks,
                              weight_format=ip.get("weight_format", "int8"))
 
 
@@ -361,30 +410,36 @@ def int_conv1d_final(ip, codes, *, ksize: int, dilation: int = 1, impl=None):
 
 
 def int_conv2d(ip, codes, *, ksize: int, stride: int = 1, padding: int = 0,
-               dilation: int = 1, impl=None, noise=None):
-    ops.refuse_unported("int_conv2d", noise=noise)
-    return ops.fq_conv2d_int(codes, ip["w_codes"], ip["rescale"],
+               dilation: int = 1, impl=None,
+               noise: Optional[NoiseConfig] = None, rng=None,
+               mac_chunks: int = 1):
+    w_codes, codes, sig, seed = noisy_operands(ip, codes, noise, rng)
+    return ops.fq_conv2d_int(codes, w_codes, ip["rescale"],
                              ksize=ksize, stride=stride, padding=padding,
                              dilation=dilation, n_out=ip["n_out"],
-                             lo=ip["lo"], impl=impl,
+                             lo=ip["lo"], impl=impl, noise_sigma_acc=sig,
+                             noise_seed=seed, mac_chunks=mac_chunks,
                              weight_format=ip.get("weight_format", "int8"))
 
 
 def int_conv2d_pool(ip, codes, *, ksize: int, stride: int = 1,
                     padding: int = 0, dilation: int = 1, pool: int = 2,
-                    impl=None, noise=None):
+                    impl=None, noise: Optional[NoiseConfig] = None, rng=None,
+                    mac_chunks: int = 1):
     """Conv + non-overlapping max-pool as one integer op.
 
     On the fused path the pool runs on the int32 accumulator in the conv
     kernel's epilogue (K3b) and the unpooled codes never reach device
-    memory; the im2col path is the unfused conv + code-domain pool.
+    memory; the im2col path is the unfused conv + code-domain pool. ADC
+    noise perturbs the pre-pool accumulator on both.
     """
-    ops.refuse_unported("int_conv2d_pool", noise=noise)
-    return ops.fq_conv2d_pool_int(codes, ip["w_codes"], ip["rescale"],
+    w_codes, codes, sig, seed = noisy_operands(ip, codes, noise, rng)
+    return ops.fq_conv2d_pool_int(codes, w_codes, ip["rescale"],
                                   ksize=ksize, stride=stride,
                                   padding=padding, dilation=dilation,
                                   pool=pool, n_out=ip["n_out"], lo=ip["lo"],
-                                  impl=impl,
+                                  impl=impl, noise_sigma_acc=sig,
+                                  noise_seed=seed, mac_chunks=mac_chunks,
                                   weight_format=ip.get("weight_format",
                                                        "int8"))
 

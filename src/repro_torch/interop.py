@@ -7,7 +7,8 @@ boundaries. These loaders take the reference's arrays, as numpy, and copy
 them bit for bit: int8 weight codes or packed (int4 / ternary) uint8
 bytes, the folded float32 ``rescale`` / ``alpha`` / ``s_out`` scalars, the
 float edge layers (KWS's embedding, BN and head; DarkNet's conv0 and head),
-the entry scale and the decode scale. Nothing here imports the reference;
+the entry scale and the decode scale, and ``jax.random`` keys (their two
+uint32 words) for the noise model. Nothing here imports the reference;
 callers hand over numpy arrays and plain objects.
 """
 from __future__ import annotations
@@ -79,3 +80,15 @@ def params_from_numpy(params: Dict[str, Any], state: Dict[str, Any], *,
     on ``device``."""
     dev = resolve_device(device)
     return to_device(_tensors(params), dev), to_device(_tensors(state), dev)
+
+
+def key_from_numpy(words, *, device: DeviceLike = None) -> torch.Tensor:
+    """A reference key's uint32 words (``jax.random.key_data(key)`` or a
+    legacy ``PRNGKey``, as numpy) -> the port's key, a (2,) int64 tensor
+    on ``device`` (``core.prng``); a stack of keys (..., 2) likewise."""
+    a = np.asarray(words)
+    if (a.shape[-1:] != (2,) or not np.issubdtype(a.dtype, np.integer)
+            or (a.size and (a.min() < 0 or a.max() > 0xFFFFFFFF))):
+        raise ValueError(f"a key is (..., 2) uint32 words, got {a.dtype} "
+                         f"{a.shape}")
+    return torch.from_numpy(a.astype(np.int64)).to(resolve_device(device))

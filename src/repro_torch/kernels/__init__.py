@@ -6,7 +6,9 @@ with ``pool=``) each count their kernel launches in a ``launches``
 attribute on the wrapper; :func:`launch_counts` reads them and
 :func:`reset_launch_counts` sets them to 0. K2, K3 and K3b also count the
 launches that took packed weights (K5, the packed prologue) per format in
-``packed_launches``, which :func:`packed_launch_counts` reads.
+``packed_launches``, which :func:`packed_launch_counts` reads, and the
+launches with the ADC-noise epilogue (K4) in ``noisy_launches``, which
+:func:`noisy_launch_counts` reads.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from .quantize import quantize_codes
 _WRAPPERS = {"quantize_codes": quantize_codes, "fq_matmul": fq_matmul,
              "fq_conv2d": fq_conv2d, "fq_conv2d_pool": fq_conv2d_pool}
 PACKED = ("fq_matmul", "fq_conv2d", "fq_conv2d_pool")
+NOISY = PACKED
 
 
 def launch_counts() -> Dict[str, int]:
@@ -32,8 +35,16 @@ def packed_launch_counts() -> Dict[str, int]:
             for fmt, n in _WRAPPERS[name].packed_launches.items()}
 
 
+def noisy_launch_counts() -> Dict[str, int]:
+    """Launches with the ADC-noise epilogue, as ``"<kernel>_noisy"``: n."""
+    return {f"{name}_noisy": _WRAPPERS[name].noisy_launches
+            for name in NOISY}
+
+
 def reset_launch_counts() -> None:
     for name, fn in _WRAPPERS.items():
         fn.launches = 0
         if name in PACKED:
             fn.packed_launches = dict.fromkeys(fn.packed_launches, 0)
+        if name in NOISY:
+            fn.noisy_launches = 0

@@ -47,7 +47,19 @@
 // the pad rows' codes meet zeros. The shared tile loop decodes each
 // weight byte once into the shared B tile (igemm.cuh). For int8,
 // cin_p == cin and the gather is the int8 one.
+//
+// K4, the ADC noise (replaces fq_conv.py:342-355): with a sigma pointer,
+// every conv output (b, ho, wo, c) takes the noise.cuh field at its
+// unpooled index ((b * Ho + ho) * Wo + wo) * Cout + c, the im2col GEMM's
+// row * N + col, before the pool and the epilogue. The pool kernels then
+// keep a float32 running max of the noisy accumulators: in the 2 x 2
+// kernel each of a window's 4 positions has its own row, in the generic
+// one each pass's position gives the row (PassRows). Max commutes with
+// the monotone epilogue, so this equals noisy conv -> requant -> code
+// pool. NOISE is a template parameter beside DEQUANT and FACTOR, so the
+// clean instantiations are the code they were.
 #include <climits>
+#include <cmath>
 
 #include "igemm.cuh"
 
@@ -163,11 +175,11 @@ struct ConvA {
   }
 };
 
-template <bool DEQUANT, int FACTOR>
+template <bool DEQUANT, int FACTOR, bool NOISE>
 __global__ void __launch_bounds__(fq::THREADS)
 fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ scale, void* __restrict__ out,
-               ConvShape c, int lo, int n_out) {
+               ConvShape c, int lo, int n_out, fq::NoiseArgs na) {
   __shared__ fq::Tiles s;
   const int tid = threadIdx.x;
   const int M = c.B * c.Ho * c.Wo;
@@ -176,17 +188,36 @@ fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const ConvA<FACTOR> load_a(x, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo}, tid);
   fq::mainloop<FACTOR>(s, load_a, w, load_a.K, load_a.K / FACTOR, c.Cout, n0,
                        tid, acc);
-  fq::store<DEQUANT>(out, acc, *scale, lo, n_out, M, c.Cout, m0, n0, tid);
+  if constexpr (NOISE) {
+    // output row m of the (b, ho, wo)-flattened conv is the field's row
+    float v[4][4];
+    fq::noisy_tile(v, acc, fq::Noise::load(na), M, c.Cout, m0, n0, tid);
+    fq::store<DEQUANT>(out, v, *scale, lo, n_out, M, c.Cout, m0, n0, tid);
+  } else {
+    fq::store<DEQUANT>(out, acc, *scale, lo, n_out, M, c.Cout, m0, n0, tid);
+  }
+}
+
+// The unpooled (b, ho, wo)-flattened row of window g's position (di, dj),
+// the ADC-noise field's row; false past the windows.
+__device__ __forceinline__ bool field_row(const Windows& win,
+                                          const ConvShape& c, int g, int di,
+                                          int dj, int& row) {
+  int b, ho, wo;
+  if (!win.pixel(g, di, dj, b, ho, wo)) return false;
+  row = (b * c.Ho + ho) * c.Wo + wo;
+  return true;
 }
 
 // K3b, 2 x 2: thread (tx, ty) holds rows ty + 16 i, the four positions of
 // window g0 + ty, and columns tx + 16 j.
-template <bool DEQUANT, int FACTOR>
+template <bool DEQUANT, int FACTOR, bool NOISE>
 __global__ void __launch_bounds__(fq::THREADS)
 fq_conv_pool2_kernel(const int8_t* __restrict__ x,
                      const int8_t* __restrict__ w,
                      const float* __restrict__ scale, void* __restrict__ out,
-                     ConvShape c, Windows win, int lo, int n_out) {
+                     ConvShape c, Windows win, int lo, int n_out,
+                     fq::NoiseArgs na) {
   __shared__ fq::Tiles s;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int g0 = blockIdx.x * POOL2_WINDOWS, n0 = blockIdx.y * fq::BN;
@@ -197,86 +228,130 @@ fq_conv_pool2_kernel(const int8_t* __restrict__ x,
   const int g = g0 + ty;
   if (g >= win.Mp) return;
   const float sc = *scale;
+  if constexpr (NOISE) {
+    const fq::Noise nz = fq::Noise::load(na);
+    int row[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tx + 16 * j;
-    if (n >= c.Cout) continue;
-    const int m = max(max(acc[0][j], acc[1][j]), max(acc[2][j], acc[3][j]));
-    fq::put<DEQUANT>(out, (long long)g * c.Cout + n, m, sc, lo, n_out);
+    for (int i = 0; i < 4; ++i) field_row(win, c, g, i >> 1, i & 1, row[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n >= c.Cout) continue;
+      float m = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        m = fmaxf(m, nz.add(acc[i][j], row[i], c.Cout, n));
+      fq::put<DEQUANT>(out, (long long)g * c.Cout + n, m, sc, lo, n_out);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n >= c.Cout) continue;
+      const int m = max(max(acc[0][j], acc[1][j]), max(acc[2][j], acc[3][j]));
+      fq::put<DEQUANT>(out, (long long)g * c.Cout + n, m, sc, lo, n_out);
+    }
   }
 }
 
 // K3b, any (qh, qw): one tile loop per window position, running max.
-template <bool DEQUANT, int FACTOR>
+// The running max is int32 on the clean path and float32 (the noisy
+// accumulators) with NOISE.
+template <bool DEQUANT, int FACTOR, bool NOISE>
 __global__ void __launch_bounds__(fq::THREADS)
 fq_conv_pool_kernel(const int8_t* __restrict__ x,
                     const int8_t* __restrict__ w,
                     const float* __restrict__ scale, void* __restrict__ out,
-                    ConvShape c, Windows win, int lo, int n_out) {
+                    ConvShape c, Windows win, int lo, int n_out,
+                    fq::NoiseArgs na) {
+  using Acc = std::conditional_t<NOISE, float, int>;
   __shared__ fq::Tiles s;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int g0 = blockIdx.x * fq::BM, n0 = blockIdx.y * fq::BN;
-  int mx[4][4];
+  fq::Noise nz{};
+  if constexpr (NOISE) nz = fq::Noise::load(na);
+  Acc mx[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) mx[i][j] = INT_MIN;
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (NOISE) mx[i][j] = -INFINITY;
+      else mx[i][j] = INT_MIN;
+    }
   for (int di = 0; di < win.qh; ++di) {
     for (int dj = 0; dj < win.qw; ++dj) {
       int acc[4][4] = {};
       const ConvA<FACTOR> load_a(x, c, PassRows{win, g0, di, dj}, tid);
       fq::mainloop<FACTOR>(s, load_a, w, load_a.K, load_a.K / FACTOR, c.Cout,
                            n0, tid, acc);
+      if constexpr (NOISE) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          int row;
+          if (!field_row(win, c, g0 + ty + 16 * i, di, dj, row)) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mx[i][j] = max(mx[i][j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) {
+            const int n = n0 + tx + 16 * j;
+            if (n < c.Cout)
+              mx[i][j] = fmaxf(mx[i][j], nz.add(acc[i][j], row, c.Cout, n));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mx[i][j] = max(mx[i][j], acc[i][j]);
+      }
     }
   }
   fq::store<DEQUANT>(out, mx, *scale, lo, n_out, win.Mp, c.Cout, g0, n0, tid);
 }
 
-template <bool DEQUANT, int FACTOR>
+template <bool DEQUANT, int FACTOR, bool NOISE>
 void launch_pool(const int8_t* x, const int8_t* w, const float* scale,
                  void* out, const ConvShape& c, const Windows& win, int lo,
-                 int n_out, cudaStream_t st) {
+                 int n_out, const fq::NoiseArgs& na, cudaStream_t st) {
   const unsigned gy = (c.Cout + fq::BN - 1) / fq::BN;
   if (win.qh == 2 && win.qw == 2) {
     dim3 grid((win.Mp + POOL2_WINDOWS - 1) / POOL2_WINDOWS, gy);
-    fq_conv_pool2_kernel<DEQUANT, FACTOR><<<grid, fq::THREADS, 0, st>>>(
-        x, w, scale, out, c, win, lo, n_out);
+    fq_conv_pool2_kernel<DEQUANT, FACTOR, NOISE>
+        <<<grid, fq::THREADS, 0, st>>>(x, w, scale, out, c, win, lo, n_out,
+                                       na);
   } else {
     dim3 grid((win.Mp + fq::BM - 1) / fq::BM, gy);
-    fq_conv_pool_kernel<DEQUANT, FACTOR><<<grid, fq::THREADS, 0, st>>>(
-        x, w, scale, out, c, win, lo, n_out);
+    fq_conv_pool_kernel<DEQUANT, FACTOR, NOISE>
+        <<<grid, fq::THREADS, 0, st>>>(x, w, scale, out, c, win, lo, n_out,
+                                       na);
   }
 }
 
 }  // namespace
 
 // factor: codes per weight byte (1 int8, 2 int4, 4 ternary); w holds
-// kh * kw * cin_p / factor rows.
+// kh * kw * cin_p / factor rows. sigma (float32) and seed (uint32) are
+// device scalars, or null for the clean epilogue; chunks >= 1 with noise.
 extern "C" int fq_conv2d_s8(const void* x, const void* w, const void* scale,
-                            void* out, int B, int H, int W, int Cin, int Cout,
-                            int kh, int kw, int sh, int sw, int ph, int pw,
-                            int dh, int dw, int Ho, int Wo, int factor,
-                            int dequant, int lo, int n_out, void* stream) {
+                            void* out, const void* sigma, const void* seed,
+                            int B, int H, int W, int Cin, int Cout, int kh,
+                            int kw, int sh, int sw, int ph, int pw, int dh,
+                            int dw, int Ho, int Wo, int factor, int dequant,
+                            int lo, int n_out, int chunks, void* stream) {
   const ConvShape c{B, H, W, Cin, Cout, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo};
   const int M = B * Ho * Wo;
   cudaError_t err = cudaSuccess;
+  if (sigma && chunks < 1) return (int)cudaErrorInvalidValue;
   if (M > 0 && Cout > 0) {
     dim3 grid((M + fq::BM - 1) / fq::BM, (Cout + fq::BN - 1) / fq::BN);
     cudaStream_t st = (cudaStream_t)stream;
     const int8_t *xs = (const int8_t*)x, *ws = (const int8_t*)w;
     const float* sc = (const float*)scale;
+    const fq::NoiseArgs na{(const float*)sigma, (const uint32_t*)seed, chunks};
     err = fq::with_factor(factor, [&](auto f) {
       constexpr int F = decltype(f)::value;
-      if (dequant)
-        fq_conv_kernel<true, F><<<grid, fq::THREADS, 0, st>>>(
-            xs, ws, sc, out, c, lo, n_out);
-      else
-        fq_conv_kernel<false, F><<<grid, fq::THREADS, 0, st>>>(
-            xs, ws, sc, out, c, lo, n_out);
+      fq::with_flags(dequant, sigma != nullptr, [&](auto dq, auto nz) {
+        fq_conv_kernel<decltype(dq)::value, F, decltype(nz)::value>
+            <<<grid, fq::THREADS, 0, st>>>(xs, ws, sc, out, c, lo, n_out, na);
+      });
     });
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
@@ -284,26 +359,29 @@ extern "C" int fq_conv2d_s8(const void* x, const void* w, const void* scale,
 
 // K3b: (Ho, Wo) is the conv output; the output is (B, Ho / qh, Wo / qw, Cout).
 extern "C" int fq_conv2d_pool_s8(const void* x, const void* w,
-                                 const void* scale, void* out, int B, int H,
-                                 int W, int Cin, int Cout, int kh, int kw,
-                                 int sh, int sw, int ph, int pw, int dh,
-                                 int dw, int Ho, int Wo, int qh, int qw,
-                                 int factor, int dequant, int lo, int n_out,
-                                 void* stream) {
+                                 const void* scale, void* out,
+                                 const void* sigma, const void* seed, int B,
+                                 int H, int W, int Cin, int Cout, int kh,
+                                 int kw, int sh, int sw, int ph, int pw,
+                                 int dh, int dw, int Ho, int Wo, int qh,
+                                 int qw, int factor, int dequant, int lo,
+                                 int n_out, int chunks, void* stream) {
   const ConvShape c{B, H, W, Cin, Cout, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo};
   const int Hp = Ho / qh, Wp = Wo / qw;
   const Windows win{B * Hp * Wp, Hp * Wp, Wp, qh, qw};
   cudaError_t err = cudaSuccess;
+  if (sigma && chunks < 1) return (int)cudaErrorInvalidValue;
   if (win.Mp > 0 && Cout > 0) {
     const int8_t *xs = (const int8_t*)x, *ws = (const int8_t*)w;
     const float* sc = (const float*)scale;
     cudaStream_t st = (cudaStream_t)stream;
+    const fq::NoiseArgs na{(const float*)sigma, (const uint32_t*)seed, chunks};
     err = fq::with_factor(factor, [&](auto f) {
       constexpr int F = decltype(f)::value;
-      if (dequant)
-        launch_pool<true, F>(xs, ws, sc, out, c, win, lo, n_out, st);
-      else
-        launch_pool<false, F>(xs, ws, sc, out, c, win, lo, n_out, st);
+      fq::with_flags(dequant, sigma != nullptr, [&](auto dq, auto nz) {
+        launch_pool<decltype(dq)::value, F, decltype(nz)::value>(
+            xs, ws, sc, out, c, win, lo, n_out, na, st);
+      });
     });
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();

@@ -20,6 +20,11 @@
 // core/quant.py::pack_codes) the tile loop decodes each byte into the
 // shared B tile (igemm.cuh, load_b_tile); the pad rows past K meet A lanes
 // that load 0. The weight bytes read fall by the factor.
+//
+// K4, the ADC noise (replaces fq_matmul.py:52-66 and :98-105): with a
+// sigma pointer, the epilogue adds the noise.cuh field at the global index
+// m * N + n to f32(acc) and requantizes the float32 value. NOISE is a
+// template parameter, so the clean instantiations are the code they were.
 #include "igemm.cuh"
 
 namespace {
@@ -39,11 +44,11 @@ struct MatA {
   }
 };
 
-template <bool DEQUANT, int FACTOR>
+template <bool DEQUANT, int FACTOR, bool NOISE>
 __global__ void __launch_bounds__(fq::THREADS)
 fq_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
                  const float* __restrict__ scale, void* __restrict__ out,
-                 int M, int N, int K, int lo, int n_out) {
+                 int M, int N, int K, int lo, int n_out, fq::NoiseArgs na) {
   __shared__ fq::Tiles s;
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * fq::BM, n0 = blockIdx.y * fq::BN;
@@ -51,30 +56,39 @@ fq_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
   const MatA load_a(a, M, K, m0, tid);
   fq::mainloop<FACTOR>(s, load_a, w, K, (K + FACTOR - 1) / FACTOR, N, n0,
                        tid, acc);
-  fq::store<DEQUANT>(out, acc, *scale, lo, n_out, M, N, m0, n0, tid);
+  if constexpr (NOISE) {
+    float v[4][4];
+    fq::noisy_tile(v, acc, fq::Noise::load(na), M, N, m0, n0, tid);
+    fq::store<DEQUANT>(out, v, *scale, lo, n_out, M, N, m0, n0, tid);
+  } else {
+    fq::store<DEQUANT>(out, acc, *scale, lo, n_out, M, N, m0, n0, tid);
+  }
 }
 
 }  // namespace
 
 // factor: codes per byte of w (1 int8, 2 int4, 4 ternary); w holds
-// ceil(K / factor) rows.
+// ceil(K / factor) rows. sigma (float32) and seed (uint32) are device
+// scalars, or null for the clean epilogue; chunks >= 1 with noise.
 extern "C" int fq_matmul_s8(const void* a, const void* w, const void* scale,
-                            void* out, int M, int N, int K, int factor,
-                            int dequant, int lo, int n_out, void* stream) {
+                            void* out, const void* sigma, const void* seed,
+                            int M, int N, int K, int factor, int dequant,
+                            int lo, int n_out, int chunks, void* stream) {
   cudaError_t err = cudaSuccess;
+  if (sigma && chunks < 1) return (int)cudaErrorInvalidValue;
   if (M > 0 && N > 0) {
     dim3 grid((M + fq::BM - 1) / fq::BM, (N + fq::BN - 1) / fq::BN);
     cudaStream_t st = (cudaStream_t)stream;
     const int8_t *as = (const int8_t*)a, *ws = (const int8_t*)w;
     const float* sc = (const float*)scale;
+    const fq::NoiseArgs na{(const float*)sigma, (const uint32_t*)seed, chunks};
     err = fq::with_factor(factor, [&](auto f) {
       constexpr int F = decltype(f)::value;
-      if (dequant)
-        fq_matmul_kernel<true, F><<<grid, fq::THREADS, 0, st>>>(
-            as, ws, sc, out, M, N, K, lo, n_out);
-      else
-        fq_matmul_kernel<false, F><<<grid, fq::THREADS, 0, st>>>(
-            as, ws, sc, out, M, N, K, lo, n_out);
+      fq::with_flags(dequant, sigma != nullptr, [&](auto dq, auto nz) {
+        fq_matmul_kernel<decltype(dq)::value, F, decltype(nz)::value>
+            <<<grid, fq::THREADS, 0, st>>>(as, ws, sc, out, M, N, K, lo,
+                                           n_out, na);
+      });
     });
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();

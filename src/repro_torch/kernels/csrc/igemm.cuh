@@ -1,5 +1,6 @@
 // Shared int8 x int8 -> int32 tile loop of K2 (fq_matmul.cu) and K3
-// (fq_conv.cu), with the fused epilogue of epilogue.cuh.
+// (fq_conv.cu), with the fused epilogue of epilogue.cuh and, when the ADC
+// noise is on (K4), the noisy tile of noise.cuh.
 //
 // One block computes a BM x BN output tile with 256 threads; thread
 // (tx, ty) = (tid % 16, tid / 16) owns the 4 x 4 outputs at rows
@@ -28,6 +29,7 @@
 #include <type_traits>
 
 #include "epilogue.cuh"
+#include "noise.cuh"
 
 namespace fq {
 
@@ -137,7 +139,20 @@ inline cudaError_t with_factor(int factor, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-// One output element through the shared epilogue: f32 or int8 at out[o].
+// Host side: calls f(std::bool_constant<a>, std::bool_constant<b>).
+template <class F>
+inline void with_flags(bool a, bool b, F&& f) {
+  if (a) {
+    if (b) f(std::true_type{}, std::true_type{});
+    else f(std::true_type{}, std::false_type{});
+  } else {
+    if (b) f(std::false_type{}, std::true_type{});
+    else f(std::false_type{}, std::false_type{});
+  }
+}
+
+// One output element through the shared epilogue: f32 or int8 at out[o],
+// from the int32 accumulator or (noisy) a float32 one.
 template <bool DEQUANT>
 __device__ __forceinline__ void put(void* __restrict__ out, long long o,
                                     int acc, float scale, int lo, int n_out) {
@@ -147,10 +162,39 @@ __device__ __forceinline__ void put(void* __restrict__ out, long long o,
     static_cast<int8_t*>(out)[o] = fq_requant(acc, scale, lo, n_out);
 }
 
-// Masked store of the thread's 4 x 4 outputs through the shared epilogue.
 template <bool DEQUANT>
+__device__ __forceinline__ void put(void* __restrict__ out, long long o,
+                                    float accf, float scale, int lo,
+                                    int n_out) {
+  if (DEQUANT)
+    static_cast<float*>(out)[o] = fq_dequant_f(accf, scale);
+  else
+    static_cast<int8_t*>(out)[o] = fq_requant_f(accf, scale, lo, n_out);
+}
+
+// K4: the thread's 4 x 4 accumulators plus the ADC noise at their global
+// (row m, column n) of the M x N output; entries outside it are 0 and are
+// never stored.
+__device__ __forceinline__ void noisy_tile(float v[4][4], const int acc[4][4],
+                                           const Noise& nz, int M, int N,
+                                           int m0, int n0, int tid) {
+  const int tx = tid % 16, ty = tid / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      v[i][j] = (m < M && n < N) ? nz.add(acc[i][j], m, N, n) : 0.0f;
+    }
+  }
+}
+
+// Masked store of the thread's 4 x 4 outputs (int32 or float32
+// accumulators) through the shared epilogue.
+template <bool DEQUANT, class T>
 __device__ __forceinline__ void store(void* __restrict__ out,
-                                      const int acc[4][4], float scale,
+                                      const T acc[4][4], float scale,
                                       int lo, int n_out, int M, int N, int m0,
                                       int n0, int tid) {
   const int tx = tid % 16, ty = tid / 16;

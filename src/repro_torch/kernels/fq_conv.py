@@ -20,7 +20,12 @@ picker and autotune table have no counterpart yet: the CUDA kernel's tile
 is fixed. With packed weights the kernel reduces over taps x cin_p and
 decodes the bytes in its tile loop; the activations are not padded.
 ``launches`` counts every launch, ``packed_launches[fmt]`` the packed ones.
-ADC noise is a later slice of the port.
+
+ADC noise (K4), as in K2: the field at the conv output's global index
+((b * Ho + h) * Wo + w) * Cout + c goes onto f32(acc) before the pool and
+the epilogue; with ``pool=`` the max runs on the noisy float32
+accumulator, each window position with the field of its unpooled index.
+``noisy_launches`` counts those launches.
 """
 from __future__ import annotations
 
@@ -31,12 +36,13 @@ import torch
 
 from ..core.quant import format_factor
 from . import _build
-from .fq_matmul import check_operands, packed_counts
+from .fq_matmul import (check_noise, check_operands, noise_pointers,
+                        packed_counts)
 from .ref import ref_fq_conv2d as fq_conv2d_plain
 
-_CONV_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
-_SIG = {"fq_conv2d_s8": _CONV_ARGS + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        "fq_conv2d_pool_s8": _CONV_ARGS + [ctypes.c_int] * 6
+_CONV_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
+_SIG = {"fq_conv2d_s8": _CONV_ARGS + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "fq_conv2d_pool_s8": _CONV_ARGS + [ctypes.c_int] * 7
         + [ctypes.c_void_p]}
 
 
@@ -68,14 +74,20 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
               dilation: Tuple[int, int] = (1, 1),
               pool: Optional[Tuple[int, int]] = None,
               epilogue: str = "requant", n_out: int = 7,
-              lo: int = 0, weight_format: str = "int8") -> torch.Tensor:
+              lo: int = 0, weight_format: str = "int8",
+              noise_sigma_acc=None, noise_seed=None,
+              mac_chunks: int = 1) -> torch.Tensor:
     """Fused int8 NHWC conv2d with the requant/dequant epilogue.
 
     ``pool=(ph, pw)`` fuses a non-overlapping max-pool, floor mode, on the
     int32 accumulator before the epilogue (K3b); its launches are counted
     on :func:`fq_conv2d_pool`. ``weight_format`` "int4" or "ternary" takes
-    packed weights, (kh*kw*cin_p/factor, Cout) uint8.
+    packed weights, (kh*kw*cin_p/factor, Cout) uint8. ``noise_sigma_acc``,
+    ``noise_seed`` and ``mac_chunks`` turn on the ADC noise, as in
+    :func:`.fq_matmul.fq_matmul`.
     """
+    what = "fq_conv2d" if pool is None else "fq_conv2d_pool"
+    noisy = check_noise(what, noise_sigma_acc, noise_seed, mac_chunks)
     b, h, w, cin = a_codes.shape
     cout = w_codes.shape[1]
     factor = check_weights("fq_conv2d", w_codes, kh * kw, cin, weight_format)
@@ -95,9 +107,12 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
                                stride=stride, padding=padding,
                                dilation=dilation, pool=pool,
                                epilogue=epilogue, n_out=n_out, lo=lo,
-                               weight_format=weight_format)
-    what = "fq_conv2d" if pool is None else "fq_conv2d_pool"
+                               weight_format=weight_format,
+                               noise_sigma_acc=noise_sigma_acc,
+                               noise_seed=noise_seed, mac_chunks=mac_chunks)
     check_operands(what, scale, epilogue, a_codes, w_codes, weight_format)
+    sigma, seed = (noise_pointers(what, a_codes.device, noise_sigma_acc,
+                                  noise_seed) if noisy else (None, None))
     if a_codes.numel() >= 2 ** 31:
         raise ValueError(f"{what}: the CUDA kernel indexes activations "
                          "with 32-bit offsets (< 2^31 elements)")
@@ -107,11 +122,11 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
                       dtype=torch.float32 if dequant else torch.int8)
     lib = _build.library("fq_conv", _SIG)
     shape = (b, h, w, cin, cout, kh, kw, *stride, *padding, *dilation, ho, wo)
-    tail = (factor, int(dequant), int(lo), int(n_out))
+    tail = (factor, int(dequant), int(lo), int(n_out), mac_chunks)
     with torch.cuda.device(a_codes.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         ptrs = (_build.ptr(a_codes), _build.ptr(w_codes), _build.ptr(scale),
-                _build.ptr(out))
+                _build.ptr(out), sigma, seed)
         if pool is None:
             err = lib.fq_conv2d_s8(*ptrs, *shape, *tail, stream)
         else:
@@ -121,11 +136,14 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
     counted.launches += 1
     if factor > 1:
         counted.packed_launches[weight_format] += 1
+    if noisy:
+        counted.noisy_launches += 1
     return out
 
 
 fq_conv2d.launches = 0
 fq_conv2d.packed_launches = packed_counts()
+fq_conv2d.noisy_launches = 0
 
 
 def fq_conv2d_pool(a_codes: torch.Tensor, w_codes: torch.Tensor,
@@ -138,18 +156,24 @@ def fq_conv2d_pool(a_codes: torch.Tensor, w_codes: torch.Tensor,
 
 fq_conv2d_pool.launches = 0
 fq_conv2d_pool.packed_launches = packed_counts()
+fq_conv2d_pool.noisy_launches = 0
 
 
 def fq_conv1d(a_codes: torch.Tensor, w_codes: torch.Tensor,
               scale: torch.Tensor, *, ksize: int, dilation: int = 1,
               epilogue: str = "requant", n_out: int = 7,
-              lo: int = 0, weight_format: str = "int8") -> torch.Tensor:
+              lo: int = 0, weight_format: str = "int8",
+              noise_sigma_acc=None, noise_seed=None,
+              mac_chunks: int = 1) -> torch.Tensor:
     """Fused int8 1-D conv (VALID, dilated: the paper's KWS layers).
 
     A (ksize, 1) conv2d over a width-1 axis: conv1d's tap-major weights are
-    exactly the kw=1 conv2d layout, and the views below copy nothing.
+    exactly the kw=1 conv2d layout, and the views below copy nothing. The
+    output index (b * T_out + t) * Cout + c is the conv2d one at Wo = 1.
     """
     y = fq_conv2d(a_codes.unsqueeze(2), w_codes, scale, kh=ksize, kw=1,
                   dilation=(dilation, 1), epilogue=epilogue, n_out=n_out,
-                  lo=lo, weight_format=weight_format)
+                  lo=lo, weight_format=weight_format,
+                  noise_sigma_acc=noise_sigma_acc, noise_seed=noise_seed,
+                  mac_chunks=mac_chunks)
     return y.squeeze(2)

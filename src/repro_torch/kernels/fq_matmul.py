@@ -12,8 +12,12 @@ Counterpart of ``repro.kernels.fq_matmul`` (Pallas). (M, K) int8 codes x
 Packed weights (``weight_format`` "int4" or "ternary", K5): B is
 (ceil(K/factor), N) uint8 from ``core.quant.pack_codes`` and the kernel
 decodes it in its tile loop. ``fq_matmul.launches`` counts every launch,
-``fq_matmul.packed_launches[fmt]`` the packed ones. The ADC-noise epilogue
-is a later slice of the port.
+``fq_matmul.packed_launches[fmt]`` the packed ones.
+
+ADC noise (K4): with ``noise_sigma_acc`` (sigma in accumulator units) and
+``noise_seed``, the epilogue adds ``core.noise.mac_noise_field`` at the
+global index ``row * N + col`` to f32(acc) and requantizes the float32
+value; ``fq_matmul.noisy_launches`` counts those launches.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from .ref import apply_epilogue, ref_fq_matmul as fq_matmul_plain
 
 __all__ = ["apply_epilogue", "fq_matmul", "fq_matmul_plain"]
 
-_SIG = {"fq_matmul_s8": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_SIG = {"fq_matmul_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         + [ctypes.c_void_p]}
 
 
@@ -58,17 +62,49 @@ def check_operands(what: str, scale: torch.Tensor, epilogue: str,
                          f"got {epilogue!r}")
 
 
+def check_noise(what: str, noise_sigma_acc, noise_seed,
+                mac_chunks: int) -> bool:
+    """True when the ADC noise is on; raises for a sigma without a seed
+    (as the reference asserts) and for mac_chunks < 1."""
+    if noise_sigma_acc is None:
+        return False
+    if noise_seed is None:
+        raise ValueError(f"{what}: noise_seed is required with "
+                         "noise_sigma_acc")
+    if not isinstance(mac_chunks, int) or mac_chunks < 1:
+        raise ValueError(f"{what}: mac_chunks must be an int >= 1, got "
+                         f"{mac_chunks!r}")
+    return True
+
+
+def noise_pointers(what: str, dev: torch.device, noise_sigma_acc,
+                   noise_seed):
+    """The CUDA kernels' noise operands, checked: sigma one float32 and the
+    seed one uint32 element on ``dev``, read by the kernel on the device."""
+    for t, dtype, name in ((noise_sigma_acc, torch.float32, "sigma"),
+                           (noise_seed, torch.uint32, "seed")):
+        if (not isinstance(t, torch.Tensor) or t.device != dev
+                or t.dtype != dtype or t.numel() != 1):
+            raise ValueError(f"{what}: noise {name} must be one {dtype} "
+                             f"element on {dev}")
+    return _build.ptr(noise_sigma_acc), _build.ptr(noise_seed)
+
+
 def fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
               scale: torch.Tensor, *, epilogue: str = "requant",
-              n_out: int = 7, lo: int = 0,
-              weight_format: str = "int8") -> torch.Tensor:
+              n_out: int = 7, lo: int = 0, weight_format: str = "int8",
+              noise_sigma_acc=None, noise_seed=None,
+              mac_chunks: int = 1) -> torch.Tensor:
     """int8 (M, K) x int8 (K, N) with the fused requant/dequant epilogue.
 
     ``scale`` is the folded rescale (requant) or alpha (dequant), a
     one-element float32 tensor on the codes' device. Packed B
     (``weight_format`` "int4" or "ternary") is (rows_p, N) uint8 with
-    0 <= rows_p * factor - K < factor.
+    0 <= rows_p * factor - K < factor. ``noise_sigma_acc`` (float32) and
+    ``noise_seed`` (uint32), one-element tensors on the codes' device, turn
+    on the ADC noise, ``mac_chunks`` draws per output.
     """
+    noisy = check_noise("fq_matmul", noise_sigma_acc, noise_seed, mac_chunks)
     factor = format_factor(weight_format)
     m, k = a_codes.shape
     rows, n = b_codes.shape
@@ -81,9 +117,14 @@ def fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
     if a_codes.device.type == "cpu":
         return fq_matmul_plain(a_codes, b_codes, scale, epilogue=epilogue,
                                n_out=n_out, lo=lo,
-                               weight_format=weight_format)
+                               weight_format=weight_format,
+                               noise_sigma_acc=noise_sigma_acc,
+                               noise_seed=noise_seed, mac_chunks=mac_chunks)
     check_operands("fq_matmul", scale, epilogue, a_codes, b_codes,
                    weight_format)
+    sigma, seed = (noise_pointers("fq_matmul", a_codes.device,
+                                  noise_sigma_acc, noise_seed)
+                   if noisy else (None, None))
     dequant = epilogue == "dequant"
     out = torch.empty((m, n), device=a_codes.device,
                       dtype=torch.float32 if dequant else torch.int8)
@@ -92,14 +133,17 @@ def fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fq_matmul_s8(
             _build.ptr(a_codes), _build.ptr(b_codes), _build.ptr(scale),
-            _build.ptr(out), m, n, k, factor, int(dequant), int(lo),
-            int(n_out), ctypes.c_void_p(stream))
+            _build.ptr(out), sigma, seed, m, n, k, factor, int(dequant),
+            int(lo), int(n_out), mac_chunks, ctypes.c_void_p(stream))
     _build.check(err, "fq_matmul", lib)
     fq_matmul.launches += 1
     if factor > 1:
         fq_matmul.packed_launches[weight_format] += 1
+    if noisy:
+        fq_matmul.noisy_launches += 1
     return out
 
 
 fq_matmul.launches = 0
 fq_matmul.packed_launches = packed_counts()
+fq_matmul.noisy_launches = 0

@@ -13,8 +13,10 @@
     kernels read the packed bytes (K5, their packed prologue); im2col
     unpacks them to the int8 layout first and stays the parity oracle for
     every format, as in the reference.
-
-Noise is a later slice of the port; it is refused here, on every device.
+  * ADC noise (``noise_sigma_acc``, ``noise_seed``, ``mac_chunks``; K4)
+    on every impl: the field is indexed by global output elements, so
+    the im2col oracle (K2's noisy epilogue over the patch matrix, N =
+    Cout, then the code pool) and the fused kernels stay bit-identical.
 """
 from __future__ import annotations
 
@@ -27,12 +29,6 @@ from ..core.quant import n_levels, unpack_im2col_codes
 from .fq_conv import check_weights, conv_out_size, fq_conv1d, fq_conv2d
 from .fq_matmul import fq_matmul
 from .quantize import quantize_codes
-
-
-def refuse_unported(what: str, *, noise=None) -> None:
-    """Raise for the options whose kernels are not ported yet."""
-    if noise is not None:
-        raise NotImplementedError(f"{what}: the noise model is not ported yet")
 
 
 def oracle_weights(what: str, w_codes, taps: int, cin: int,
@@ -68,11 +64,13 @@ def fold_alpha(s_a, s_w, *, bits_a: int, bits_w: int):
 
 
 def int_matmul(a_codes, b_codes, scale, *, epilogue="requant", n_out=7, lo=0,
-               noise_sigma_acc=None, weight_format="int8"):
+               noise_sigma_acc=None, noise_seed=None, mac_chunks=1,
+               weight_format="int8"):
     """K2; packed B ((ceil(K/factor), N) uint8) goes to the kernel as is."""
-    refuse_unported("int_matmul", noise=noise_sigma_acc)
     return fq_matmul(a_codes, b_codes, scale, epilogue=epilogue, n_out=n_out,
-                     lo=lo, weight_format=weight_format)
+                     lo=lo, weight_format=weight_format,
+                     noise_sigma_acc=noise_sigma_acc, noise_seed=noise_seed,
+                     mac_chunks=mac_chunks)
 
 
 def quantize_to_codes(x, s, *, bits: int, b: float, inv_scale=None):
@@ -113,44 +111,48 @@ def _im2col_2d(x, ksize: int, stride: int, padding: int, dilation: int = 1):
 
 def fq_conv1d_int(a_codes, w_codes, scale, *, ksize: int, dilation: int = 1,
                   epilogue="requant", n_out=7, lo=0, impl=None,
-                  noise_sigma_acc=None, weight_format="int8"):
+                  noise_sigma_acc=None, noise_seed=None, mac_chunks=1,
+                  weight_format="int8"):
     """int8 1-D convolution (B, T, Cin) -> (B, T_out, Cout), VALID, dilated.
 
     w_codes: (ksize*Cin, Cout) int8, tap-major, or the ``weight_format``
     packed uint8 layout (``core.quant.pack_im2col_codes``).
     """
-    refuse_unported("fq_conv1d_int", noise=noise_sigma_acc)
+    noise = dict(noise_sigma_acc=noise_sigma_acc, noise_seed=noise_seed,
+                 mac_chunks=mac_chunks)
     if conv_impl(impl, a_codes.device) == "fused":
         return fq_conv1d(a_codes, w_codes, scale, ksize=ksize,
                          dilation=dilation, epilogue=epilogue, n_out=n_out,
-                         lo=lo, weight_format=weight_format)
+                         lo=lo, weight_format=weight_format, **noise)
     w_codes = oracle_weights("fq_conv1d_int", w_codes, ksize,
                              a_codes.shape[-1], weight_format)
     b = a_codes.shape[0]
     patches, t_out = _im2col_1d(a_codes, ksize, dilation)
     y = fq_matmul(patches.reshape(b * t_out, -1), w_codes, scale,
-                  epilogue=epilogue, n_out=n_out, lo=lo)
+                  epilogue=epilogue, n_out=n_out, lo=lo, **noise)
     return y.reshape(b, t_out, -1)
 
 
 def fq_conv2d_int(a_codes, w_codes, scale, *, ksize: int, stride: int = 1,
                   padding: int = 0, dilation: int = 1, epilogue="requant",
                   n_out=7, lo=0, impl=None, noise_sigma_acc=None,
-                  weight_format="int8"):
+                  noise_seed=None, mac_chunks=1, weight_format="int8"):
     """int8 2-D convolution (NHWC); w_codes (ksize*ksize*Cin, Cout) int8, or
     the ``weight_format`` packed uint8 layout, which im2col unpacks first."""
-    refuse_unported("fq_conv2d_int", noise=noise_sigma_acc)
+    noise = dict(noise_sigma_acc=noise_sigma_acc, noise_seed=noise_seed,
+                 mac_chunks=mac_chunks)
     if conv_impl(impl, a_codes.device) == "fused":
         return fq_conv2d(a_codes, w_codes, scale, kh=ksize, kw=ksize,
                          stride=(stride, stride), padding=(padding, padding),
                          dilation=(dilation, dilation), epilogue=epilogue,
-                         n_out=n_out, lo=lo, weight_format=weight_format)
+                         n_out=n_out, lo=lo, weight_format=weight_format,
+                         **noise)
     w_codes = oracle_weights("fq_conv2d_int", w_codes, ksize * ksize,
                              a_codes.shape[-1], weight_format)
     b = a_codes.shape[0]
     patches, ho, wo = _im2col_2d(a_codes, ksize, stride, padding, dilation)
     y = fq_matmul(patches.reshape(b * ho * wo, -1), w_codes, scale,
-                  epilogue=epilogue, n_out=n_out, lo=lo)
+                  epilogue=epilogue, n_out=n_out, lo=lo, **noise)
     return y.reshape(b, ho, wo, -1)
 
 
@@ -169,24 +171,26 @@ def maxpool2d(y, *, window: int = 2, stride: int = 2):
 def fq_conv2d_pool_int(a_codes, w_codes, scale, *, ksize: int,
                        stride: int = 1, padding: int = 0, dilation: int = 1,
                        pool: int = 2, epilogue="requant", n_out=7, lo=0,
-                       impl=None, noise_sigma_acc=None,
-                       weight_format="int8"):
+                       impl=None, noise_sigma_acc=None, noise_seed=None,
+                       mac_chunks=1, weight_format="int8"):
     """int8 conv2d + non-overlapping (pool, pool) max-pool.
 
     "fused" pools the int32 accumulator in the conv kernel's epilogue
     (K3b), so only the pooled codes reach device memory; "im2col" runs the
     unfused conv and :func:`maxpool2d` on its output, the parity oracle
-    (bit-exact because the epilogue is monotone for scale > 0).
+    (bit-exact because the epilogue is monotone for scale > 0). With ADC
+    noise, both perturb the pre-pool accumulator, so they stay identical.
     """
-    refuse_unported("fq_conv2d_pool_int", noise=noise_sigma_acc)
+    noise = dict(noise_sigma_acc=noise_sigma_acc, noise_seed=noise_seed,
+                 mac_chunks=mac_chunks)
     if conv_impl(impl, a_codes.device) == "fused":
         return fq_conv2d(a_codes, w_codes, scale, kh=ksize, kw=ksize,
                          stride=(stride, stride), padding=(padding, padding),
                          dilation=(dilation, dilation), pool=(pool, pool),
                          epilogue=epilogue, n_out=n_out, lo=lo,
-                         weight_format=weight_format)
+                         weight_format=weight_format, **noise)
     y = fq_conv2d_int(a_codes, w_codes, scale, ksize=ksize, stride=stride,
                       padding=padding, dilation=dilation, epilogue=epilogue,
                       n_out=n_out, lo=lo, impl="im2col",
-                      weight_format=weight_format)
+                      weight_format=weight_format, **noise)
     return maxpool2d(y, window=pool, stride=pool)

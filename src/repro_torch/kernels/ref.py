@@ -8,6 +8,11 @@ speed.
 Packed weights (``weight_format`` "int4" or "ternary") are unpacked to the
 int8 layout first; the int8 arithmetic then runs unchanged.
 
+ADC noise (``noise_sigma_acc``, ``noise_seed``, ``mac_chunks``; K4 on the
+card): ``core.noise.mac_noise_field`` at each output's global index
+``row * n_true + col`` is added to f32(acc), before the pool and the
+epilogue, which then run on the noisy float32 value.
+
 Integer products run in float64 and are cast back to int32: CUDA has no
 int32 ``torch.matmul``, and the float64 sum is exact in any order because
 |acc| <= 127 * 127 * K < 2^53 for every K this package meets.
@@ -19,12 +24,14 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.noise import mac_noise_field, output_index
 from ..core.quant import unpack_codes, unpack_im2col_codes
 
 
 def apply_epilogue(acc: torch.Tensor, scale: torch.Tensor, *, epilogue: str,
                    n_out: int, lo: int) -> torch.Tensor:
-    """The requant/dequant "ADC" epilogue on an int32 accumulator.
+    """The requant/dequant "ADC" epilogue on an int32 accumulator, or on a
+    float32 one (the noisy accumulator).
 
     requant: clip(round(f32(acc) * scale), lo, n_out) -> int8, round half to
     even; dequant: f32(acc) * scale -> f32.
@@ -44,11 +51,27 @@ def int_accumulate(a_codes: torch.Tensor, b_codes: torch.Tensor) -> torch.Tensor
     return acc.to(torch.int32)
 
 
+def add_mac_noise(acc: torch.Tensor, noise_sigma_acc, noise_seed,
+                  mac_chunks: int) -> torch.Tensor:
+    """f32(acc) + the ADC-noise field of an (M, N) accumulator, at the
+    global index ``row * N + col``; the int32 acc itself without noise."""
+    if noise_sigma_acc is None:
+        return acc
+    if noise_seed is None:
+        raise ValueError("noise_seed is required with noise_sigma_acc")
+    m, n = acc.shape
+    return acc.to(torch.float32) + mac_noise_field(
+        output_index(m, n, acc.device), noise_seed, noise_sigma_acc,
+        chunks=mac_chunks)
+
+
 def ref_fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
                   scale: torch.Tensor, *, epilogue: str = "requant",
                   n_out: int = 7, lo: int = 0,
-                  weight_format: str = "int8") -> torch.Tensor:
-    """int8 (M, K) x int8 (K, N) -> int32, then the fused epilogue.
+                  weight_format: str = "int8", noise_sigma_acc=None,
+                  noise_seed=None, mac_chunks: int = 1) -> torch.Tensor:
+    """int8 (M, K) x int8 (K, N) -> int32, the ADC noise when
+    ``noise_sigma_acc`` is given, then the fused epilogue.
 
     Packed B is (ceil(K/factor), N) uint8 (``core.quant.pack_codes``); its
     pad rows past K are dropped.
@@ -56,8 +79,9 @@ def ref_fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
     if weight_format != "int8":
         b_codes = unpack_codes(b_codes, weight_format,
                                rows=a_codes.shape[1])
-    return apply_epilogue(int_accumulate(a_codes, b_codes), scale,
-                          epilogue=epilogue, n_out=n_out, lo=lo)
+    acc = add_mac_noise(int_accumulate(a_codes, b_codes), noise_sigma_acc,
+                        noise_seed, mac_chunks)
+    return apply_epilogue(acc, scale, epilogue=epilogue, n_out=n_out, lo=lo)
 
 
 def ref_quantize_codes(x: torch.Tensor, inv_scale: torch.Tensor, *, n: int,
@@ -74,7 +98,9 @@ def ref_fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
                   dilation: Tuple[int, int] = (1, 1),
                   pool: Optional[Tuple[int, int]] = None,
                   epilogue: str = "requant", n_out: int = 7,
-                  lo: int = 0, weight_format: str = "int8") -> torch.Tensor:
+                  lo: int = 0, weight_format: str = "int8",
+                  noise_sigma_acc=None, noise_seed=None,
+                  mac_chunks: int = 1) -> torch.Tensor:
     """NHWC int8 conv as a sum over taps of window @ tap weights.
 
     a_codes (B, H, W, Cin); w_codes (kh*kw*Cin, Cout), tap-major (row
@@ -85,7 +111,10 @@ def ref_fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
     ``pool=(ph, pw)`` takes the max of the int32 accumulator over
     non-overlapping (ph, pw) windows, floor mode (rows and columns past
     (Ho // ph) * ph and (Wo // pw) * pw are dropped), before the epilogue:
-    the order of the fused max-pool epilogue.
+    the order of the fused max-pool epilogue. With ADC noise, each conv
+    output (b, h, w, c) takes the field at its unpooled index
+    ((b * Ho + h) * Wo + w) * Cout + c, and the max runs on the noisy
+    float32 accumulator.
     """
     b, h, w, cin = a_codes.shape
     if weight_format != "int8":
@@ -104,7 +133,8 @@ def ref_fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
             win = x[:, th * dh: th * dh + (ho - 1) * sh + 1: sh,
                     tw * dw: tw * dw + (wo - 1) * sw + 1: sw, :]
             acc += win.reshape(-1, cin) @ wf[t * cin:(t + 1) * cin]
-    acc = acc.to(torch.int32).reshape(b, ho, wo, cout)
+    acc = add_mac_noise(acc.to(torch.int32), noise_sigma_acc, noise_seed,
+                        mac_chunks).reshape(b, ho, wo, cout)
     if pool is not None:
         qh, qw = pool
         hp, wp = ho // qh, wo // qw

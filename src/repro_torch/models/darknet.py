@@ -10,7 +10,9 @@ into the conv kernel's epilogue (K3b).
 The float FQ training path (``apply``, ``qat_apply``) is a later slice; this
 module builds a stack from random weights (``init`` -> ``to_fq`` ->
 ``convert_int``) or serves one carried across from the reference
-(``repro_torch.interop``).
+(``repro_torch.interop``). ``noise`` + ``rng`` run the paper's §4.4 noise
+model on every integer conv, one key per conv (fused pool or not), split
+from ``rng`` as the reference splits it; the FP edge convs stay clean.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from ..core import fq_layers as fql
 from ..core import integer_inference as ii
+from ..core import prng
 from ..core.quant import QuantConfig, RELU_BOUND, WEIGHT_BOUND
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
@@ -143,22 +146,26 @@ def _split_plan(plan):
 
 
 def int_core(ip, codes, qcfg: QuantConfig, cfg: DarkNetConfig, *, impl=None,
-             fuse_pool: bool = True, noise=None):
+             fuse_pool: bool = True, noise=None, rng=None,
+             mac_chunks: int = 1):
     """The integer segment alone: int8 codes in -> int8 codes out."""
     plan = layer_plan(cfg, fuse_pool)
-    for step in plan[_split_plan(plan):]:
+    core = plan[_split_plan(plan):]
+    rngs = iter(prng.layer_keys(rng, sum(s[0] == "conv" for s in core)))
+    for step in core:
         if step[0] == "pool":
             codes = ii.int_maxpool2d(codes)
             continue
         _, name, ks, pooled = step
         run = ii.int_conv2d_pool if pooled else ii.int_conv2d
         codes = run(ip[name], codes, ksize=ks, padding=ks // 2, impl=impl,
-                    noise=noise)
+                    noise=noise, rng=next(rngs), mac_chunks=mac_chunks)
     return codes
 
 
 def int_apply(ip, x, qcfg: QuantConfig, cfg: DarkNetConfig, *, impl=None,
-              fuse_pool: bool = True, noise=None):
+              fuse_pool: bool = True, noise=None, rng=None,
+              mac_chunks: int = 1):
     """x: (B, H, W, 3) float -> logits (B, num_classes).
 
     FP conv0 and the float pools before the entry, the entry quantizer,
@@ -176,7 +183,7 @@ def int_apply(ip, x, qcfg: QuantConfig, cfg: DarkNetConfig, *, impl=None,
             h = ops.maxpool2d(h)
     codes = ii.entry_codes(h, ip["entry"], qcfg, b_in=RELU_BOUND)
     codes = int_core(ip, codes, qcfg, cfg, impl=impl, fuse_pool=fuse_pool,
-                     noise=noise)
+                     noise=noise, rng=rng, mac_chunks=mac_chunks)
     h = ii.decode_output(codes, ip["s_out_last"], qcfg.bits_out)
     h = fql.fq_conv2d(ip["head"], h, QuantConfig(), padding="SAME",
                       b_in=RELU_BOUND)
@@ -186,11 +193,12 @@ def int_apply(ip, x, qcfg: QuantConfig, cfg: DarkNetConfig, *, impl=None,
 def int_serve_fn(ip, qcfg: QuantConfig, cfg: DarkNetConfig, **kw):
     """Fixed-signature serving closure: (B, H, W, 3) -> logits.
 
-    Requests (numpy arrays or tensors) are moved to the stack's device.
+    Requests (numpy arrays or tensors) are moved to the stack's device;
+    ``noise``/``rng`` pass through to :func:`int_apply`.
     """
     device = ip.device
 
-    def fn(x, noise=None):
+    def fn(x, noise=None, rng=None):
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
-        return int_apply(ip, x, qcfg, cfg, noise=noise, **kw)
+        return int_apply(ip, x, qcfg, cfg, noise=noise, rng=rng, **kw)
     return fn

@@ -8,7 +8,9 @@ integer-out -> decode -> global average pool -> FP head.
 The float FQ training path (``apply``, ``qat_apply``) is a later slice; this
 module builds a stack from random weights (``init`` -> ``to_fq`` ->
 ``convert_int``) or serves one carried across from the reference
-(``repro_torch.interop``).
+(``repro_torch.interop``). ``noise`` + ``rng`` run the paper's §4.4 noise
+model on every integer conv, one key per conv split from ``rng`` as the
+reference splits it.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from ..core import fq_layers as fql
 from ..core import integer_inference as ii
+from ..core import prng
 from ..core.quant import QuantConfig, RELU_BOUND
 from ..device import DeviceLike, resolve_device
 
@@ -110,21 +113,25 @@ def convert_int(params, state, qcfg: QuantConfig, cfg: KWSConfig,
 
 
 def int_core(ip, codes, qcfg: QuantConfig, cfg: KWSConfig, *, impl=None,
-             noise=None):
+             noise=None, rng=None, mac_chunks: int = 1):
     """The integer segment alone: int8 codes in -> int8 codes out."""
-    for name, dil in layer_plan(cfg):
+    plan = layer_plan(cfg)
+    for (name, dil), r in zip(plan, prng.layer_keys(rng, len(plan))):
         codes = ii.int_conv1d(ip[name], codes, ksize=cfg.ksize, dilation=dil,
-                              impl=impl, noise=noise)
+                              impl=impl, noise=noise, rng=r,
+                              mac_chunks=mac_chunks)
     return codes
 
 
 def int_apply(ip, x, qcfg: QuantConfig, cfg: KWSConfig, *, impl=None,
-              noise=None):
-    """x: (B, T, n_mfcc) float -> logits (B, num_classes)."""
+              noise=None, rng=None, mac_chunks: int = 1):
+    """x: (B, T, n_mfcc) float -> logits (B, num_classes). The FP embedding
+    and head stay clean: the noise model covers the integer conv core."""
     h = fql.dense(ip["embed"], x)
     h, _ = fql.batchnorm(ip["embed_bn"][0], ip["embed_bn"][1], h)
     codes = ii.entry_codes(h, ip["entry"], qcfg, b_in=RELU_BOUND)
-    codes = int_core(ip, codes, qcfg, cfg, impl=impl, noise=noise)
+    codes = int_core(ip, codes, qcfg, cfg, impl=impl, noise=noise, rng=rng,
+                     mac_chunks=mac_chunks)
     h = ii.decode_output(codes, ip["s_out_last"], qcfg.bits_out)
     h = torch.mean(h, dim=1)  # FP global average pool (paper §3.4)
     return fql.dense(ip["head"], h)
@@ -133,11 +140,12 @@ def int_apply(ip, x, qcfg: QuantConfig, cfg: KWSConfig, *, impl=None,
 def int_serve_fn(ip, qcfg: QuantConfig, cfg: KWSConfig, **kw):
     """Fixed-signature serving closure: (B, T, n_mfcc) -> logits.
 
-    Requests (numpy arrays or tensors) are moved to the stack's device.
+    Requests (numpy arrays or tensors) are moved to the stack's device;
+    ``noise``/``rng`` pass through to :func:`int_apply`.
     """
     device = ip.device
 
-    def fn(x, noise=None):
+    def fn(x, noise=None, rng=None):
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
-        return int_apply(ip, x, qcfg, cfg, noise=noise, **kw)
+        return int_apply(ip, x, qcfg, cfg, noise=noise, rng=rng, **kw)
     return fn

@@ -345,3 +345,107 @@ def test_packed_stacks_serve_like_int8_on_the_card(cuda):
                    dict(impl="im2col")):
             assert torch.equal(tdn.int_serve_fn(stack, dq, dcfg, **kw)(xd),
                                want)
+
+
+# ---------------------------------------------------------------------------
+# K4: the ADC-noise epilogue in K2, K3 and K3b
+# ---------------------------------------------------------------------------
+
+FORMATS = ("int8",) + PACKED
+
+
+def _noise(cuda, scale, chunks, seed=4107458132):
+    """sigma ~ 1.5 output LSB in accumulator units, a uint32 seed."""
+    return dict(noise_sigma_acc=torch.tensor(np.float32(1.5 / scale),
+                                             device=cuda),
+                noise_seed=torch.tensor(seed, dtype=torch.uint32,
+                                        device=cuda),
+                mac_chunks=chunks)
+
+
+def test_threefry_on_the_card(cuda):
+    """The reference values chip_smoke.py checks (jax 0.9)."""
+    from repro_torch.core import prng
+    from repro_torch.core.noise import derive_seed
+    keys = prng.split(prng.PRNGKey(5, device=cuda), 3)
+    assert keys[0].tolist() == [2724472204, 3573582090]
+    seed = derive_seed(keys[2])
+    assert seed.dtype == torch.uint32 and int(seed) == 4107458132
+    u = prng.uniform(keys[1], 4096)
+    assert torch.equal(u.cpu(), prng.uniform(keys[1].cpu(), 4096))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("chunks", [1, 4])
+@pytest.mark.parametrize("m,k,n", [(37, 13, 5), (130, 257, 129),
+                                   (4 * 138, 300, 45)])
+@pytest.mark.parametrize("epilogue,lo", [("requant", -7), ("dequant", 0)])
+def test_fq_matmul_noisy_matches_plain(cuda, fmt, chunks, m, k, n, epilogue,
+                                       lo):
+    rng = np.random.default_rng(m + k + chunks)
+    r = tq.format_range(fmt)
+    a = _codes(rng, (m, k), -127, 127, cuda)
+    w = _codes(rng, (k, n), -r, r, cuda)
+    b = w if fmt == "int8" else tq.pack_codes(w, fmt)
+    s = torch.tensor(np.float32(1e-3), device=cuda)
+    kw = dict(epilogue=epilogue, n_out=7, lo=lo, weight_format=fmt,
+              **_noise(cuda, 1e-3, chunks))
+    before = fq_matmul.noisy_launches
+    got = fq_matmul(a, b, s, **kw)
+    torch.cuda.synchronize()
+    assert fq_matmul.noisy_launches == before + 1
+    assert torch.equal(got, tref.ref_fq_matmul(a, b, s, **kw))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("chunks", [1, 4])
+@pytest.mark.parametrize("cin", [5, 64])
+@pytest.mark.parametrize("pool", [None, 2, 3])
+def test_fq_conv2d_noisy_matches_plain(cuda, fmt, chunks, cin, pool):
+    """K3 and K3b (2 x 2 and the generic pool) with the noise at each
+    window position's unpooled index, ragged cin, lo < 0."""
+    rng = np.random.default_rng(cin + (pool or 0) + chunks)
+    r = tq.format_range(fmt)
+    a = _codes(rng, (2, 17, 13, cin), 0, 15, cuda)
+    w = _codes(rng, (9 * cin, 67), -r, r, cuda)
+    wp = w if fmt == "int8" else tq.pack_im2col_codes(w, 9, fmt)
+    s = torch.tensor(np.float32(0.011), device=cuda)
+    kw = dict(kh=3, kw=3, stride=(1, 2), padding=(1, 1), dilation=(2, 1),
+              pool=None if pool is None else (pool, pool), n_out=15, lo=-15,
+              weight_format=fmt, **_noise(cuda, 0.011, chunks))
+    counted = fq_conv2d if pool is None else fq_conv2d_pool
+    before = counted.noisy_launches
+    got = fq_conv2d(a, wp, s, **kw)
+    torch.cuda.synchronize()
+    assert counted.noisy_launches == before + 1
+    assert torch.equal(got, tref.ref_fq_conv2d(a, wp, s, **kw))
+
+
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_noisy_stacks_serve_on_the_card(cuda, chunks):
+    """Reduced KWS and DarkNet, int8 and ternary: under noise every impl
+    gives the same logits, the fused path launches only noisy K3 / K3b, and
+    the noise moves the logits."""
+    from repro_torch import kernels
+    from repro_torch.core import prng
+    from repro_torch.core.noise import TABLE7_CONDITIONS
+    cond, key = TABLE7_CONDITIONS[-1], prng.PRNGKey(5)
+    dcfg, dq, _ = _darknet_reduced_stack(cuda)
+    xd = np.random.default_rng(1).standard_normal((4, 16, 16, 3)).astype(
+        np.float32)
+    for fmt in ("int8", "ternary"):
+        _, _, stack = _darknet_reduced_stack(cuda, weight_format=fmt)
+        clean = tdn.int_serve_fn(stack, dq, dcfg, impl="fused")(xd)
+        kernels.reset_launch_counts()
+        want = tdn.int_serve_fn(stack, dq, dcfg, impl="fused",
+                                mac_chunks=chunks)(xd, noise=cond, rng=key)
+        torch.cuda.synchronize()
+        counts, noisy = kernels.launch_counts(), kernels.noisy_launch_counts()
+        assert counts["fq_matmul"] == 0
+        assert noisy["fq_conv2d_noisy"] == counts["fq_conv2d"] > 0
+        assert noisy["fq_conv2d_pool_noisy"] == counts["fq_conv2d_pool"] > 0
+        assert not torch.equal(want, clean)
+        for kw in (dict(impl="fused", fuse_pool=False), dict(impl="im2col")):
+            assert torch.equal(tdn.int_serve_fn(
+                stack, dq, dcfg, mac_chunks=chunks, **kw)(
+                    xd, noise=cond, rng=key), want)

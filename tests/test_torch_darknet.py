@@ -409,15 +409,30 @@ def test_ternary_logits_within_tolerance(name):
 
 
 def test_noise_and_quantized_modes_refused_packed_served():
-    """Noise and the quantized float modes are not ported and raise; the
-    packed formats are: a packed stack serves the int8 stack's logits under
-    every impl, and an unknown format raises."""
-    st, tcfg = _carried("reduced"), CFGS["reduced"][1]
-    x = torch.from_numpy(_images("reduced"))
-    with pytest.raises(NotImplementedError):
-        tdn.int_apply(st, x, QCFG, tcfg, noise=object())
-    with pytest.raises(NotImplementedError):
-        tdn.int_apply(st, x, QCFG, tcfg, fuse_pool=False, noise=object())
+    """The quantized float modes are not ported and raise. Noise, once
+    refused, now runs: the noisy logits of the carried stack equal the
+    reference's given the same key, under every impl and pool fusion. The
+    packed formats are served: a packed stack serves the int8 stack's
+    logits under every impl, its noisy logits are the same under every
+    impl, and an unknown format raises."""
+    from repro.core.noise import TABLE7_CONDITIONS
+    from repro_torch.core.noise import NoiseConfig
+    st, (jcfg, tcfg, _, _) = _carried("reduced"), CFGS["reduced"]
+    ip = _reference("reduced")[2]
+    x = _images("reduced")
+    jk = jax.random.PRNGKey(7)
+    key = interop.key_from_numpy(np.asarray(jk), device="cpu")
+    cond = TABLE7_CONDITIONS[-1]
+    noise = NoiseConfig(cond.sigma_w, cond.sigma_a, cond.sigma_mac)
+    want = np.asarray(jdn.int_apply(ip, jnp.asarray(x), JQCFG, jcfg,
+                                    impl="im2col", noise=cond, rng=jk))
+    x = torch.from_numpy(x)
+    for impl in ("fused", "im2col"):
+        for fuse_pool in (True, False):
+            got = tdn.int_apply(st, x, QCFG, tcfg, impl=impl,
+                                fuse_pool=fuse_pool, noise=noise, rng=key)
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=1e-4 * np.abs(want).max())
     fq_params, state, _ = _reference("reduced")
     params, bn = interop.params_from_numpy(_np(fq_params), _np(state),
                                            device="cpu")
@@ -426,13 +441,15 @@ def test_noise_and_quantized_modes_refused_packed_served():
     for fmt in ("ternary", "int4"):
         packed = tdn.convert_int(params, bn, QCFG, tcfg, weight_format=fmt)
         assert packed["conv1"]["w_codes"].dtype == torch.uint8
-        with pytest.raises(NotImplementedError):
-            tdn.int_apply(packed, x, QCFG, tcfg, noise=object())
+        noisy = tdn.int_apply(packed, x, QCFG, tcfg, noise=noise, rng=key)
         for impl in ("fused", "im2col"):
             for fuse_pool in (True, False):
                 assert torch.equal(tdn.int_apply(
                     packed, x, QCFG, tcfg, impl=impl, fuse_pool=fuse_pool),
                     want)
+                assert torch.equal(tdn.int_apply(
+                    packed, x, QCFG, tcfg, impl=impl, fuse_pool=fuse_pool,
+                    noise=noise, rng=key), noisy)
     with pytest.raises(ValueError):
         tdn.convert_int(params, bn, QCFG, tcfg, weight_format="int2")
     with pytest.raises(NotImplementedError):

@@ -306,19 +306,37 @@ def test_conv_impl_dispatch():
 
 
 def test_unported_options_refused_on_cpu():
-    """Noise is still refused; packed formats are accepted and give the int8
-    result, and an unknown format or a mismatched packed operand raises
-    ValueError."""
+    """Noise, once refused, now runs and equals the reference's im2col
+    oracle (a sigma without a seed is refused, as the reference asserts);
+    packed formats are accepted and give the int8 result, and an unknown
+    format or a mismatched packed operand raises ValueError."""
     from repro_torch.core import quant as tq
     rng = np.random.default_rng(5)
     a = _t(_codes(rng, (2, 8, 4), 0, 7))
     w = _t(_codes(rng, (12, 3), -1, 1))
     s = torch.tensor(0.1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="noise_seed"):
         tops.fq_conv1d_int(a, w, s, ksize=3, noise_sigma_acc=0.5)
-    with pytest.raises(NotImplementedError):
-        tops.fq_conv2d_pool_int(a.unsqueeze(2), w, s, ksize=1,
+    with pytest.raises(ValueError, match="noise_seed"):
+        tops.fq_conv2d_pool_int(a.unsqueeze(2), w[:4], s, ksize=1,
                                 noise_sigma_acc=0.5)
+    jn = dict(noise_sigma_acc=jnp.float32(5.0), noise_seed=jnp.uint32(9),
+              mac_chunks=2)
+    tn = dict(noise_sigma_acc=torch.tensor(5.0),
+              noise_seed=torch.tensor(9, dtype=torch.uint32), mac_chunks=2)
+    want = np.asarray(jops.fq_conv1d_int(
+        jnp.asarray(a.numpy()), jnp.asarray(w.numpy()), jnp.float32(0.1),
+        ksize=3, impl="im2col", **jn))
+    a2 = a.unsqueeze(2).repeat(1, 1, 2, 1)          # (2, 8, 2, 4)
+    want_pool = np.asarray(jops.fq_conv2d_pool_int(
+        jnp.asarray(a2.numpy()), jnp.asarray(w[:4].numpy()),
+        jnp.float32(0.1), ksize=1, pool=2, impl="im2col", **jn))
+    for impl in ("fused", "im2col"):
+        np.testing.assert_array_equal(tops.fq_conv1d_int(
+            a, w, s, ksize=3, impl=impl, **tn).numpy(), want)
+        np.testing.assert_array_equal(tops.fq_conv2d_pool_int(
+            a2, w[:4], s, ksize=1, pool=2, impl=impl, **tn).numpy(),
+            want_pool)
     for fmt in ("ternary", "int4"):
         wp = tq.pack_im2col_codes(w, 3, fmt)
         for impl in ("fused", "im2col"):

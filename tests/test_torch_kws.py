@@ -268,12 +268,30 @@ def test_ternary_logits_within_tolerance(name):
 
 
 def test_noise_refused_and_packed_formats_served():
-    """Noise is not ported and raises; the packed formats are: a packed stack
-    serves the int8 stack's logits, and an unknown format raises."""
-    st, tcfg = _carried("reduced"), CFGS["reduced"][1]
-    x = torch.from_numpy(_inputs("reduced"))
-    with pytest.raises(NotImplementedError):
-        tkws.int_apply(st, x, QCFG, tcfg, noise=object())
+    """Noise, once refused, now runs: the noisy logits of the carried int8
+    and ternary stacks equal the reference's given the same key, under both
+    impls. The packed formats are served: a packed stack serves the int8
+    stack's clean logits, and an unknown format raises."""
+    from repro.core.noise import TABLE7_CONDITIONS
+    from repro_torch.core.noise import NoiseConfig
+    jcfg, tcfg, _ = CFGS["reduced"]
+    x = _inputs("reduced")
+    jk = jax.random.PRNGKey(7)
+    key = interop.key_from_numpy(np.asarray(jk), device="cpu")
+    cond = TABLE7_CONDITIONS[-1]
+    noise = NoiseConfig(cond.sigma_w, cond.sigma_a, cond.sigma_mac)
+    for ip, st in ((_reference("reduced")[2], _carried("reduced")),
+                   _ternary("reduced")):
+        want = np.asarray(jkws.int_apply(ip, jnp.asarray(x), JQCFG, jcfg,
+                                         impl="im2col", noise=cond, rng=jk))
+        for impl in ("fused", "im2col"):
+            got = tkws.int_apply(st, torch.from_numpy(x), QCFG, tcfg,
+                                 impl=impl, noise=noise, rng=key)
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+        assert not np.array_equal(want, np.asarray(jkws.int_apply(
+            ip, jnp.asarray(x), JQCFG, jcfg, impl="im2col")))
+    x = torch.from_numpy(x)
+    st = _carried("reduced")
     fq_params, state, _ = _reference("reduced")
     params, bn = interop.params_from_numpy(_np(fq_params), _np(state),
                                            device="cpu")
@@ -282,13 +300,16 @@ def test_noise_refused_and_packed_formats_served():
     for fmt in ("ternary", "int4", "auto"):
         packed = tkws.convert_int(params, bn, QCFG, tcfg, weight_format=fmt)
         assert packed["conv0"]["w_codes"].dtype == torch.uint8
-        with pytest.raises(NotImplementedError):
-            tkws.int_apply(packed, x, QCFG, tcfg, noise=object())
+        noisy = [tkws.int_apply(packed, x, QCFG, tcfg, impl=impl,
+                                noise=noise, rng=key)
+                 for impl in ("fused", "im2col")]
+        assert torch.equal(noisy[0], noisy[1])
         for impl in ("fused", "im2col"):
             assert torch.equal(tkws.int_apply(packed, x, QCFG, tcfg,
                                               impl=impl), want)
     with pytest.raises(ValueError):
         tkws.convert_int(params, bn, QCFG, tcfg, weight_format="int2")
+    assert torch.equal(tkws.int_apply(st, x, QCFG, tcfg), want)
 
 
 def test_stack_to_device_copies_every_tensor():
