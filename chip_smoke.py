@@ -44,14 +44,23 @@ Phases, each of which must pass:
    4, at every KWS and DarkNet shape above and at off-path shapes (ragged
    cin, odd N, a 3 x 3 pool, lo < 0, dequant), and times it beside the
    clean kernel on the same operands at the record batches;
-8. serve_kws and serve_darknet also build the ternary (``weight_format=
+8. kernels_tc: the int8 tensor-core (wgmma) tile loop of K2 and K3 off
+   the paths: both A loaders (16-byte cp.async, byte gather) and every
+   edge (M past a tile, K = 80, N of 16, 48 and 1000, Cin 16 and 48
+   strided and dilated, ragged K and Cin, packed K tails, a misaligned A
+   view) in every format, clean and noisy at each mac_chunks, requant and
+   dequant, bit-exact against the plain versions, with the vector-loader
+   launches counted against the shapes. Every counted serve run below
+   also checks that each DarkNet K2 / K3 launch took the vector loader
+   and each KWS launch the byte loader (``kernels (...)`` lines, "vector");
+9. serve_kws and serve_darknet also build the ternary (``weight_format=
    "auto"``) and int4 stacks from the same params and serve the same
    requests with every conv impl, each format counted in a run of its own.
    They check packed fused == packed im2col == int8 fused (codes and
    logits), that the fused path launched only packed K3 / K3b, that fused
    DarkNet runs as many device ops as with int8 weights, the digests, and
    print the weight bytes on the device;
-9. serve_kws and serve_darknet then serve the same requests again with the
+10. serve_kws and serve_darknet then serve the same requests again with the
    paper's §4.4 noise (Table 7's noisiest condition, a fixed key) at
    mac_chunks 1 and 4, from every format under every conv impl, each
    (format, chunks) counted in a run of its own. They check the impls
@@ -126,6 +135,9 @@ PACKED_REPLACES = {"fq_matmul": "src/repro/kernels/fq_matmul.py:86",
                    "fq_conv2d": "src/repro/kernels/fq_conv.py:330",
                    "fq_conv2d_pool": "src/repro/kernels/fq_conv.py:330"}
 PROLOGUE = "src/repro_torch/kernels/csrc/igemm.cuh"
+# K2 and K3 run on the int8 tensor-core (wgmma) tile loop
+TC_KERNELS = ("fq_matmul", "fq_conv2d")
+TC_LOOP = "src/repro_torch/kernels/csrc/igemm_tc.cuh"
 # K4, the ADC-noise epilogue, in each kernel that has an epilogue
 NOISE_REPLACES = {"fq_matmul": "src/repro/kernels/fq_matmul.py:98",
                   "fq_conv2d": "src/repro/kernels/fq_conv.py:342",
@@ -277,6 +289,22 @@ def max_abs_err(torch, got, want) -> float:
         else 0.0
 
 
+def a_loader_of(torch, name, fn):
+    """The A loader ("vector" or "byte") that one more ``fn()`` of K2 / K3
+    (the tensor-core loop) takes, read off the vector counter; None for
+    the other kernels."""
+    from repro_torch import kernels
+    base = base_kernel(name)
+    if base not in kernels.VECTOR:
+        return None
+    key = f"{base}_vector"
+    before = kernels.vector_launch_counts()[key]
+    fn()
+    torch.cuda.synchronize()
+    return ("vector" if kernels.vector_launch_counts()[key] > before
+            else "byte")
+
+
 class Rows:
     """Parity and timing rows of one path's kernels, one per shape."""
 
@@ -295,6 +323,7 @@ class Rows:
         calls to time a slow plain version."""
         torch = self.torch
         err = max_abs_err(torch, got, want)
+        loader = a_loader_of(torch, name, fn)
         work = {kind: ops, **(extra_work or {})}
         b_ms, b_by = bound(bytes_, work)
         row = {"batch": batch, "shape": shape, "layer": layer, "err": err,
@@ -303,7 +332,8 @@ class Rows:
                                      replays=5 if plain_calls >= 20 else 1),
                "library_ms": None if lib is None else device_ms(torch, lib),
                "eager_ms": eager_ms(torch, fn), "bound_ms": b_ms,
-               "bound_by": b_by, "bytes": bytes_, "work": work}
+               "bound_by": b_by, "bytes": bytes_, "work": work,
+               "loader": loader}
         twin_key = "clean_ms" if variant(name)[2] else "int8_ms"
         if twin is not None:
             row[twin_key] = device_ms(torch, twin)
@@ -312,8 +342,9 @@ class Rows:
                  else f"{row['library_ms']:.5f}")
         twin_s = ("" if twin is None
                   else f" {twin_key}={row[twin_key]:.5f}")
+        load_s = "" if loader is None else f" loader={loader}"
         print(f"  {self.path:7s} {name:14s} B={batch:<3d} {str(shape):26s} "
-              f"max_abs_err={err:g} ms={row['ms']:.5f}{twin_s} "
+              f"max_abs_err={err:g}{load_s} ms={row['ms']:.5f}{twin_s} "
               f"plain_ms={row['plain_ms']:.5f} library_ms={lib_s} "
               f"eager_ms={row['eager_ms']:.5f} bound_ms={b_ms:.6f} "
               f"({b_by})", flush=True)
@@ -1001,6 +1032,114 @@ def phase_kernels_noise(torch, dev):
     return out
 
 
+def phase_kernels_tc(torch, dev):
+    """The tensor-core tile loop of K2 and K3 off the paths: both A loaders
+    and every edge (M past a 64-row tile, K = 80 past a 64-code stage, N of
+    16, 48 and 1000, Cin 16 and 48 strided and dilated, ragged K and Cin,
+    int4 and ternary with a K tail, a misaligned A view) in every format,
+    clean and noisy at each mac_chunks, requant (lo < 0 and 0) and dequant,
+    each held bit-exact against its plain version. The launches that took
+    the vector loader are counted against the shapes that call for it.
+    Returns {record name: max abs err} for the record."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core import prng, quant
+    from repro_torch.core.noise import TABLE7_CONDITIONS, derive_seed
+    from repro_torch.core.quant import n_levels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fq_conv import a_loader as conv_loader
+    from repro_torch.kernels.fq_conv import fq_conv2d
+    from repro_torch.kernels.fq_matmul import a_loader as matmul_loader
+    from repro_torch.kernels.fq_matmul import fq_matmul
+
+    rng = np.random.default_rng(SEED + 6)
+    n = n_levels(4)
+    seed = derive_seed(prng.split(prng.PRNGKey(5, device=dev), 3)[1])
+    sigma_mac = TABLE7_CONDITIONS[-1].sigma_mac
+
+    def codes(shape, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi + 1, size=shape).astype(
+            np.int8)).to(dev)
+
+    # (M, K, N): vector loader at K % 16 == 0, byte loader otherwise
+    mm_shapes = [(100, 80, 16), (130, 80, 48), (200, 128, 1000),
+                 (3 * 64 + 5, 4608, 64), (130, 135, 48), (37, 13, 5),
+                 (130, 257, 1000)]
+    # (B, H, W, Cin, Cout, k, stride, dilation, padding)
+    conv_shapes = [(2, 17, 13, 16, 64, 3, 2, 2, 1),
+                   (2, 17, 13, 48, 1000, 3, 2, 2, 2),
+                   (3, 9, 11, 32, 48, 1, 1, 1, 0),
+                   (2, 17, 13, 45, 48, 3, 2, 2, 1)]
+    mm_ops = [(codes((m, k), -n, n), k, nn) for m, k, nn in mm_shapes]
+    flat = codes((130 * 80 + 1,), -n, n)
+    mm_ops.append((flat[1:].view(130, 80), 80, 48))   # misaligned: byte
+    conv_ops = [(codes(shape[:4], 0, n), shape) for shape in conv_shapes]
+    s = torch.tensor(np.float32(0.0131), device=dev)
+    epis = (("requant", -n), ("requant", 0), ("dequant", 0))
+    errs = {}
+    print("tensor-core loop off the paths (bit-exact vs plain on the card): "
+          f"K2 at {mm_shapes} and a misaligned (130, 80) view, K3 at "
+          f"{conv_shapes} (B, H, W, Cin, Cout, k, stride, dilation, pad)",
+          flush=True)
+    for fmt in ("int8",) + PACKED_FORMATS:
+        r = quant.format_range(fmt)
+        mm_w = [codes((k, nn), -r, r) for _, k, nn in mm_ops]
+        conv_w = [codes((sh[5] ** 2 * sh[3], sh[4]), -r, r)
+                  for _, sh in conv_ops]
+        if fmt != "int8":
+            mm_w = [quant.pack_codes(w, fmt) for w in mm_w]
+            conv_w = [quant.pack_im2col_codes(w, sh[5] ** 2, fmt)
+                      for w, (_, sh) in zip(conv_w, conv_ops)]
+        for chunks in (None,) + CHUNKS:
+            nz = {} if chunks is None else dict(
+                noise_sigma_acc=torch.div(torch.full_like(s, sigma_mac), s),
+                noise_seed=seed, mac_chunks=chunks)
+            mm_errs, conv_errs = [], []
+            want_vec = {"fq_matmul_vector": 0, "fq_conv2d_vector": 0}
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            for epi, lo in epis:
+                kw = dict(epilogue=epi, n_out=n, lo=lo, weight_format=fmt,
+                          **nz)
+                for (a, k, _), w in zip(mm_ops, mm_w):
+                    mm_errs.append(max_abs_err(
+                        torch, fq_matmul(a, w, s, **kw),
+                        ref.ref_fq_matmul(a, w, s, **kw)))
+                    want_vec["fq_matmul_vector"] += (
+                        matmul_loader(k, a.data_ptr()) == "vector")
+                for (x, sh), w in zip(conv_ops, conv_w):
+                    ks, st, dl, pd = sh[5:]
+                    ck = dict(kw, kh=ks, kw=ks, stride=(st, st),
+                              dilation=(dl, dl), padding=(pd, pd))
+                    conv_errs.append(max_abs_err(
+                        torch, fq_conv2d(x, w, s, **ck),
+                        ref.ref_fq_conv2d(x, w, s, **ck)))
+                    want_vec["fq_conv2d_vector"] += (
+                        conv_loader(sh[3], x.data_ptr()) == "vector")
+            torch.cuda.synchronize()
+            vec = kernels.vector_launch_counts()
+            label = f"{fmt} " + ("clean" if chunks is None
+                                 else f"noisy c{chunks}")
+            print(f"  {label}: K2 max_abs_err={max(mm_errs):g}, K3 "
+                  f"max_abs_err={max(conv_errs):g}; launches "
+                  f"{kernels.launch_counts()['fq_matmul']} K2 "
+                  f"({vec['fq_matmul_vector']} vector) and "
+                  f"{kernels.launch_counts()['fq_conv2d']} K3 "
+                  f"({vec['fq_conv2d_vector']} vector)", flush=True)
+            if max(mm_errs + conv_errs) != 0.0:
+                raise AssertionError(f"tensor-core loop {label}: kernel != "
+                                     "plain version")
+            if vec != want_vec or not 0 < want_vec["fq_matmul_vector"] < len(
+                    mm_ops) * len(epis):
+                raise AssertionError(f"{label}: vector launches {vec} != "
+                                     f"{want_vec}, or one loader unused")
+            for k, e in (("fq_matmul", mm_errs), ("fq_conv2d", conv_errs)):
+                name = (noisy_name(k, fmt, chunks) if chunks else
+                        k + ("" if fmt == "int8" else f"_{fmt}"))
+                errs[name] = max(e)
+    return errs
+
+
 def weight_bytes(stack) -> int:
     """Bytes of the integer layers' weight codes, as stored."""
     return sum(stack[n]["w_codes"].numel() * stack[n]["w_codes"]
@@ -1022,6 +1161,20 @@ def launch_line(label, counts, packed):
     return (f"kernels ({label}): " + " ".join(f"{k}={v}"
                                             for k, v in counts.items())
             + f" (packed {on or 'none'})")
+
+
+def loaders(kernels, path, counts):
+    """" (vector fq_matmul_vector=N fq_conv2d_vector=M)" of the counted run
+    just ended: every DarkNet K2 / K3 launch took the tensor-core loop's
+    vector A loader (Cin and K multiples of 16), every KWS one the byte
+    loader (cin 100 and 45, K 300 and 135); raises otherwise."""
+    vec = kernels.vector_launch_counts()
+    want = {f"{k}_vector": counts[k] if path == "darknet" else 0
+            for k in kernels.VECTOR}
+    if vec != want:
+        raise AssertionError(f"{path}: vector-loader launches {vec} != "
+                             f"{want}")
+    return " (vector " + " ".join(f"{k}={v}" for k, v in vec.items()) + ")"
 
 
 def phase_serve_kws(torch, dev):
@@ -1058,8 +1211,8 @@ def phase_serve_kws(torch, dev):
               for impl, fn in serve.items()}
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    print("kernels (kws): " + " ".join(f"{k}={v}" for k, v in counts.items()),
-          flush=True)
+    print("kernels (kws): " + " ".join(f"{k}={v}" for k, v in counts.items())
+          + loaders(kernels, "kws", counts), flush=True)
     n_req, n_conv = len(BATCHES), len(names)
     expect = {"quantize_codes": 2 * n_req, "fq_matmul": n_req * n_conv,
               "fq_conv2d": n_req * n_conv, "fq_conv2d_pool": 0}
@@ -1154,7 +1307,8 @@ def serve_packed(torch, model, path, stacks, ways, requests, logits, expect,
         got, c, pc = counted(torch, kernels, lambda: {
             (b, way): fn(requests[b]) for b in requests
             for way, fn in fns.items()})
-        print(launch_line(f"{path}, {fmt}", c, pc), flush=True)
+        print(launch_line(f"{path}, {fmt}", c, pc)
+              + loaders(kernels, path, c), flush=True)
         want_pc = dict.fromkeys(pc, 0)
         for k in ("fq_conv2d", "fq_conv2d_pool"):
             if expect[k]:
@@ -1211,8 +1365,8 @@ def serve_noisy(torch, model, path, stacks, ways, requests, clean, expect,
                 for b in requests for way, fn in fns.items()})
             nc = kernels.noisy_launch_counts()
             print(launch_line(f"{path}, {fmt}, noisy c{chunks}", c, pc)
-                  + " noisy " + " ".join(f"{k}={v}" for k, v in nc.items()),
-                  flush=True)
+                  + " noisy " + " ".join(f"{k}={v}" for k, v in nc.items())
+                  + loaders(kernels, path, c), flush=True)
             want_nc = {f"{k}_noisy": expect[k] for k in kernels.NOISY}
             if c != expect or nc != want_nc:
                 raise AssertionError(f"{fmt} c{chunks}: launch counts {c} "
@@ -1439,8 +1593,8 @@ def phase_serve_darknet(torch, dev):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     print("kernels (darknet): " + " ".join(f"{k}={v}"
-                                           for k, v in counts.items()),
-          flush=True)
+                                           for k, v in counts.items())
+          + loaders(kernels, "darknet", counts), flush=True)
     plan = darknet.layer_plan(cfg)
     n_conv = sum(s[0] == "conv" for s in plan)
     n_pooled = sum(s[0] == "conv" and s[3] for s in plan)
@@ -1612,8 +1766,11 @@ def kernels_record(rows, counts, batch, per_apply, names=None):
             "eager_ms": sum(r["eager_ms"] for r in top),
             "batch": batch, "calls": len(top),
         }
+        if base in TC_KERNELS:
+            entry.update(loop=TC_LOOP, loaders=sorted(
+                {r["loader"] for r in top}))
         if fmt != "int8":
-            entry["prologue"] = PROLOGUE
+            entry["prologue"] = TC_LOOP if base in TC_KERNELS else PROLOGUE
         if chunks:
             entry.update(epilogue=NOISE_EPILOGUE, mac_chunks=chunks,
                          clean_ms=sum(r["clean_ms"] for r in top))
@@ -1660,6 +1817,10 @@ def kernels_record_all(torch, results):
         for e in kernels_record(rows, dict.fromkeys(rows.rows, 0) | launched,
                                 rows_batch(path), per_apply):
             (record if e["name"] in launched else off_path).append(e)
+    # the tensor-core loop's off-path edge rows (kernels_tc) count too
+    for e in record + off_path:
+        e["max_abs_err"] = max(e["max_abs_err"],
+                               results["kernels_tc"].get(e["name"], 0.0))
     print("packed K2 per int_apply (clean and noisy), launched by no serving "
           "path and so not in the record: " + json.dumps(off_path),
           flush=True)
@@ -1729,6 +1890,7 @@ def main() -> int:
             ("kernels_darknet", lambda: phase_kernels_darknet(torch, dev)),
             ("kernels_packed", lambda: phase_kernels_packed(torch, dev)),
             ("kernels_noise", lambda: phase_kernels_noise(torch, dev)),
+            ("kernels_tc", lambda: phase_kernels_tc(torch, dev)),
             ("serve_kws", lambda: phase_serve_kws(torch, dev)),
             ("serve_darknet", lambda: phase_serve_darknet(torch, dev))):
         print(f"== phase {name}", flush=True)

@@ -8,7 +8,10 @@ attribute on the wrapper; :func:`launch_counts` reads them and
 launches that took packed weights (K5, the packed prologue) per format in
 ``packed_launches``, which :func:`packed_launch_counts` reads, and the
 launches with the ADC-noise epilogue (K4) in ``noisy_launches``, which
-:func:`noisy_launch_counts` reads.
+:func:`noisy_launch_counts` reads. K2 and K3 run on the tensor-core tile
+loop and count the launches whose A operand took its vector (16-byte
+``cp.async``) loader in ``vector_launches``, which
+:func:`vector_launch_counts` reads.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ _WRAPPERS = {"quantize_codes": quantize_codes, "fq_matmul": fq_matmul,
              "fq_conv2d": fq_conv2d, "fq_conv2d_pool": fq_conv2d_pool}
 PACKED = ("fq_matmul", "fq_conv2d", "fq_conv2d_pool")
 NOISY = PACKED
+VECTOR = ("fq_matmul", "fq_conv2d")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -41,6 +45,13 @@ def noisy_launch_counts() -> Dict[str, int]:
             for name in NOISY}
 
 
+def vector_launch_counts() -> Dict[str, int]:
+    """Launches whose A operand took the vector loader, as
+    ``"<kernel>_vector"``: n."""
+    return {f"{name}_vector": _WRAPPERS[name].vector_launches
+            for name in VECTOR}
+
+
 def reset_launch_counts() -> None:
     for name, fn in _WRAPPERS.items():
         fn.launches = 0
@@ -48,3 +59,5 @@ def reset_launch_counts() -> None:
             fn.packed_launches = dict.fromkeys(fn.packed_launches, 0)
         if name in NOISY:
             fn.noisy_launches = 0
+        if name in VECTOR:
+            fn.vector_launches = 0

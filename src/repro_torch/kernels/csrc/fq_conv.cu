@@ -25,6 +25,15 @@
 //     runs the tile loop once per window position and keeps a running max
 //     in registers. Both do the MACs of the unpooled conv, no more.
 //
+// K3 runs on the tensor-core tile loop of K2 (igemm_tc.cuh: wgmma
+// m64n32k32 per warpgroup, a 6-stage ring of shared tiles). Its A tile
+// comes through one of two loaders, picked by the wrapper per launch: with
+// Cin % 16 == 0 (every DarkNet layer, Cin 32 ... 1024) each thread
+// cp.asyncs one tap's 16 channels of one pixel, zero-filled for the halo;
+// otherwise (the KWS path's Cin 100 and 45) ConvA gathers byte by byte.
+// K3b keeps the dp4a loop (igemm.cuh), whose thread map its 2 x 2 pool
+// reads.
+//
 // Bound: on the KWS path every conv is a few MFLOP over under 1 MB of
 // codes (at B = 64), a few microseconds or less at the card's peak rates:
 // launch- and latency-bound. On DarkNet-19 at 224 x 224 a layer is 0.03 to
@@ -33,9 +42,8 @@
 // (the im2col path writes and rereads ksize^2 x the activation bytes);
 // each thread resolves its output rows to window origins once, in
 // registers, and its reduction column to a (tap, channel) offset once per
-// K step, so a gathered byte costs one add and a bounds test. The MACs are
-// __dp4a on CUDA cores: tensor-core mma, TMA gathers and a tile table per
-// shape are left for the PRs that make it fast.
+// K step. What it leaves: TMA gathers, warp specialisation, a tile per
+// shape (the 16-block deep layers at B = 1) and K3b's pool on wgmma.
 //
 // K5, packed weights (replaces fq_conv.py:330-333 and, for the channel
 // padding, :442-452): weights of factor 2 (int4) or 4 (ternary) hold
@@ -44,8 +52,9 @@
 // TPU kernel pads the activations to cin_p channels with a copy; here the
 // reduction runs over taps x cin_p, index k -> (t, c) = (k / cin_p,
 // k % cin_p), and the gather loads 0 for c >= cin: no activation copy, and
-// the pad rows' codes meet zeros. The shared tile loop decodes each
-// weight byte once into the shared B tile (igemm.cuh). For int8,
+// the pad rows' codes meet zeros. The shared tile loops decode each
+// weight byte once into the shared B tile (igemm_tc.cuh LoadB for K3,
+// igemm.cuh load_b_tile for K3b). For int8,
 // cin_p == cin and the gather is the int8 one.
 //
 // K4, the ADC noise (replaces fq_conv.py:342-355): with a sigma pointer,
@@ -57,11 +66,11 @@
 // one each pass's position gives the row (PassRows). Max commutes with
 // the monotone epilogue, so this equals noisy conv -> requant -> code
 // pool. NOISE is a template parameter beside DEQUANT and FACTOR, so the
-// clean instantiations are the code they were.
+// clean instantiations carry no field code.
 #include <climits>
 #include <cmath>
 
-#include "igemm.cuh"
+#include "igemm_tc.cuh"
 
 namespace {
 
@@ -175,26 +184,85 @@ struct ConvA {
   }
 };
 
-template <bool DEQUANT, int FACTOR, bool NOISE>
-__global__ void __launch_bounds__(fq::THREADS)
+// The vector loader: thread tid's 16 bytes of tile row tc::vec_row(tid),
+// one tap's channels c .. c + 15 of one pixel (Cin % 16 == 0, so a chunk
+// never straddles taps and its source is 16-byte aligned), zero-filled for
+// the halo, rows past M and k past K. The row's window origin is resolved
+// once, in registers, as in ConvA; the chunk's (tap, channel) is carried
+// from stage to stage (the stages are issued in order), with no division
+// in the loop.
+struct ConvAVec {
+  const int8_t* x;
+  int H, W, Cin, kw, dh, dw, K, r, kc;
+  int off, h0, w0;  // as ConvA's, for the thread's one row
+  int k, ch, th, tw;  // the next chunk: reduction index, channel, tap
+  __device__ __forceinline__ ConvAVec(const int8_t* x_, const ConvShape& c,
+                                      int m0, int tid)
+      : x(x_), H(c.H), W(c.W), Cin(c.Cin), kw(c.kw), dh(c.dh), dw(c.dw),
+        K(c.kh * c.kw * c.Cin), r(fq::tc::vec_row(tid)),
+        kc(fq::tc::vec_chunk(tid)), k(16 * kc), ch(16 * kc), th(0), tw(0) {
+    int b = 0, ho = 0, wo = 0;
+    if (PlainRows{m0, c.B * c.Ho * c.Wo, c.Ho * c.Wo, c.Wo}(r, b, ho, wo)) {
+      h0 = ho * c.sh - c.ph;
+      w0 = wo * c.sw - c.pw;
+      off = ((b * c.H + h0) * c.W + w0) * c.Cin;
+    } else {
+      h0 = -(1 << 30);
+      w0 = 0;
+      off = 0;
+    }
+    next_tap();
+  }
+  __device__ __forceinline__ void next_tap() {
+    while (ch >= Cin) {
+      ch -= Cin;
+      if (++tw == kw) {
+        tw = 0;
+        ++th;
+      }
+    }
+  }
+  // The stage at code k0 = k - 16 kc; then the chunk moves on by BK.
+  __device__ __forceinline__ void issue(int8_t* tile, int /*k0*/) {
+    const int dy = th * dh, dx = tw * dw;
+    const unsigned h = (unsigned)(h0 + dy), w = (unsigned)(w0 + dx);
+    const bool ok = k < K && h < (unsigned)H && w < (unsigned)W;
+    fq::tc::cp_async16(tile + fq::tc::tile_off(r, 16 * kc),
+                       ok ? x + off + (dy * W + dx) * Cin + ch : x,
+                       ok ? 16 : 0);
+    k += fq::tc::BK;
+    ch += fq::tc::BK;
+    next_tap();
+  }
+};
+
+template <bool DEQUANT, int FACTOR, bool NOISE, bool AVEC>
+__global__ void __launch_bounds__(fq::tc::THREADS)
 fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                const float* __restrict__ scale, void* __restrict__ out,
-               ConvShape c, int lo, int n_out, fq::NoiseArgs na) {
-  __shared__ fq::Tiles s;
+               ConvShape c, int lo, int n_out, bool bvec, fq::NoiseArgs na) {
+  extern __shared__ __align__(128) int8_t smem[];
   const int tid = threadIdx.x;
   const int M = c.B * c.Ho * c.Wo;
-  const int m0 = blockIdx.x * fq::BM, n0 = blockIdx.y * fq::BN;
-  int acc[4][4] = {};
-  const ConvA<FACTOR> load_a(x, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo}, tid);
-  fq::mainloop<FACTOR>(s, load_a, w, load_a.K, load_a.K / FACTOR, c.Cout, n0,
-                       tid, acc);
+  const int m0 = blockIdx.x * fq::tc::BM, n0 = blockIdx.y * fq::tc::BN;
+  // taps x cin_p reduction rows, cin padded to the weights' pack FACTOR
+  const int K = c.kh * c.kw * ((c.Cin + FACTOR - 1) / FACTOR * FACTOR);
+  int acc[16];
+  if constexpr (AVEC)
+    fq::tc::mainloop<FACTOR, true>(smem, ConvAVec(x, c, m0, tid), w, K,
+                                   K / FACTOR, c.Cout, n0, bvec, tid, acc);
+  else
+    fq::tc::mainloop<FACTOR, false>(
+        smem, ConvA<FACTOR>(x, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo}, tid),
+        w, K, K / FACTOR, c.Cout, n0, bvec, tid, acc);
+  // output row m of the (b, ho, wo)-flattened conv is the field's row
+  const fq::tc::FragMap map(tid);
   if constexpr (NOISE) {
-    // output row m of the (b, ho, wo)-flattened conv is the field's row
-    float v[4][4];
-    fq::noisy_tile(v, acc, fq::Noise::load(na), M, c.Cout, m0, n0, tid);
-    fq::store<DEQUANT>(out, v, *scale, lo, n_out, M, c.Cout, m0, n0, tid);
+    float v[16];
+    fq::noisy_tile(v, acc, fq::Noise::load(na), M, c.Cout, m0, n0, map);
+    fq::store<DEQUANT>(out, v, *scale, lo, n_out, M, c.Cout, m0, n0, map);
   } else {
-    fq::store<DEQUANT>(out, acc, *scale, lo, n_out, M, c.Cout, m0, n0, tid);
+    fq::store<DEQUANT>(out, acc, *scale, lo, n_out, M, c.Cout, m0, n0, map);
   }
 }
 
@@ -270,14 +338,12 @@ fq_conv_pool_kernel(const int8_t* __restrict__ x,
   const int g0 = blockIdx.x * fq::BM, n0 = blockIdx.y * fq::BN;
   fq::Noise nz{};
   if constexpr (NOISE) nz = fq::Noise::load(na);
-  Acc mx[4][4];
+  Acc mx[16];  // mx[4 i + j]: TileMap's element of acc[i][j]
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if constexpr (NOISE) mx[i][j] = -INFINITY;
-      else mx[i][j] = INT_MIN;
-    }
+  for (int e = 0; e < 16; ++e) {
+    if constexpr (NOISE) mx[e] = -INFINITY;
+    else mx[e] = INT_MIN;
+  }
   for (int di = 0; di < win.qh; ++di) {
     for (int dj = 0; dj < win.qw; ++dj) {
       int acc[4][4] = {};
@@ -293,18 +359,21 @@ fq_conv_pool_kernel(const int8_t* __restrict__ x,
           for (int j = 0; j < 4; ++j) {
             const int n = n0 + tx + 16 * j;
             if (n < c.Cout)
-              mx[i][j] = fmaxf(mx[i][j], nz.add(acc[i][j], row, c.Cout, n));
+              mx[4 * i + j] = fmaxf(mx[4 * i + j],
+                                    nz.add(acc[i][j], row, c.Cout, n));
           }
         }
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) mx[i][j] = max(mx[i][j], acc[i][j]);
+          for (int j = 0; j < 4; ++j)
+            mx[4 * i + j] = max(mx[4 * i + j], acc[i][j]);
       }
     }
   }
-  fq::store<DEQUANT>(out, mx, *scale, lo, n_out, win.Mp, c.Cout, g0, n0, tid);
+  fq::store<DEQUANT>(out, mx, *scale, lo, n_out, win.Mp, c.Cout, g0, n0,
+                     fq::TileMap(tid));
 }
 
 template <bool DEQUANT, int FACTOR, bool NOISE>
@@ -328,31 +397,45 @@ void launch_pool(const int8_t* x, const int8_t* w, const float* scale,
 }  // namespace
 
 // factor: codes per weight byte (1 int8, 2 int4, 4 ternary); w holds
-// kh * kw * cin_p / factor rows. sigma (float32) and seed (uint32) are
-// device scalars, or null for the clean epilogue; chunks >= 1 with noise.
+// kh * kw * cin_p / factor rows. avec: A's vector loader (Cin % 16 == 0, x
+// 16-byte aligned), else the byte gather; bvec: B's 16-byte cp.async
+// (Cout % 16 == 0, w 16-byte aligned), else masked byte loads. sigma
+// (float32) and seed (uint32) are device scalars, or null for the clean
+// epilogue; chunks >= 1 with noise.
 extern "C" int fq_conv2d_s8(const void* x, const void* w, const void* scale,
                             void* out, const void* sigma, const void* seed,
                             int B, int H, int W, int Cin, int Cout, int kh,
                             int kw, int sh, int sw, int ph, int pw, int dh,
                             int dw, int Ho, int Wo, int factor, int dequant,
-                            int lo, int n_out, int chunks, void* stream) {
+                            int lo, int n_out, int chunks, int avec, int bvec,
+                            void* stream) {
   const ConvShape c{B, H, W, Cin, Cout, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo};
   const int M = B * Ho * Wo;
   cudaError_t err = cudaSuccess;
   if (sigma && chunks < 1) return (int)cudaErrorInvalidValue;
+  if ((avec && ((uintptr_t)x % 16 || Cin % 16)) ||
+      (bvec && ((uintptr_t)w % 16 || Cout % 16)))
+    return (int)cudaErrorInvalidValue;
   if (M > 0 && Cout > 0) {
-    dim3 grid((M + fq::BM - 1) / fq::BM, (Cout + fq::BN - 1) / fq::BN);
+    dim3 grid((M + fq::tc::BM - 1) / fq::tc::BM,
+              (Cout + fq::tc::BN - 1) / fq::tc::BN);
     cudaStream_t st = (cudaStream_t)stream;
     const int8_t *xs = (const int8_t*)x, *ws = (const int8_t*)w;
     const float* sc = (const float*)scale;
     const fq::NoiseArgs na{(const float*)sigma, (const uint32_t*)seed, chunks};
-    err = fq::with_factor(factor, [&](auto f) {
+    const cudaError_t bad = fq::with_factor(factor, [&](auto f) {
       constexpr int F = decltype(f)::value;
       fq::with_flags(dequant, sigma != nullptr, [&](auto dq, auto nz) {
-        fq_conv_kernel<decltype(dq)::value, F, decltype(nz)::value>
-            <<<grid, fq::THREADS, 0, st>>>(xs, ws, sc, out, c, lo, n_out, na);
+        constexpr bool DQ = decltype(dq)::value, NZ = decltype(nz)::value;
+        err = avec ? fq::tc::launch(fq_conv_kernel<DQ, F, NZ, true>, grid,
+                                    st, xs, ws, sc, out, c, lo, n_out,
+                                    bvec != 0, na)
+                   : fq::tc::launch(fq_conv_kernel<DQ, F, NZ, false>, grid,
+                                    st, xs, ws, sc, out, c, lo, n_out,
+                                    bvec != 0, na);
       });
     });
+    if (bad != cudaSuccess) err = bad;
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

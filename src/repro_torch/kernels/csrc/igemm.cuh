@@ -1,5 +1,7 @@
-// Shared int8 x int8 -> int32 tile loop of K2 (fq_matmul.cu) and K3
-// (fq_conv.cu), with the fused epilogue of epilogue.cuh and, when the ADC
+// The dp4a int8 x int8 -> int32 tile loop of K3b (fq_conv.cu's two pool
+// kernels), and what it shares with the tensor-core loop of K2 and K3
+// (igemm_tc.cuh): the tile shape, the A gathers' thread map, the host
+// dispatch, and the masked epilogue of epilogue.cuh with, when the ADC
 // noise is on (K4), the noisy tile of noise.cuh.
 //
 // One block computes a BM x BN output tile with 256 threads; thread
@@ -12,8 +14,9 @@
 // Edges are masked, never padded in device memory: A rows past M, B
 // columns past N and reduction indices past K load as 0 in shared memory,
 // which makes any K (300 and 135 on the KWS path) legal. The A operand is
-// a loader, so K2 reads a row-major matrix and K3 gathers the convolution
-// window in place (implicit GEMM) through the same loop.
+// a loader: a row-major matrix (fq_matmul.cu's MatA) or the convolution
+// window gathered in place (fq_conv.cu's ConvA, implicit GEMM); the
+// tensor-core loop's byte loader runs the same gathers.
 //
 // K5, the packed-weight prologue (replaces the unpack in the MAC prologue
 // of repro/kernels/fq_matmul.py:86-90 and fq_conv.py:330-333): B may hold
@@ -172,42 +175,43 @@ __device__ __forceinline__ void put(void* __restrict__ out, long long o,
     static_cast<int8_t*>(out)[o] = fq_requant_f(accf, scale, lo, n_out);
 }
 
-// K4: the thread's 4 x 4 accumulators plus the ADC noise at their global
+// The dp4a loop's thread map: thread (tx, ty) = (tid % 16, tid / 16) holds
+// acc[i][j] at row ty + 16 i, column tx + 16 j; element e = 4 i + j.
+struct TileMap {
+  static constexpr int N = 16;
+  int tx, ty;
+  __device__ __forceinline__ explicit TileMap(int tid)
+      : tx(tid % 16), ty(tid / 16) {}
+  __device__ __forceinline__ int row(int e) const { return ty + 16 * (e / 4); }
+  __device__ __forceinline__ int col(int e) const { return tx + 16 * (e % 4); }
+};
+
+// K4: the thread's Map::N accumulators plus the ADC noise at their global
 // (row m, column n) of the M x N output; entries outside it are 0 and are
-// never stored.
-__device__ __forceinline__ void noisy_tile(float v[4][4], const int acc[4][4],
+// never stored. Map (TileMap, tc::FragMap) places element e of the
+// thread's accumulators at tile row map.row(e), column map.col(e).
+template <class Map>
+__device__ __forceinline__ void noisy_tile(float* v, const int* acc,
                                            const Noise& nz, int M, int N,
-                                           int m0, int n0, int tid) {
-  const int tx = tid % 16, ty = tid / 16;
+                                           int m0, int n0, const Map& map) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      v[i][j] = (m < M && n < N) ? nz.add(acc[i][j], m, N, n) : 0.0f;
-    }
+  for (int e = 0; e < Map::N; ++e) {
+    const int m = m0 + map.row(e), n = n0 + map.col(e);
+    v[e] = (m < M && n < N) ? nz.add(acc[e], m, N, n) : 0.0f;
   }
 }
 
-// Masked store of the thread's 4 x 4 outputs (int32 or float32
+// Masked store of the thread's Map::N outputs (int32 or float32
 // accumulators) through the shared epilogue.
-template <bool DEQUANT, class T>
-__device__ __forceinline__ void store(void* __restrict__ out,
-                                      const T acc[4][4], float scale,
-                                      int lo, int n_out, int M, int N, int m0,
-                                      int n0, int tid) {
-  const int tx = tid % 16, ty = tid / 16;
+template <bool DEQUANT, class Map, class T>
+__device__ __forceinline__ void store(void* __restrict__ out, const T* acc,
+                                      float scale, int lo, int n_out, int M,
+                                      int N, int m0, int n0, const Map& map) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      put<DEQUANT>(out, (long long)m * N + n, acc[i][j], scale, lo, n_out);
-    }
+  for (int e = 0; e < Map::N; ++e) {
+    const int m = m0 + map.row(e), n = n0 + map.col(e);
+    if (m < M && n < N)
+      put<DEQUANT>(out, (long long)m * N + n, acc[e], scale, lo, n_out);
   }
 }
 

@@ -17,7 +17,9 @@ For a CUDA tensor the wrapper launches ``csrc/fq_conv.cu``, which gathers
 each window in place with zero padding by bounds check; for a CPU tensor it
 runs the plain version, :func:`fq_conv2d_plain`. The reference's block
 picker and autotune table have no counterpart yet: the CUDA kernel's tile
-is fixed. With packed weights the kernel reduces over taps x cin_p and
+is fixed. K3 runs on the tensor cores; its A operand takes the loader
+:func:`a_loader` picks per launch, and ``fq_conv2d.vector_launches``
+counts the launches that took the vector one. With packed weights the kernel reduces over taps x cin_p and
 decodes the bytes in its tile loop; the activations are not padded.
 ``launches`` counts every launch, ``packed_launches[fmt]`` the packed ones.
 
@@ -36,12 +38,12 @@ import torch
 
 from ..core.quant import format_factor
 from . import _build
-from .fq_matmul import (check_noise, check_operands, noise_pointers,
-                        packed_counts)
+from .fq_matmul import (VECTOR_BYTES, b_vector, check_noise, check_operands,
+                        noise_pointers, packed_counts)
 from .ref import ref_fq_conv2d as fq_conv2d_plain
 
 _CONV_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
-_SIG = {"fq_conv2d_s8": _CONV_ARGS + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+_SIG = {"fq_conv2d_s8": _CONV_ARGS + [ctypes.c_int] * 7 + [ctypes.c_void_p],
         "fq_conv2d_pool_s8": _CONV_ARGS + [ctypes.c_int] * 7
         + [ctypes.c_void_p]}
 
@@ -49,6 +51,15 @@ _SIG = {"fq_conv2d_s8": _CONV_ARGS + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 def conv_out_size(size: int, k: int, stride: int, padding: int,
                   dilation: int) -> int:
     return (size + 2 * padding - (k - 1) * dilation - 1) // stride + 1
+
+
+def a_loader(cin: int, x_ptr: int) -> str:
+    """K3's A loader: ``"vector"`` when a 16-byte chunk of a reduction row
+    is one tap's channels of one pixel, at an aligned address (Cin % 16 ==
+    0 and the activations 16-byte aligned), else ``"byte"``. K3b (``pool=``)
+    gathers bytes whatever the shape."""
+    ok = cin % VECTOR_BYTES == 0 and x_ptr % VECTOR_BYTES == 0
+    return "vector" if ok else "byte"
 
 
 def check_weights(what: str, w_codes: torch.Tensor, taps: int, cin: int,
@@ -123,12 +134,16 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
     lib = _build.library("fq_conv", _SIG)
     shape = (b, h, w, cin, cout, kh, kw, *stride, *padding, *dilation, ho, wo)
     tail = (factor, int(dequant), int(lo), int(n_out), mac_chunks)
+    vector = (pool is None
+              and a_loader(cin, a_codes.data_ptr()) == "vector")
     with torch.cuda.device(a_codes.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         ptrs = (_build.ptr(a_codes), _build.ptr(w_codes), _build.ptr(scale),
                 _build.ptr(out), sigma, seed)
         if pool is None:
-            err = lib.fq_conv2d_s8(*ptrs, *shape, *tail, stream)
+            err = lib.fq_conv2d_s8(*ptrs, *shape, *tail, int(vector),
+                                   int(b_vector(cout, w_codes.data_ptr())),
+                                   stream)
         else:
             err = lib.fq_conv2d_pool_s8(*ptrs, *shape, *pool, *tail, stream)
     _build.check(err, what, lib)
@@ -138,12 +153,15 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
         counted.packed_launches[weight_format] += 1
     if noisy:
         counted.noisy_launches += 1
+    if vector:
+        counted.vector_launches += 1
     return out
 
 
 fq_conv2d.launches = 0
 fq_conv2d.packed_launches = packed_counts()
 fq_conv2d.noisy_launches = 0
+fq_conv2d.vector_launches = 0
 
 
 def fq_conv2d_pool(a_codes: torch.Tensor, w_codes: torch.Tensor,

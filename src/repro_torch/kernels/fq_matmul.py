@@ -18,6 +18,13 @@ ADC noise (K4): with ``noise_sigma_acc`` (sigma in accumulator units) and
 ``noise_seed``, the epilogue adds ``core.noise.mac_noise_field`` at the
 global index ``row * N + col`` to f32(acc) and requantizes the float32
 value; ``fq_matmul.noisy_launches`` counts those launches.
+
+The kernel's tile loop runs on the tensor cores (``csrc/igemm_tc.cuh``).
+Its A operand takes one of two loaders, which :func:`a_loader` picks per
+launch from the shape and the address: ``"vector"`` (16-byte ``cp.async``)
+or ``"byte"`` (a masked gather); ``fq_matmul.vector_launches`` counts the
+launches that took the vector loader. A misaligned A (a view at an odd
+offset) takes the byte loader: nothing is refused for its alignment.
 """
 from __future__ import annotations
 
@@ -31,8 +38,24 @@ from .ref import apply_epilogue, ref_fq_matmul as fq_matmul_plain
 
 __all__ = ["apply_epilogue", "fq_matmul", "fq_matmul_plain"]
 
-_SIG = {"fq_matmul_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+_SIG = {"fq_matmul_s8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
         + [ctypes.c_void_p]}
+VECTOR_BYTES = 16   # one cp.async of the A loader
+
+
+def a_loader(k: int, a_ptr: int) -> str:
+    """K2's A loader: ``"vector"`` when every 16-byte chunk of a reduction
+    row is one aligned load (K % 16 == 0 and A 16-byte aligned), else
+    ``"byte"``."""
+    ok = k % VECTOR_BYTES == 0 and a_ptr % VECTOR_BYTES == 0
+    return "vector" if ok else "byte"
+
+
+def b_vector(n: int, w_ptr: int) -> bool:
+    """Whether the B loader copies 16-byte chunks of weight rows with
+    ``cp.async``: N % 16 == 0 and the weights 16-byte aligned; else it
+    loads masked bytes."""
+    return n % VECTOR_BYTES == 0 and w_ptr % VECTOR_BYTES == 0
 
 
 def packed_counts() -> dict:
@@ -126,6 +149,7 @@ def fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
                                   noise_sigma_acc, noise_seed)
                    if noisy else (None, None))
     dequant = epilogue == "dequant"
+    vector = a_loader(k, a_codes.data_ptr()) == "vector"
     out = torch.empty((m, n), device=a_codes.device,
                       dtype=torch.float32 if dequant else torch.int8)
     lib = _build.library("fq_matmul", _SIG)
@@ -134,9 +158,12 @@ def fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
         err = lib.fq_matmul_s8(
             _build.ptr(a_codes), _build.ptr(b_codes), _build.ptr(scale),
             _build.ptr(out), sigma, seed, m, n, k, factor, int(dequant),
-            int(lo), int(n_out), mac_chunks, ctypes.c_void_p(stream))
+            int(lo), int(n_out), mac_chunks, int(vector),
+            int(b_vector(n, b_codes.data_ptr())), ctypes.c_void_p(stream))
     _build.check(err, "fq_matmul", lib)
     fq_matmul.launches += 1
+    if vector:
+        fq_matmul.vector_launches += 1
     if factor > 1:
         fq_matmul.packed_launches[weight_format] += 1
     if noisy:
@@ -147,3 +174,4 @@ def fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
 fq_matmul.launches = 0
 fq_matmul.packed_launches = packed_counts()
 fq_matmul.noisy_launches = 0
+fq_matmul.vector_launches = 0

@@ -21,6 +21,7 @@ from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.fq_conv import fq_conv2d, fq_conv2d_pool
+from repro_torch.kernels.fq_matmul import a_loader as matmul_a_loader
 from repro_torch.kernels.fq_matmul import fq_matmul
 from repro_torch.kernels.quantize import quantize_codes
 from repro_torch.models import darknet as tdn
@@ -28,8 +29,12 @@ from repro_torch.models import kws as tkws
 
 pytestmark = pytest.mark.cuda
 
+# K % 16 == 0 takes the tensor-core loop's vector A loader, any other K the
+# byte one; M past a 64-row tile, K past a 64-code stage (80), N of 16, 48
+# and 1000 cross both B loaders (16-byte cp.async needs N % 16 == 0)
 MATMUL_SHAPES = [(37, 13, 5), (130, 257, 129), (1, 64, 64), (64, 64, 64),
-                 (4 * 138, 300, 45), (4 * 12, 135, 45)]
+                 (4 * 138, 300, 45), (4 * 12, 135, 45), (100, 80, 16),
+                 (130, 80, 48), (200, 128, 1000), (3 * 64 + 5, 4608, 64)]
 KWS_LAYERS = [(140, 100, 1), (138, 45, 1), (136, 45, 2), (132, 45, 4),
               (124, 45, 8), (108, 45, 16), (76, 45, 32)]
 
@@ -96,9 +101,29 @@ def test_fq_matmul_matches_plain(cuda, m, k, n, epilogue, lo):
     b = _codes(rng, (k, n), -127, 127, cuda)
     s = torch.tensor(np.float32(1e-3), device=cuda)
     kw = dict(epilogue=epilogue, n_out=7, lo=lo)
+    before = fq_matmul.vector_launches
     got = fq_matmul(a, b, s, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, tref.ref_fq_matmul(a, b, s, **kw))
+    assert fq_matmul.vector_launches - before == (k % 16 == 0)
+
+
+@pytest.mark.parametrize("k", [80, 4608])
+def test_fq_matmul_misaligned_a_takes_byte_loader(cuda, k):
+    """A view at a 1-byte offset: the byte loader, the same codes."""
+    rng = np.random.default_rng(k)
+    flat = _codes(rng, (130 * k + 1,), -127, 127, cuda)
+    a = flat[1:].view(130, k)
+    assert matmul_a_loader(k, a.data_ptr()) == "byte"
+    b = _codes(rng, (k, 48), -127, 127, cuda)
+    s = torch.tensor(np.float32(1e-3), device=cuda)
+    before = fq_matmul.vector_launches
+    got = fq_matmul(a, b, s, n_out=7, lo=-7)
+    torch.cuda.synchronize()
+    assert fq_matmul.vector_launches == before
+    assert torch.equal(got, tref.ref_fq_matmul(a, b, s, n_out=7, lo=-7))
+    assert torch.equal(got, fq_matmul(a.contiguous().clone(), b, s,
+                                      n_out=7, lo=-7))
 
 
 def test_int_accumulate_exact_on_the_card(cuda):
@@ -112,18 +137,22 @@ def test_int_accumulate_exact_on_the_card(cuda):
 @pytest.mark.parametrize("ksize,stride,padding,dilation", [
     (3, 2, 1, 1), (3, 1, 1, 2), (3, 2, 1, 2), (1, 1, 0, 1)])
 @pytest.mark.parametrize("epilogue", ["requant", "dequant"])
+@pytest.mark.parametrize("cin,cout", [(70, 67), (16, 64), (48, 1000)])
 def test_fq_conv2d_matches_plain(cuda, ksize, stride, padding, dilation,
-                                 epilogue):
-    rng = np.random.default_rng(ksize + stride + dilation)
-    a = _codes(rng, (3, 17, 13, 70), 0, 15, cuda)
-    w = _codes(rng, (ksize * ksize * 70, 67), -7, 7, cuda)
+                                 epilogue, cin, cout):
+    """cin 70 takes the byte A loader, 16 and 48 the vector one."""
+    rng = np.random.default_rng(ksize + stride + dilation + cin)
+    a = _codes(rng, (3, 17, 13, cin), 0, 15, cuda)
+    w = _codes(rng, (ksize * ksize * cin, cout), -7, 7, cuda)
     s = torch.tensor(np.float32(0.011), device=cuda)
     kw = dict(kh=ksize, kw=ksize, stride=(stride, stride),
               padding=(padding, padding), dilation=(dilation, dilation),
               epilogue=epilogue, n_out=15, lo=0)
+    before = fq_conv2d.vector_launches
     got = fq_conv2d(a, w, s, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, tref.ref_fq_conv2d(a, w, s, **kw))
+    assert fq_conv2d.vector_launches - before == (cin % 16 == 0)
 
 
 @pytest.mark.parametrize("t,cin,dil", KWS_LAYERS)
@@ -269,7 +298,7 @@ def test_fq_matmul_packed_matches_plain(cuda, fmt, m, k, n, epilogue, lo):
 
 
 @pytest.mark.parametrize("fmt", PACKED)
-@pytest.mark.parametrize("cin", [5, 45, 64])
+@pytest.mark.parametrize("cin", [5, 45, 64, 16])
 @pytest.mark.parametrize("pool", [None, 2, 3])
 @pytest.mark.parametrize("epilogue,lo", [("requant", 0), ("requant", -7),
                                          ("dequant", 0)])
@@ -378,7 +407,8 @@ def test_threefry_on_the_card(cuda):
 @pytest.mark.parametrize("fmt", FORMATS)
 @pytest.mark.parametrize("chunks", [1, 4])
 @pytest.mark.parametrize("m,k,n", [(37, 13, 5), (130, 257, 129),
-                                   (4 * 138, 300, 45)])
+                                   (4 * 138, 300, 45), (130, 80, 48),
+                                   (200, 128, 1000)])
 @pytest.mark.parametrize("epilogue,lo", [("requant", -7), ("dequant", 0)])
 def test_fq_matmul_noisy_matches_plain(cuda, fmt, chunks, m, k, n, epilogue,
                                        lo):
@@ -399,7 +429,7 @@ def test_fq_matmul_noisy_matches_plain(cuda, fmt, chunks, m, k, n, epilogue,
 
 @pytest.mark.parametrize("fmt", FORMATS)
 @pytest.mark.parametrize("chunks", [1, 4])
-@pytest.mark.parametrize("cin", [5, 64])
+@pytest.mark.parametrize("cin", [5, 64, 48])
 @pytest.mark.parametrize("pool", [None, 2, 3])
 def test_fq_conv2d_noisy_matches_plain(cuda, fmt, chunks, cin, pool):
     """K3 and K3b (2 x 2 and the generic pool) with the noise at each

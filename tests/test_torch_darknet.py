@@ -319,6 +319,33 @@ def test_port_conversion_matches_reference(name):
                                    rtol=2.4e-7, atol=0)
 
 
+@pytest.mark.parametrize("name", list(CFGS))
+def test_port_conversion_codes_match_reference(name):
+    """The port-converted stack against the reference's, from the same entry
+    codes: every layer's output codes counted, and none may differ (the
+    folded scalars of the two conversions must flip no code)."""
+    fq_params, state, ip = _reference(name)
+    jcfg, tcfg, _, _ = CFGS[name]
+    params, st = interop.params_from_numpy(_np(fq_params), _np(state),
+                                           device="cpu")
+    stack = tdn.convert_int(params, st, QCFG, tcfg)
+    entry = _ref_entry(name)[1]
+    got = _port_layer_outputs(stack, torch.from_numpy(entry), tcfg)
+    plan = jdn.layer_plan(jcfg)
+    codes, differ = jnp.asarray(entry), {}
+    for step in plan[jdn._split_plan(plan):]:
+        if step[0] == "pool":
+            codes = jii.int_maxpool2d(codes)
+            continue
+        _, layer, ks, pooled = step
+        run = jii.int_conv2d_pool if pooled else jii.int_conv2d
+        codes = run(ip[layer], codes, ksize=ks, padding=ks // 2,
+                    impl="im2col")
+        differ[layer] = int((got[layer].numpy() != np.asarray(codes)).sum())
+    assert list(differ) == list(got)
+    assert sum(differ.values()) == 0, differ
+
+
 def test_int_serve_fn_takes_numpy_requests():
     st, tcfg = _carried("reduced"), CFGS["reduced"][1]
     x = _images("reduced")

@@ -381,3 +381,80 @@ def test_wrappers_refuse_other_devices():
         quantize_codes(meta, torch.tensor(1.0), n=7, b=0.0)
     with pytest.raises(ValueError):
         fq_matmul(meta.to(torch.int8), meta.to(torch.int8), torch.tensor(1.0))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core tile loop's A loader, picked on the host per launch
+# ---------------------------------------------------------------------------
+
+
+def _darknet_convs():
+    """(cin, ksize) of DarkNet-19's integer convs at 224 x 224."""
+    import chip_smoke
+    from repro_torch.models.darknet import DarkNetConfig
+    return [(cin, ks) for _, _, cin, _, ks, _ in
+            chip_smoke.darknet_int_layers(DarkNetConfig(), 224)]
+
+
+def test_loader_choice_darknet_shapes_take_vector():
+    """Every DarkNet K3 (Cin 32 ... 1024) and im2col K2 (K = ks^2 Cin)
+    launch takes the 16-byte vector loader at an aligned address."""
+    from repro_torch.kernels.fq_conv import a_loader as conv_loader
+    from repro_torch.kernels.fq_matmul import a_loader as matmul_loader
+    convs = _darknet_convs()
+    assert len(convs) == 17
+    for cin, ks in convs:
+        assert conv_loader(cin, 256) == "vector", cin
+        assert matmul_loader(ks * ks * cin, 256) == "vector", (cin, ks)
+
+
+@pytest.mark.parametrize("cin", [100, 45, 5, 70, 8, 24])
+def test_loader_choice_kws_and_ragged_shapes_take_byte(cin):
+    """KWS (cin 100 and 45, K = 3 cin = 300 and 135) and ragged shapes
+    gather bytes; so do K2's ragged K (13, 257)."""
+    from repro_torch.kernels.fq_conv import a_loader as conv_loader
+    from repro_torch.kernels.fq_matmul import a_loader as matmul_loader
+    assert conv_loader(cin, 256) == "byte"
+    assert matmul_loader(3 * cin, 256) == "byte"
+    for k in (13, 257, 135, 300):
+        assert matmul_loader(k, 256) == "byte"
+
+
+def test_loader_choice_misaligned_view_takes_byte():
+    """A view at an odd byte offset takes the byte loader (the wrappers
+    document it; nothing is refused for alignment), an aligned one the
+    vector loader; B copies 16-byte chunks only for N % 16 == 0, aligned."""
+    from repro_torch.kernels.fq_conv import a_loader as conv_loader
+    from repro_torch.kernels.fq_matmul import a_loader as matmul_loader
+    from repro_torch.kernels.fq_matmul import b_vector
+    flat = torch.zeros(130 * 80 + 16, dtype=torch.int8)
+    assert flat.data_ptr() % 16 == 0
+    aligned, odd = flat[16:].view(130, 80), flat[1:1 + 130 * 80].view(130, 80)
+    assert aligned.is_contiguous() and odd.is_contiguous()
+    assert matmul_loader(80, aligned.data_ptr()) == "vector"
+    assert matmul_loader(80, odd.data_ptr()) == "byte"
+    assert conv_loader(16, odd.data_ptr()) == "byte"
+    assert conv_loader(16, aligned.data_ptr()) == "vector"
+    assert b_vector(48, flat.data_ptr()) and b_vector(1008, 32)
+    assert not b_vector(45, flat.data_ptr()) and not b_vector(1000, 0)
+    assert not b_vector(48, 8)
+
+
+def test_cpu_path_uses_plain_versions_and_counts_no_vector_launch():
+    """On the CPU, K2 and K3 at vector-loader shapes run the plain versions
+    and count no launch of either loader."""
+    tkernels.reset_launch_counts()
+    rng = np.random.default_rng(16)
+    a = _t(_codes(rng, (70, 80), -7, 7))
+    b = _t(_codes(rng, (80, 48), -7, 7))
+    s = torch.tensor(np.float32(0.01))
+    assert torch.equal(fq_matmul(a, b, s, lo=-7),
+                       tref.ref_fq_matmul(a, b, s, lo=-7))
+    x = _t(_codes(rng, (2, 9, 7, 16), 0, 7))
+    w = _t(_codes(rng, (9 * 16, 64), -1, 1))
+    kw = dict(kh=3, kw=3, stride=(2, 2), padding=(1, 1), dilation=(2, 2))
+    assert torch.equal(fq_conv2d(x, w, s, **kw),
+                       tref.ref_fq_conv2d(x, w, s, **kw))
+    assert tkernels.vector_launch_counts() == {"fq_matmul_vector": 0,
+                                               "fq_conv2d_vector": 0}
+    assert sum(tkernels.launch_counts().values()) == 0

@@ -177,6 +177,31 @@ def test_port_conversion_matches_reference(name):
                                    rtol=2.4e-7, atol=0)
 
 
+@pytest.mark.parametrize("name", list(CFGS))
+def test_port_conversion_codes_match_reference(name):
+    """The port-converted stack against the reference's, from the same entry
+    codes: every layer's output codes counted, and none may differ (the
+    folded scalars of the two conversions must flip no code)."""
+    fq_params, state, ip = _reference(name)
+    jcfg, tcfg, _ = CFGS[name]
+    params, st = interop.params_from_numpy(_np(fq_params), _np(state),
+                                           device="cpu")
+    stack = tkws.convert_int(params, st, QCFG, tcfg)
+    want = jii.entry_codes(_ref_h(ip, _inputs(name)), ip["entry"], JQCFG,
+                           b_in=RELU_BOUND)
+    got = torch.from_numpy(np.array(want))
+    differ = {}
+    for (layer, dil), (tlayer, tdil) in zip(jkws.layer_plan(jcfg),
+                                            tkws.layer_plan(tcfg)):
+        assert (layer, dil) == (tlayer, tdil)
+        want = jii.int_conv1d(ip[layer], want, ksize=jcfg.ksize, dilation=dil,
+                              impl="im2col")
+        got = tii.int_conv1d(stack[layer], got, ksize=tcfg.ksize,
+                             dilation=dil)
+        differ[layer] = int((got.numpy() != np.asarray(want)).sum())
+    assert sum(differ.values()) == 0, differ
+
+
 def test_port_builds_and_serves_its_own_stack():
     """init -> to_fq -> s_out -> sync_handoff -> convert_int on the CPU."""
     cfg = tkws.KWSConfig.reduced()
