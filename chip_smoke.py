@@ -43,16 +43,19 @@ Phases, each of which must pass:
    its plain version for int8, int4 and ternary weights at mac_chunks 1 and
    4, at every KWS and DarkNet shape above and at off-path shapes (ragged
    cin, odd N, a 3 x 3 pool, lo < 0, dequant), and times it beside the
-   clean kernel on the same operands at the record batches;
-8. kernels_tc: the int8 tensor-core (wgmma) tile loop of K2 and K3 off
-   the paths: both A loaders (16-byte cp.async, byte gather) and every
+   clean kernel on the same operands at the record batches (K3b at every
+   DarkNet batch);
+8. kernels_tc: the int8 tensor-core (wgmma) tile loop of K2, K3 and K3b
+   off the paths: both A loaders (16-byte cp.async, byte gather) and every
    edge (M past a tile, K = 80, N of 16, 48 and 1000, Cin 16 and 48
    strided and dilated, ragged K and Cin, packed K tails, a misaligned A
-   view) in every format, clean and noisy at each mac_chunks, requant and
-   dequant, bit-exact against the plain versions, with the vector-loader
-   launches counted against the shapes. Every counted serve run below
-   also checks that each DarkNet K2 / K3 launch took the vector loader
-   and each KWS launch the byte loader (``kernels (...)`` lines, "vector");
+   view; for K3b pools 2 x 2, 3 x 3 and 2 x 3 on window counts that are
+   not multiples of 16 or 64) in every format, clean and noisy at each
+   mac_chunks, requant and dequant, bit-exact against the plain versions,
+   with the vector-loader launches counted against the shapes. Every
+   counted serve run below also checks that each DarkNet K2 / K3 / K3b
+   launch took the vector loader and each KWS launch the byte loader
+   (``kernels (...)`` lines, "vector");
 9. serve_kws and serve_darknet also build the ternary (``weight_format=
    "auto"``) and int4 stacks from the same params and serve the same
    requests with every conv impl, each format counted in a run of its own.
@@ -134,9 +137,9 @@ PACKED_FORMATS = ("ternary", "int4")
 PACKED_REPLACES = {"fq_matmul": "src/repro/kernels/fq_matmul.py:86",
                    "fq_conv2d": "src/repro/kernels/fq_conv.py:330",
                    "fq_conv2d_pool": "src/repro/kernels/fq_conv.py:330"}
-PROLOGUE = "src/repro_torch/kernels/csrc/igemm.cuh"
-# K2 and K3 run on the int8 tensor-core (wgmma) tile loop
-TC_KERNELS = ("fq_matmul", "fq_conv2d")
+# K2, K3 and K3b run on the int8 tensor-core (wgmma) tile loop, which
+# also holds K5, the packed prologue
+TC_KERNELS = ("fq_matmul", "fq_conv2d", "fq_conv2d_pool")
 TC_LOOP = "src/repro_torch/kernels/csrc/igemm_tc.cuh"
 # K4, the ADC-noise epilogue, in each kernel that has an epilogue
 NOISE_REPLACES = {"fq_matmul": "src/repro/kernels/fq_matmul.py:98",
@@ -251,9 +254,10 @@ def eager_ms(torch, fn, reps: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def device_profile(torch, fn, reps: int = 10):
-    """(wall ms, device-busy ms, device ops) per ``fn()`` from torch.profiler:
-    the summed durations of the device-side events (kernels and copies)."""
+def device_profile(torch, fn, reps: int = 10, top: int = 6):
+    """(wall ms, device-busy ms, device ops, [(name, ms)] of the ``top``
+    device-side names by time) per ``fn()`` from torch.profiler: the summed
+    durations of the device-side events (kernels and copies)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -266,8 +270,14 @@ def device_profile(torch, fn, reps: int = 10):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.end - e.time_range.start for e in dev)
-    return wall * 1e3 / reps, busy_us / 1e3 / reps, len(dev) / reps
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = (by_name.get(e.name, 0)
+                           + e.time_range.end - e.time_range.start)
+    busy_us = sum(by_name.values())
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return (wall * 1e3 / reps, busy_us / 1e3 / reps, len(dev) / reps,
+            [(n, us / 1e3 / reps) for n, us in names])
 
 
 def bound(bytes_moved: float, work: dict) -> tuple:
@@ -290,9 +300,9 @@ def max_abs_err(torch, got, want) -> float:
 
 
 def a_loader_of(torch, name, fn):
-    """The A loader ("vector" or "byte") that one more ``fn()`` of K2 / K3
-    (the tensor-core loop) takes, read off the vector counter; None for
-    the other kernels."""
+    """The A loader ("vector" or "byte") that one more ``fn()`` of K2, K3
+    or K3b (the tensor-core loop) takes, read off the vector counter; None
+    for the other kernels."""
     from repro_torch import kernels
     base = base_kernel(name)
     if base not in kernels.VECTOR:
@@ -868,9 +878,10 @@ def phase_kernels_noise(torch, dev):
     def check(path, name, batch, shape, got, fn, plain, twin, bytes_, ops_,
               outputs, chunks, layer=None):
         """Parity at every batch; timed beside the clean twin at the
-        record batch."""
+        record batch, and K3b at every batch."""
         rows = out[path]
-        if batch == rows_batch(path):
+        if (batch == rows_batch(path)
+                or base_kernel(name) == "fq_conv2d_pool"):
             rows.record(name, batch, shape, got, plain(), fn, plain, None,
                         bytes_ + 8, ops_, "int8", layer=layer,
                         twin=twin, extra_work=field_work(outputs, chunks),
@@ -1024,6 +1035,7 @@ def phase_kernels_noise(torch, dev):
         raise AssertionError("off-path noisy kernel checks disagree")
     for path, rows in out.items():
         for name, all_rows in rows.rows.items():
+            all_rows = [r for r in all_rows if r["batch"] == rows_batch(path)]
             ratio = (sum(r["ms"] for r in all_rows)
                      / sum(r["clean_ms"] for r in all_rows))
             print(f"  {path} {name}: summed over {len(all_rows)} shapes at "
@@ -1033,14 +1045,16 @@ def phase_kernels_noise(torch, dev):
 
 
 def phase_kernels_tc(torch, dev):
-    """The tensor-core tile loop of K2 and K3 off the paths: both A loaders
-    and every edge (M past a 64-row tile, K = 80 past a 64-code stage, N of
-    16, 48 and 1000, Cin 16 and 48 strided and dilated, ragged K and Cin,
-    int4 and ternary with a K tail, a misaligned A view) in every format,
-    clean and noisy at each mac_chunks, requant (lo < 0 and 0) and dequant,
-    each held bit-exact against its plain version. The launches that took
-    the vector loader are counted against the shapes that call for it.
-    Returns {record name: max abs err} for the record."""
+    """The tensor-core tile loop of K2, K3 and K3b off the paths: both A
+    loaders and every edge (M past a 64-row tile, K = 80 past a 64-code
+    stage, N of 16, 48 and 1000, Cin 16 and 48 strided and dilated, ragged
+    K and Cin, int4 and ternary with a K tail, a misaligned A view; K3b's
+    pools 2 x 2, 3 x 3 and 2 x 3 on window counts that are not multiples of
+    16 or 64) in every format, clean and noisy at each mac_chunks, requant
+    (lo < 0 and 0) and dequant, each held bit-exact against its plain
+    version. The launches that took the vector loader are counted against
+    the shapes that call for it. Returns {record name: max abs err} for the
+    record."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.core import prng, quant
@@ -1070,32 +1084,49 @@ def phase_kernels_tc(torch, dev):
                    (2, 17, 13, 48, 1000, 3, 2, 2, 2),
                    (3, 9, 11, 32, 48, 1, 1, 1, 0),
                    (2, 17, 13, 45, 48, 3, 2, 2, 1)]
+    # K3b: (B, H, W, Cin, Cout, k, stride, dilation, padding, pool); the
+    # pooled windows Mp are 84, 24, 390, 40 and 84, none a multiple of 16
+    # or 64; Cin 45 gathers bytes, the rest take the vector loader
+    pool_shapes = [(2, 13, 15, 16, 64, 3, 1, 1, 1, (2, 2)),
+                   (2, 17, 13, 48, 1000, 3, 2, 2, 2, (2, 2)),
+                   (3, 40, 30, 16, 48, 3, 1, 2, 2, (3, 3)),
+                   (2, 19, 23, 48, 64, 3, 2, 1, 1, (2, 3)),
+                   (2, 15, 13, 45, 48, 3, 1, 1, 1, (2, 2))]
     mm_ops = [(codes((m, k), -n, n), k, nn) for m, k, nn in mm_shapes]
     flat = codes((130 * 80 + 1,), -n, n)
     mm_ops.append((flat[1:].view(130, 80), 80, 48))   # misaligned: byte
     conv_ops = [(codes(shape[:4], 0, n), shape) for shape in conv_shapes]
+    pool_ops = [(codes(shape[:4], 0, n), shape) for shape in pool_shapes]
+    flat = codes((2 * 13 * 15 * 32 + 1,), 0, n)       # misaligned: byte
+    pool_ops.append((flat[1:].view(2, 13, 15, 32),
+                     (2, 13, 15, 32, 64, 3, 1, 1, 1, (2, 2))))
     s = torch.tensor(np.float32(0.0131), device=dev)
     epis = (("requant", -n), ("requant", 0), ("dequant", 0))
     errs = {}
     print("tensor-core loop off the paths (bit-exact vs plain on the card): "
           f"K2 at {mm_shapes} and a misaligned (130, 80) view, K3 at "
-          f"{conv_shapes} (B, H, W, Cin, Cout, k, stride, dilation, pad)",
-          flush=True)
+          f"{conv_shapes} (B, H, W, Cin, Cout, k, stride, dilation, pad), "
+          f"K3b at {pool_shapes} (..., pool) and a misaligned (2, 13, 15, "
+          "32) view", flush=True)
     for fmt in ("int8",) + PACKED_FORMATS:
         r = quant.format_range(fmt)
         mm_w = [codes((k, nn), -r, r) for _, k, nn in mm_ops]
         conv_w = [codes((sh[5] ** 2 * sh[3], sh[4]), -r, r)
                   for _, sh in conv_ops]
+        pool_w = [codes((sh[5] ** 2 * sh[3], sh[4]), -r, r)
+                  for _, sh in pool_ops]
         if fmt != "int8":
             mm_w = [quant.pack_codes(w, fmt) for w in mm_w]
             conv_w = [quant.pack_im2col_codes(w, sh[5] ** 2, fmt)
                       for w, (_, sh) in zip(conv_w, conv_ops)]
+            pool_w = [quant.pack_im2col_codes(w, sh[5] ** 2, fmt)
+                      for w, (_, sh) in zip(pool_w, pool_ops)]
         for chunks in (None,) + CHUNKS:
             nz = {} if chunks is None else dict(
                 noise_sigma_acc=torch.div(torch.full_like(s, sigma_mac), s),
                 noise_seed=seed, mac_chunks=chunks)
-            mm_errs, conv_errs = [], []
-            want_vec = {"fq_matmul_vector": 0, "fq_conv2d_vector": 0}
+            mm_errs, conv_errs, pool_errs = [], [], []
+            want_vec = dict.fromkeys(kernels.vector_launch_counts(), 0)
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             for epi, lo in epis:
@@ -1116,24 +1147,41 @@ def phase_kernels_tc(torch, dev):
                         ref.ref_fq_conv2d(x, w, s, **ck)))
                     want_vec["fq_conv2d_vector"] += (
                         conv_loader(sh[3], x.data_ptr()) == "vector")
+                for (x, sh), w in zip(pool_ops, pool_w):
+                    ks, st, dl, pd, pool = sh[5:]
+                    ck = dict(kw, kh=ks, kw=ks, stride=(st, st),
+                              dilation=(dl, dl), padding=(pd, pd), pool=pool)
+                    pool_errs.append(max_abs_err(
+                        torch, fq_conv2d(x, w, s, **ck),
+                        ref.ref_fq_conv2d(x, w, s, **ck)))
+                    want_vec["fq_conv2d_pool_vector"] += (
+                        conv_loader(sh[3], x.data_ptr()) == "vector")
             torch.cuda.synchronize()
             vec = kernels.vector_launch_counts()
             label = f"{fmt} " + ("clean" if chunks is None
                                  else f"noisy c{chunks}")
+            launched = kernels.launch_counts()
             print(f"  {label}: K2 max_abs_err={max(mm_errs):g}, K3 "
-                  f"max_abs_err={max(conv_errs):g}; launches "
-                  f"{kernels.launch_counts()['fq_matmul']} K2 "
-                  f"({vec['fq_matmul_vector']} vector) and "
-                  f"{kernels.launch_counts()['fq_conv2d']} K3 "
-                  f"({vec['fq_conv2d_vector']} vector)", flush=True)
-            if max(mm_errs + conv_errs) != 0.0:
+                  f"max_abs_err={max(conv_errs):g}, K3b max_abs_err="
+                  f"{max(pool_errs):g}; launches "
+                  f"{launched['fq_matmul']} K2 "
+                  f"({vec['fq_matmul_vector']} vector), "
+                  f"{launched['fq_conv2d']} K3 "
+                  f"({vec['fq_conv2d_vector']} vector) and "
+                  f"{launched['fq_conv2d_pool']} K3b "
+                  f"({vec['fq_conv2d_pool_vector']} vector)", flush=True)
+            if max(mm_errs + conv_errs + pool_errs) != 0.0:
                 raise AssertionError(f"tensor-core loop {label}: kernel != "
                                      "plain version")
-            if vec != want_vec or not 0 < want_vec["fq_matmul_vector"] < len(
-                    mm_ops) * len(epis):
+            if vec != want_vec or not all(
+                    0 < want_vec[f"{k}_vector"] < len(ops_) * len(epis)
+                    for k, ops_ in (("fq_matmul", mm_ops),
+                                    ("fq_conv2d", conv_ops),
+                                    ("fq_conv2d_pool", pool_ops))):
                 raise AssertionError(f"{label}: vector launches {vec} != "
                                      f"{want_vec}, or one loader unused")
-            for k, e in (("fq_matmul", mm_errs), ("fq_conv2d", conv_errs)):
+            for k, e in (("fq_matmul", mm_errs), ("fq_conv2d", conv_errs),
+                         ("fq_conv2d_pool", pool_errs)):
                 name = (noisy_name(k, fmt, chunks) if chunks else
                         k + ("" if fmt == "int8" else f"_{fmt}"))
                 errs[name] = max(e)
@@ -1164,10 +1212,10 @@ def launch_line(label, counts, packed):
 
 
 def loaders(kernels, path, counts):
-    """" (vector fq_matmul_vector=N fq_conv2d_vector=M)" of the counted run
-    just ended: every DarkNet K2 / K3 launch took the tensor-core loop's
-    vector A loader (Cin and K multiples of 16), every KWS one the byte
-    loader (cin 100 and 45, K 300 and 135); raises otherwise."""
+    """" (vector fq_matmul_vector=N fq_conv2d_vector=M ...)" of the counted
+    run just ended: every DarkNet K2 / K3 / K3b launch took the tensor-core
+    loop's vector A loader (Cin and K multiples of 16), every KWS one the
+    byte loader (cin 100 and 45, K 300 and 135); raises otherwise."""
     vec = kernels.vector_launch_counts()
     want = {f"{k}_vector": counts[k] if path == "darknet" else 0
             for k in kernels.VECTOR}
@@ -1463,7 +1511,7 @@ def serve_timing(torch, path, serve, requests, profiled):
     for b in profiled:
         for impl, fn in serve.items():
             try:
-                wall, busy, n_ops = device_profile(
+                wall, busy, n_ops, names = device_profile(
                     torch, lambda: fn(requests[b]))
             except RuntimeError as e:
                 print(f"serve {path} profile B={b} {impl}: not measured ({e})")
@@ -1471,7 +1519,10 @@ def serve_timing(torch, path, serve, requests, profiled):
             share = f"{busy / wall:.4f}" if busy else "not measured"
             print(f"serve {path} profile B={b} {impl}: wall {wall:.4f} ms, "
                   f"device busy {busy:.4f} ms per request batch, busy share "
-                  f"{share}, {n_ops:g} device ops per request (profiled)",
+                  f"{share}, {n_ops:g} device ops per request (profiled); "
+                  "most device time: " + "; ".join(
+                      re.sub(r"^void |\(anonymous namespace\)::", "", n)[:56]
+                      + f" {ms:.4f} ms" for n, ms in names),
                   flush=True)
 
 
@@ -1770,7 +1821,7 @@ def kernels_record(rows, counts, batch, per_apply, names=None):
             entry.update(loop=TC_LOOP, loaders=sorted(
                 {r["loader"] for r in top}))
         if fmt != "int8":
-            entry["prologue"] = TC_LOOP if base in TC_KERNELS else PROLOGUE
+            entry["prologue"] = TC_LOOP
         if chunks:
             entry.update(epilogue=NOISE_EPILOGUE, mac_chunks=chunks,
                          clean_ms=sum(r["clean_ms"] for r in top))

@@ -8,8 +8,8 @@ attribute on the wrapper; :func:`launch_counts` reads them and
 launches that took packed weights (K5, the packed prologue) per format in
 ``packed_launches``, which :func:`packed_launch_counts` reads, and the
 launches with the ADC-noise epilogue (K4) in ``noisy_launches``, which
-:func:`noisy_launch_counts` reads. K2 and K3 run on the tensor-core tile
-loop and count the launches whose A operand took its vector (16-byte
+:func:`noisy_launch_counts` reads. K2, K3 and K3b run on the tensor-core
+tile loop and count the launches whose A operand took its vector (16-byte
 ``cp.async``) loader in ``vector_launches``, which
 :func:`vector_launch_counts` reads.
 """
@@ -25,7 +25,7 @@ _WRAPPERS = {"quantize_codes": quantize_codes, "fq_matmul": fq_matmul,
              "fq_conv2d": fq_conv2d, "fq_conv2d_pool": fq_conv2d_pool}
 PACKED = ("fq_matmul", "fq_conv2d", "fq_conv2d_pool")
 NOISY = PACKED
-VECTOR = ("fq_matmul", "fq_conv2d")
+VECTOR = ("fq_matmul", "fq_conv2d", "fq_conv2d_pool")
 
 
 def launch_counts() -> Dict[str, int]:

@@ -12,27 +12,32 @@
 // and no patch matrix in device memory. The epilogue is K2's (the shared
 // igemm.cuh / epilogue.cuh), so fused and im2col convs stay bit-identical.
 //
+// All three kernels run on the tensor-core tile loop of K2 (igemm_tc.cuh:
+// wgmma m64n32k32 per warpgroup, a 6-stage ring of shared tiles). Their A
+// tile comes through one of two loaders, picked by the wrapper per launch:
+// with Cin % 16 == 0 (every DarkNet layer, Cin 32 ... 1024) each thread
+// cp.asyncs one tap's 16 channels of one pixel, zero-filled for the halo
+// (ConvAVec); otherwise (the KWS path's Cin 100 and 45) ConvA gathers byte
+// by byte. Both take a row map, which says which conv output pixel a tile
+// row is: that is all that tells K3b from K3 before the epilogue.
+//
 // K3b, pool = (qh, qw): the max of the int32 accumulator over
 // non-overlapping (qh, qw) windows of the conv output, floor mode, then
 // the epilogue. The epilogue is monotone for scale > 0, so this equals
 // conv -> requant -> max-pool of the codes bit for bit, and the unpooled
 // tile never reaches device memory. Two forms:
-//   * 2 x 2, DarkNet's only pool: the block's 64 GEMM rows are 16 pooled
-//     outputs x 4 window positions (row r is window r % 16 at position
-//     r / 16), so thread ty holds all four accumulators of window ty in
-//     acc[0..3][j] and the pool is three register maxes;
+//   * 2 x 2, DarkNet's only pool: tile row r is window g0 + r / 4 at
+//     position r % 4 (Pool2Rows), so a 64-row tile is 16 windows x 4
+//     positions. In tc::FragMap lane l of warp w holds rows 16 w + l / 4
+//     (+ 8): the four positions of a window sit in lanes l % 4 + 4 p +
+//     16 (l / 16), p < 4, of one warp, for every accumulator. Two
+//     __shfl_xor_sync maxes (lane masks 4 and 8) pool them in registers,
+//     with no shared memory and no barrier, and the lanes with p = 0 store
+//     (Pool2Map);
 //   * any other (qh, qw): the block's 64 rows are 64 pooled outputs; it
-//     runs the tile loop once per window position and keeps a running max
-//     in registers. Both do the MACs of the unpooled conv, no more.
-//
-// K3 runs on the tensor-core tile loop of K2 (igemm_tc.cuh: wgmma
-// m64n32k32 per warpgroup, a 6-stage ring of shared tiles). Its A tile
-// comes through one of two loaders, picked by the wrapper per launch: with
-// Cin % 16 == 0 (every DarkNet layer, Cin 32 ... 1024) each thread
-// cp.asyncs one tap's 16 channels of one pixel, zero-filled for the halo;
-// otherwise (the KWS path's Cin 100 and 45) ConvA gathers byte by byte.
-// K3b keeps the dp4a loop (igemm.cuh), whose thread map its 2 x 2 pool
-// reads.
+//     runs the tile loop once per window position (PassRows) and keeps a
+//     running max in the FragMap registers.
+// Both do the MACs of the unpooled conv, no more.
 //
 // Bound: on the KWS path every conv is a few MFLOP over under 1 MB of
 // codes (at B = 64), a few microseconds or less at the card's peak rates:
@@ -43,7 +48,8 @@
 // each thread resolves its output rows to window origins once, in
 // registers, and its reduction column to a (tap, channel) offset once per
 // K step. What it leaves: TMA gathers, warp specialisation, a tile per
-// shape (the 16-block deep layers at B = 1) and K3b's pool on wgmma.
+// shape (the 16-block deep layers at B = 1), and the generic pool's
+// separate tile loop per window position.
 //
 // K5, packed weights (replaces fq_conv.py:330-333 and, for the channel
 // padding, :442-452): weights of factor 2 (int4) or 4 (ternary) hold
@@ -52,21 +58,19 @@
 // TPU kernel pads the activations to cin_p channels with a copy; here the
 // reduction runs over taps x cin_p, index k -> (t, c) = (k / cin_p,
 // k % cin_p), and the gather loads 0 for c >= cin: no activation copy, and
-// the pad rows' codes meet zeros. The shared tile loops decode each
-// weight byte once into the shared B tile (igemm_tc.cuh LoadB for K3,
-// igemm.cuh load_b_tile for K3b). For int8,
-// cin_p == cin and the gather is the int8 one.
+// the pad rows' codes meet zeros. The tile loop decodes each weight byte
+// once into the shared B tile (igemm_tc.cuh LoadB). For int8, and for
+// every Cin % 16 == 0 (the vector loader), cin_p == cin.
 //
 // K4, the ADC noise (replaces fq_conv.py:342-355): with a sigma pointer,
 // every conv output (b, ho, wo, c) takes the noise.cuh field at its
 // unpooled index ((b * Ho + ho) * Wo + wo) * Cout + c, the im2col GEMM's
-// row * N + col, before the pool and the epilogue. The pool kernels then
-// keep a float32 running max of the noisy accumulators: in the 2 x 2
-// kernel each of a window's 4 positions has its own row, in the generic
-// one each pass's position gives the row (PassRows). Max commutes with
-// the monotone epilogue, so this equals noisy conv -> requant -> code
-// pool. NOISE is a template parameter beside DEQUANT and FACTOR, so the
-// clean instantiations carry no field code.
+// row * N + col, before the pool and the epilogue. The pool kernels add it
+// to each accumulator at its own unpooled row (FieldMap) and take the max
+// of the float32 noisy values. Max commutes with the monotone epilogue,
+// so this equals noisy conv -> requant -> code pool. NOISE is a template
+// parameter beside DEQUANT and FACTOR, so the clean instantiations carry
+// no field code.
 #include <climits>
 #include <cmath>
 
@@ -112,18 +116,16 @@ struct Windows {
   }
 };
 
-// 2 x 2: row r is window g0 + r % POOL2_WINDOWS at position r / POOL2_WINDOWS.
-constexpr int POOL2_WINDOWS = fq::BM / 4;
-static_assert(POOL2_WINDOWS == 16,
-              "thread ty must own rows ty + 16 i, i < 4 (igemm.cuh)");
+// 2 x 2: row r is window g0 + r / 4 at position r % 4 = 2 di + dj.
+constexpr int POOL2_WINDOWS = fq::tc::BM / 4;
 
 struct Pool2Rows {
   Windows win;
   int g0;
   __device__ __forceinline__ bool operator()(int r, int& b, int& ho,
                                              int& wo) const {
-    const int pos = r / POOL2_WINDOWS;
-    return win.pixel(g0 + r % POOL2_WINDOWS, pos >> 1, pos & 1, b, ho, wo);
+    const int pos = r & 3;
+    return win.pixel(g0 + (r >> 2), pos >> 1, pos & 1, b, ho, wo);
   }
 };
 
@@ -137,18 +139,19 @@ struct PassRows {
   }
 };
 
-// The thread's ROWS output rows, resolved once per block to window origins
-// kept in registers; each K step adds one column offset (tap, channel).
-// Offsets are int32: the wrapper refuses activations of 2^31 bytes or more.
-// The reduction runs over kh * kw taps x Cin_p channels, Cin_p being Cin
-// padded to the weights' pack FACTOR; channels past Cin load 0.
+// The byte loader: the thread's ROWS output rows, resolved once per block
+// to window origins kept in registers; each K step adds one column offset
+// (tap, channel). Offsets are int32: the wrapper refuses activations of
+// 2^31 bytes or more. The reduction runs over kh * kw taps x Cin_p
+// channels, Cin_p being Cin padded to the weights' pack FACTOR; channels
+// past Cin load 0.
 template <int FACTOR>
 struct ConvA {
   const int8_t* x;
   int H, W, Cin, Cin_p, kw, dh, dw, K;
-  int off[fq::ROWS];  // ((b * H + h0) * W + w0) * Cin of the window origin
-  int h0[fq::ROWS];   // ho * sh - ph; far out of range for rows past M
-  int w0[fq::ROWS];   // wo * sw - pw
+  int off[fq::tc::ROWS];  // ((b * H + h0) * W + w0) * Cin of the origin
+  int h0[fq::tc::ROWS];   // ho * sh - ph; far out of range for rows past M
+  int w0[fq::tc::ROWS];   // wo * sw - pw
   struct Col { int dy, dx, off; bool ok; };
   template <class Rows>
   __device__ __forceinline__ ConvA(const int8_t* x_, const ConvShape& c,
@@ -157,9 +160,9 @@ struct ConvA {
         Cin_p((c.Cin + FACTOR - 1) / FACTOR * FACTOR), kw(c.kw), dh(c.dh),
         dw(c.dw), K(c.kh * c.kw * Cin_p) {
 #pragma unroll
-    for (int q = 0; q < fq::ROWS; ++q) {
+    for (int q = 0; q < fq::tc::ROWS; ++q) {
       int b = 0, ho = 0, wo = 0;
-      if (rows(tid / fq::BK + q * fq::ROW_STEP, b, ho, wo)) {
+      if (rows(tid / fq::tc::BK + q * fq::tc::ROW_STEP, b, ho, wo)) {
         h0[q] = ho * c.sh - c.ph;
         w0[q] = wo * c.sw - c.pw;
         off[q] = ((b * c.H + h0[q]) * c.W + w0[q]) * c.Cin;
@@ -187,22 +190,23 @@ struct ConvA {
 // The vector loader: thread tid's 16 bytes of tile row tc::vec_row(tid),
 // one tap's channels c .. c + 15 of one pixel (Cin % 16 == 0, so a chunk
 // never straddles taps and its source is 16-byte aligned), zero-filled for
-// the halo, rows past M and k past K. The row's window origin is resolved
-// once, in registers, as in ConvA; the chunk's (tap, channel) is carried
-// from stage to stage (the stages are issued in order), with no division
-// in the loop.
+// the halo, rows past the output and k past K. The row's window origin is
+// resolved once, in registers, through the row map as in ConvA; the
+// chunk's (tap, channel) is carried from stage to stage (the stages are
+// issued in order), with no division in the loop.
 struct ConvAVec {
   const int8_t* x;
   int H, W, Cin, kw, dh, dw, K, r, kc;
   int off, h0, w0;  // as ConvA's, for the thread's one row
   int k, ch, th, tw;  // the next chunk: reduction index, channel, tap
+  template <class Rows>
   __device__ __forceinline__ ConvAVec(const int8_t* x_, const ConvShape& c,
-                                      int m0, int tid)
+                                      const Rows& rows, int tid)
       : x(x_), H(c.H), W(c.W), Cin(c.Cin), kw(c.kw), dh(c.dh), dw(c.dw),
         K(c.kh * c.kw * c.Cin), r(fq::tc::vec_row(tid)),
         kc(fq::tc::vec_chunk(tid)), k(16 * kc), ch(16 * kc), th(0), tw(0) {
     int b = 0, ho = 0, wo = 0;
-    if (PlainRows{m0, c.B * c.Ho * c.Wo, c.Ho * c.Wo, c.Wo}(r, b, ho, wo)) {
+    if (rows(r, b, ho, wo)) {
       h0 = ho * c.sh - c.ph;
       w0 = wo * c.sw - c.pw;
       off = ((b * c.H + h0) * c.W + w0) * c.Cin;
@@ -236,6 +240,72 @@ struct ConvAVec {
   }
 };
 
+// The conv's accumulators for the tile rows of the row map `rows` and the
+// columns n0 .., in FragMap order: the tile loop with the A loader AVEC
+// picks. The reduction runs over taps x cin_p, cin padded to the weights'
+// pack FACTOR.
+template <int FACTOR, bool AVEC, class Rows>
+__device__ __forceinline__ void conv_tile(int8_t* smem, const int8_t* x,
+                                          const int8_t* w, const ConvShape& c,
+                                          const Rows& rows, int n0, bool bvec,
+                                          int tid, int (&acc)[16]) {
+  const int K = c.kh * c.kw * ((c.Cin + FACTOR - 1) / FACTOR * FACTOR);
+  if constexpr (AVEC)
+    fq::tc::mainloop<FACTOR, true>(smem, ConvAVec(x, c, rows, tid), w, K,
+                                   K / FACTOR, c.Cout, n0, bvec, tid, acc);
+  else
+    fq::tc::mainloop<FACTOR, false>(smem, ConvA<FACTOR>(x, c, rows, tid), w,
+                                    K, K / FACTOR, c.Cout, n0, bvec, tid,
+                                    acc);
+}
+
+// K4's map for a pool kernel: FragMap's columns, and for each of the
+// thread's two tile rows the noise field's row, the unpooled (b, ho,
+// wo)-flattened conv output row of that tile row's pixel, or M = B Ho Wo
+// (never drawn) past the windows. Used with m0 = 0.
+struct FieldMap {
+  static constexpr int N = 16;
+  fq::tc::FragMap f;
+  int frow[2];
+  template <class Rows>
+  __device__ __forceinline__ FieldMap(const Rows& rows, const ConvShape& c,
+                                      int tid)
+      : f(tid) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      int b = 0, ho = 0, wo = 0;
+      frow[s] = rows(f.row(2 * s), b, ho, wo) ? (b * c.Ho + ho) * c.Wo + wo
+                                              : c.B * c.Ho * c.Wo;
+    }
+  }
+  __device__ __forceinline__ int row(int e) const {
+    return frow[(e / 2) % 2];
+  }
+  __device__ __forceinline__ int col(int e) const { return f.col(e); }
+};
+
+// The 2 x 2 kernel's pooled outputs after the lane maxes: element e of
+// lane l of warp w is window 4 w + l / 16 + 2 ((e / 2) % 2) of the tile
+// (FragMap's row / 4), at FragMap's column.
+struct Pool2Map {
+  static constexpr int N = 16;
+  fq::tc::FragMap f;
+  int r;
+  __device__ __forceinline__ explicit Pool2Map(int tid)
+      : f(tid), r(4 * ((tid % 128) / 32) + (tid % 32) / 16) {}
+  __device__ __forceinline__ int row(int e) const {
+    return r + 2 * ((e / 2) % 2);
+  }
+  __device__ __forceinline__ int col(int e) const { return f.col(e); }
+};
+
+__device__ __forceinline__ int lane_max(int v, int mask) {
+  return max(v, __shfl_xor_sync(0xffffffffu, v, mask));
+}
+__device__ __forceinline__ float lane_max(float v, int mask) {
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, mask));
+}
+
 template <bool DEQUANT, int FACTOR, bool NOISE, bool AVEC>
 __global__ void __launch_bounds__(fq::tc::THREADS)
 fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
@@ -245,16 +315,9 @@ fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int tid = threadIdx.x;
   const int M = c.B * c.Ho * c.Wo;
   const int m0 = blockIdx.x * fq::tc::BM, n0 = blockIdx.y * fq::tc::BN;
-  // taps x cin_p reduction rows, cin padded to the weights' pack FACTOR
-  const int K = c.kh * c.kw * ((c.Cin + FACTOR - 1) / FACTOR * FACTOR);
   int acc[16];
-  if constexpr (AVEC)
-    fq::tc::mainloop<FACTOR, true>(smem, ConvAVec(x, c, m0, tid), w, K,
-                                   K / FACTOR, c.Cout, n0, bvec, tid, acc);
-  else
-    fq::tc::mainloop<FACTOR, false>(
-        smem, ConvA<FACTOR>(x, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo}, tid),
-        w, K, K / FACTOR, c.Cout, n0, bvec, tid, acc);
+  conv_tile<FACTOR, AVEC>(smem, x, w, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo},
+                          n0, bvec, tid, acc);
   // output row m of the (b, ho, wo)-flattened conv is the field's row
   const fq::tc::FragMap map(tid);
   if constexpr (NOISE) {
@@ -266,79 +329,54 @@ fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// The unpooled (b, ho, wo)-flattened row of window g's position (di, dj),
-// the ADC-noise field's row; false past the windows.
-__device__ __forceinline__ bool field_row(const Windows& win,
-                                          const ConvShape& c, int g, int di,
-                                          int dj, int& row) {
-  int b, ho, wo;
-  if (!win.pixel(g, di, dj, b, ho, wo)) return false;
-  row = (b * c.Ho + ho) * c.Wo + wo;
-  return true;
-}
-
-// K3b, 2 x 2: thread (tx, ty) holds rows ty + 16 i, the four positions of
-// window g0 + ty, and columns tx + 16 j.
-template <bool DEQUANT, int FACTOR, bool NOISE>
-__global__ void __launch_bounds__(fq::THREADS)
+// K3b, 2 x 2: the block's 64 rows are windows g0 .. g0 + 15 x 4 positions
+// (Pool2Rows); the max over a window's positions runs across lanes.
+template <bool DEQUANT, int FACTOR, bool NOISE, bool AVEC>
+__global__ void __launch_bounds__(fq::tc::THREADS)
 fq_conv_pool2_kernel(const int8_t* __restrict__ x,
                      const int8_t* __restrict__ w,
                      const float* __restrict__ scale, void* __restrict__ out,
-                     ConvShape c, Windows win, int lo, int n_out,
+                     ConvShape c, Windows win, int lo, int n_out, bool bvec,
                      fq::NoiseArgs na) {
-  __shared__ fq::Tiles s;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int g0 = blockIdx.x * POOL2_WINDOWS, n0 = blockIdx.y * fq::BN;
-  int acc[4][4] = {};
-  const ConvA<FACTOR> load_a(x, c, Pool2Rows{win, g0}, tid);
-  fq::mainloop<FACTOR>(s, load_a, w, load_a.K, load_a.K / FACTOR, c.Cout, n0,
-                       tid, acc);
-  const int g = g0 + ty;
-  if (g >= win.Mp) return;
-  const float sc = *scale;
+  extern __shared__ __align__(128) int8_t smem[];
+  const int tid = threadIdx.x;
+  const int g0 = blockIdx.x * POOL2_WINDOWS, n0 = blockIdx.y * fq::tc::BN;
+  const Pool2Rows rows{win, g0};
+  int acc[16];
+  conv_tile<FACTOR, AVEC>(smem, x, w, c, rows, n0, bvec, tid, acc);
+  // a window's 4 positions are all inside the output or all past it, so
+  // the 0 that noisy_tile gives past it meets only rows never stored
+  std::conditional_t<NOISE, float, int> v[16];
   if constexpr (NOISE) {
-    const fq::Noise nz = fq::Noise::load(na);
-    int row[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) field_row(win, c, g, i >> 1, i & 1, row[i]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= c.Cout) continue;
-      float m = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        m = fmaxf(m, nz.add(acc[i][j], row[i], c.Cout, n));
-      fq::put<DEQUANT>(out, (long long)g * c.Cout + n, m, sc, lo, n_out);
-    }
+    fq::noisy_tile(v, acc, fq::Noise::load(na), c.B * c.Ho * c.Wo, c.Cout,
+                   0, n0, FieldMap(rows, c, tid));
   } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= c.Cout) continue;
-      const int m = max(max(acc[0][j], acc[1][j]), max(acc[2][j], acc[3][j]));
-      fq::put<DEQUANT>(out, (long long)g * c.Cout + n, m, sc, lo, n_out);
-    }
+    for (int e = 0; e < 16; ++e) v[e] = acc[e];
   }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) v[e] = lane_max(lane_max(v[e], 4), 8);
+  if ((tid % 32) / 4 % 4 == 0)
+    fq::store<DEQUANT>(out, v, *scale, lo, n_out, win.Mp, c.Cout, g0, n0,
+                       Pool2Map(tid));
 }
 
-// K3b, any (qh, qw): one tile loop per window position, running max.
-// The running max is int32 on the clean path and float32 (the noisy
-// accumulators) with NOISE.
-template <bool DEQUANT, int FACTOR, bool NOISE>
-__global__ void __launch_bounds__(fq::THREADS)
+// K3b, any (qh, qw): the block's 64 rows are 64 windows; one tile loop per
+// window position, and a running max in the FragMap registers, int32 on
+// the clean path and float32 (the noisy accumulators) with NOISE.
+template <bool DEQUANT, int FACTOR, bool NOISE, bool AVEC>
+__global__ void __launch_bounds__(fq::tc::THREADS)
 fq_conv_pool_kernel(const int8_t* __restrict__ x,
                     const int8_t* __restrict__ w,
                     const float* __restrict__ scale, void* __restrict__ out,
-                    ConvShape c, Windows win, int lo, int n_out,
+                    ConvShape c, Windows win, int lo, int n_out, bool bvec,
                     fq::NoiseArgs na) {
-  using Acc = std::conditional_t<NOISE, float, int>;
-  __shared__ fq::Tiles s;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int g0 = blockIdx.x * fq::BM, n0 = blockIdx.y * fq::BN;
+  extern __shared__ __align__(128) int8_t smem[];
+  const int tid = threadIdx.x;
+  const int g0 = blockIdx.x * fq::tc::BM, n0 = blockIdx.y * fq::tc::BN;
   fq::Noise nz{};
   if constexpr (NOISE) nz = fq::Noise::load(na);
-  Acc mx[16];  // mx[4 i + j]: TileMap's element of acc[i][j]
+  std::conditional_t<NOISE, float, int> mx[16];
 #pragma unroll
   for (int e = 0; e < 16; ++e) {
     if constexpr (NOISE) mx[e] = -INFINITY;
@@ -346,52 +384,43 @@ fq_conv_pool_kernel(const int8_t* __restrict__ x,
   }
   for (int di = 0; di < win.qh; ++di) {
     for (int dj = 0; dj < win.qw; ++dj) {
-      int acc[4][4] = {};
-      const ConvA<FACTOR> load_a(x, c, PassRows{win, g0, di, dj}, tid);
-      fq::mainloop<FACTOR>(s, load_a, w, load_a.K, load_a.K / FACTOR, c.Cout,
-                           n0, tid, acc);
+      // mainloop ends with wgmma.wait_group 0 of this warpgroup only: the
+      // next pass's prologue cp.asyncs into ring slots that the other
+      // warpgroup's last MMAs may still read
+      if (di + dj > 0) __syncthreads();
+      const PassRows rows{win, g0, di, dj};
+      int acc[16];
+      conv_tile<FACTOR, AVEC>(smem, x, w, c, rows, n0, bvec, tid, acc);
       if constexpr (NOISE) {
+        float v[16];
+        fq::noisy_tile(v, acc, nz, c.B * c.Ho * c.Wo, c.Cout, 0, n0,
+                       FieldMap(rows, c, tid));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          int row;
-          if (!field_row(win, c, g0 + ty + 16 * i, di, dj, row)) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = n0 + tx + 16 * j;
-            if (n < c.Cout)
-              mx[4 * i + j] = fmaxf(mx[4 * i + j],
-                                    nz.add(acc[i][j], row, c.Cout, n));
-          }
-        }
+        for (int e = 0; e < 16; ++e) mx[e] = fmaxf(mx[e], v[e]);
       } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mx[4 * i + j] = max(mx[4 * i + j], acc[i][j]);
+        for (int e = 0; e < 16; ++e) mx[e] = max(mx[e], acc[e]);
       }
     }
   }
   fq::store<DEQUANT>(out, mx, *scale, lo, n_out, win.Mp, c.Cout, g0, n0,
-                     fq::TileMap(tid));
+                     fq::tc::FragMap(tid));
 }
 
-template <bool DEQUANT, int FACTOR, bool NOISE>
-void launch_pool(const int8_t* x, const int8_t* w, const float* scale,
-                 void* out, const ConvShape& c, const Windows& win, int lo,
-                 int n_out, const fq::NoiseArgs& na, cudaStream_t st) {
-  const unsigned gy = (c.Cout + fq::BN - 1) / fq::BN;
-  if (win.qh == 2 && win.qw == 2) {
-    dim3 grid((win.Mp + POOL2_WINDOWS - 1) / POOL2_WINDOWS, gy);
-    fq_conv_pool2_kernel<DEQUANT, FACTOR, NOISE>
-        <<<grid, fq::THREADS, 0, st>>>(x, w, scale, out, c, win, lo, n_out,
-                                       na);
-  } else {
-    dim3 grid((win.Mp + fq::BM - 1) / fq::BM, gy);
-    fq_conv_pool_kernel<DEQUANT, FACTOR, NOISE>
-        <<<grid, fq::THREADS, 0, st>>>(x, w, scale, out, c, win, lo, n_out,
-                                       na);
-  }
+template <bool DEQUANT, int FACTOR, bool NOISE, bool AVEC>
+cudaError_t launch_pool(const int8_t* x, const int8_t* w, const float* scale,
+                        void* out, const ConvShape& c, const Windows& win,
+                        int lo, int n_out, bool bvec, const fq::NoiseArgs& na,
+                        cudaStream_t st) {
+  const unsigned gy = (c.Cout + fq::tc::BN - 1) / fq::tc::BN;
+  if (win.qh == 2 && win.qw == 2)
+    return fq::tc::launch(
+        fq_conv_pool2_kernel<DEQUANT, FACTOR, NOISE, AVEC>,
+        dim3((win.Mp + POOL2_WINDOWS - 1) / POOL2_WINDOWS, gy), st, x, w,
+        scale, out, c, win, lo, n_out, bvec, na);
+  return fq::tc::launch(fq_conv_pool_kernel<DEQUANT, FACTOR, NOISE, AVEC>,
+                        dim3((win.Mp + fq::tc::BM - 1) / fq::tc::BM, gy), st,
+                        x, w, scale, out, c, win, lo, n_out, bvec, na);
 }
 
 }  // namespace
@@ -440,7 +469,8 @@ extern "C" int fq_conv2d_s8(const void* x, const void* w, const void* scale,
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// K3b: (Ho, Wo) is the conv output; the output is (B, Ho / qh, Wo / qw, Cout).
+// K3b: (Ho, Wo) is the conv output; the output is (B, Ho / qh, Wo / qw,
+// Cout). avec and bvec as fq_conv2d_s8's.
 extern "C" int fq_conv2d_pool_s8(const void* x, const void* w,
                                  const void* scale, void* out,
                                  const void* sigma, const void* seed, int B,
@@ -448,24 +478,33 @@ extern "C" int fq_conv2d_pool_s8(const void* x, const void* w,
                                  int kw, int sh, int sw, int ph, int pw,
                                  int dh, int dw, int Ho, int Wo, int qh,
                                  int qw, int factor, int dequant, int lo,
-                                 int n_out, int chunks, void* stream) {
+                                 int n_out, int chunks, int avec, int bvec,
+                                 void* stream) {
   const ConvShape c{B, H, W, Cin, Cout, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo};
   const int Hp = Ho / qh, Wp = Wo / qw;
   const Windows win{B * Hp * Wp, Hp * Wp, Wp, qh, qw};
   cudaError_t err = cudaSuccess;
   if (sigma && chunks < 1) return (int)cudaErrorInvalidValue;
+  if ((avec && ((uintptr_t)x % 16 || Cin % 16)) ||
+      (bvec && ((uintptr_t)w % 16 || Cout % 16)))
+    return (int)cudaErrorInvalidValue;
   if (win.Mp > 0 && Cout > 0) {
     const int8_t *xs = (const int8_t*)x, *ws = (const int8_t*)w;
     const float* sc = (const float*)scale;
     cudaStream_t st = (cudaStream_t)stream;
     const fq::NoiseArgs na{(const float*)sigma, (const uint32_t*)seed, chunks};
-    err = fq::with_factor(factor, [&](auto f) {
+    const cudaError_t bad = fq::with_factor(factor, [&](auto f) {
       constexpr int F = decltype(f)::value;
       fq::with_flags(dequant, sigma != nullptr, [&](auto dq, auto nz) {
-        launch_pool<decltype(dq)::value, F, decltype(nz)::value>(
-            xs, ws, sc, out, c, win, lo, n_out, na, st);
+        constexpr bool DQ = decltype(dq)::value, NZ = decltype(nz)::value;
+        err = avec ? launch_pool<DQ, F, NZ, true>(xs, ws, sc, out, c, win, lo,
+                                                 n_out, bvec != 0, na, st)
+                   : launch_pool<DQ, F, NZ, false>(xs, ws, sc, out, c, win,
+                                                  lo, n_out, bvec != 0, na,
+                                                  st);
       });
     });
+    if (bad != cudaSuccess) err = bad;
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -47,10 +47,10 @@ struct MatA {
   struct Col { int k; bool ok; };
   __device__ __forceinline__ MatA(const int8_t* a_, int M_, int K_, int m0,
                                   int tid)
-      : a(a_), M(M_), K(K_), r0(m0 + tid / fq::BK) {}
+      : a(a_), M(M_), K(K_), r0(m0 + tid / fq::tc::BK) {}
   __device__ __forceinline__ Col col(int k) const { return {k, k < K}; }
   __device__ __forceinline__ int8_t at(int q, const Col& c) const {
-    const int m = r0 + q * fq::ROW_STEP;
+    const int m = r0 + q * fq::tc::ROW_STEP;
     return (c.ok && m < M) ? a[(long long)m * K + c.k] : (int8_t)0;
   }
 };

@@ -1,5 +1,6 @@
-// The int8 tensor-core tile loop of K2 (fq_matmul.cu) and K3 (fq_conv.cu):
-// Hopper's warpgroup MMA (wgmma) on int8 codes, int32 accumulators.
+// The int8 tensor-core tile loop of K2 (fq_matmul.cu), K3 and K3b
+// (fq_conv.cu): Hopper's warpgroup MMA (wgmma) on int8 codes, int32
+// accumulators. It is the port's one GEMM loop.
 //
 // One block computes a BM x BN = 64 x 64 output tile with 256 threads, two
 // warpgroups; warpgroup g runs wgmma.m64n32k32.s32.s8.s8 on the 64 rows x
@@ -9,23 +10,26 @@
 // the MMAs (schedule at mainloop):
 //   * A, vector loader: 16-byte cp.async per thread per stage, the
 //     zero-fill form (src-size 0) for rows past M, k past K and the conv
-//     halo. K2 takes it when K % 16 == 0 and A is 16-byte aligned, K3 when
-//     Cin % 16 == 0 (a 16-byte chunk of a reduction row is then one tap's
-//     channels of one pixel). The wrapper picks it per launch, by shape.
-//   * A, byte loader: the dp4a loop's gathers (MatA::at, ConvA::at, 16 bytes
-//     a thread) stored straight into the ring. Any K and Cin (the KWS
-//     path's 300, 135, cin 100 and 45).
+//     halo. K2 takes it when K % 16 == 0 and A is 16-byte aligned, K3 and
+//     K3b when Cin % 16 == 0 (a 16-byte chunk of a reduction row is then
+//     one tap's channels of one pixel). The wrapper picks it per launch,
+//     by shape.
+//   * A, byte loader: per-thread gathers (MatA::at, ConvA::at, ROWS = 16
+//     bytes a thread, one reduction column) stored straight into the
+//     ring. Any K and Cin (the KWS path's 300, 135, cin 100 and 45).
 //   * B keeps the JAX layout, (rows, N) row-major bytes, packed along K
-//     (K5, core/quant.py::pack_codes), and lands in the ring as it is:
-//     16-byte cp.async chunks (zero-filled past the rows) when N % 16 == 0
-//     and B is 16-byte aligned, else masked byte loads. 8-bit wgmma takes
-//     B K-major only, so the step of a stage's MMAs first transposes its B
-//     tile in shared memory: each thread reads 4 / FACTOR byte rows x 4
-//     columns, unpacks K5's fields (__vsub4 sign extension of every field
-//     of a word at once) and writes 4 K-major words (4 consecutive k codes
-//     of one n, __byte_perm transposes) into a second, 3-stage ring.
-//     Staging B through registers across stages instead left its loads'
-//     latency exposed on every stage.
+//     (K5, the packed-weight prologue, replacing the unpack of
+//     repro/kernels/fq_matmul.py:86-90 and fq_conv.py:330-333; FACTOR
+//     codes per byte: 1 int8, 2 int4, 4 ternary, core/quant.py::pack_codes),
+//     and lands in the ring as it is: 16-byte cp.async chunks (zero-filled
+//     past the rows) when N % 16 == 0 and B is 16-byte aligned, else
+//     masked byte loads. 8-bit wgmma takes B K-major only, so the step of
+//     a stage's MMAs first transposes its B tile in shared memory: each
+//     thread reads 4 / FACTOR byte rows x 4 columns, unpacks K5's fields
+//     (__vsub4 sign extension of every field of a word at once) and writes
+//     4 K-major words (4 consecutive k codes of one n, __byte_perm
+//     transposes) into a second, 3-stage ring. Staging B through registers
+//     across stages instead left its loads' latency exposed on every stage.
 // Operand tiles are 64 rows x 64 bytes of 8 x 16-byte core matrices, no
 // swizzle: core matrix (row / 8, k / 16) at ((k / 16) * 8 + row / 8) * 128
 // bytes. The transposed B stores of a warp cover one core matrix's 32
@@ -34,19 +38,22 @@
 // matrix). Raw B rows keep their 16-byte chunks XOR-swizzled by row, so the
 // transpose's reads conflict at most 2-way.
 //
-// s8 x s8 -> s32 in the tensor cores is exact, so every accumulator equals
-// the dp4a loop's bit for bit (the largest, 4608 x 128 x 128 ~ 7.5e7, is
-// far below 2^31), and the epilogue (epilogue.cuh, noise.cuh) runs at each
-// accumulator's global (row, col) through FragMap.
+// s8 x s8 -> s32 in the tensor cores is exact, so every accumulator is the
+// exact int32 sum (the largest, 4608 x 128 x 128 ~ 7.5e7, is far below
+// 2^31), and the epilogue (igemm.cuh, epilogue.cuh, noise.cuh) runs at
+// each accumulator's global (row, col) through FragMap. Which output pixel
+// a tile row is belongs to the A loader's row map (fq_conv.cu: one conv
+// output pixel, or one position of a pool window), so K3b's pool runs on
+// the same accumulators.
 //
 // Bound: on DarkNet at B = 8 the 17 GEMMs are 43.2 G int8 ops, 22 us at the
-// tensor cores' 1,979 T op/s; one 64 x 64 tile per block keeps today's
-// grid. What this design leaves: no TMA, no warp specialisation (every
-// thread loads, transposes and waits at two barriers per stage), the B
-// transpose in shared memory, a 64-wide tile (m64n32 per warpgroup reads A
-// twice from shared memory), and a serial K loop per tile (the deep layers
-// at B = 1 and 8 run one block on most SMs, so each stage's latency is the
-// kernel's time).
+// tensor cores' 1,979 T op/s; one 64 x 64 tile per block keeps the grid of
+// 64-row tiles. What this design leaves: no TMA, no warp specialisation
+// (every thread loads, transposes and waits at two barriers per stage),
+// the B transpose in shared memory, a 64-wide tile (m64n32 per warpgroup
+// reads A twice from shared memory), and a serial K loop per tile (the
+// deep layers at B = 1 and 8 run one block on most SMs, so each stage's
+// latency is the kernel's time).
 #pragma once
 
 #include <cstdint>
@@ -59,9 +66,11 @@ namespace tc {
 constexpr int BM = 64, BN = 64, BK = 64, THREADS = 256;
 constexpr int TILE = BM * BK;  // bytes of one operand's tile in a stage
 constexpr int RING = 6, PREFETCH = RING - 2, BT_RING = 3;
-static_assert(BM == fq::BM && BN == fq::BN && BK == fq::BK &&
-                  THREADS == fq::THREADS,
-              "the byte loaders keep the dp4a loop's thread map");
+// The byte loaders' thread map: thread tid gathers tile rows tid / BK +
+// q * ROW_STEP (q < ROWS) at column tid % BK, so neighbouring threads read
+// neighbouring bytes of a row.
+constexpr int ROWS = BM * BK / THREADS;
+constexpr int ROW_STEP = THREADS / BK;
 
 // Dynamic shared memory: the A ring, the raw B ring, the transposed B ring.
 constexpr int A_OFF = 0, BRAW_OFF = RING * TILE, BT_OFF = 2 * RING * TILE;
@@ -257,20 +266,23 @@ struct LoadB {
   }
 };
 
-// The byte loader around a dp4a-loop A loader (MatA, ConvA): thread tid
-// gathers rows tid / BK + q * ROW_STEP (q < ROWS) at column tid % BK and
-// stores them into the stage's A tile.
+// The byte loader around a gathering A loader (MatA, ConvA), which keeps
+// its ROWS rows' state in registers and provides
+//   Col col(int k) const;                per-stage prep of reduction index k
+//   int8_t at(int q, const Col&) const;  the code at tile row
+//                                        tid / BK + q * ROW_STEP, 0 outside
+// Thread tid stores its ROWS bytes into the stage's A tile.
 template <class Gather>
 __device__ __forceinline__ void gather_a(const Gather& g, int8_t* tile,
                                          int k0, int tid) {
   const int kl = tid % BK;
   const auto col = g.col(k0 + kl);
-  int8_t v[fq::ROWS];
+  int8_t v[ROWS];
 #pragma unroll
-  for (int q = 0; q < fq::ROWS; ++q) v[q] = g.at(q, col);
+  for (int q = 0; q < ROWS; ++q) v[q] = g.at(q, col);
 #pragma unroll
-  for (int q = 0; q < fq::ROWS; ++q)
-    tile[tile_off(tid / BK + q * fq::ROW_STEP, kl)] = v[q];
+  for (int q = 0; q < ROWS; ++q)
+    tile[tile_off(tid / BK + q * ROW_STEP, kl)] = v[q];
 }
 
 // The vector loaders' thread map: thread tid fills the 16 bytes of tile
@@ -284,8 +296,12 @@ __device__ __forceinline__ int vec_chunk(int tid) { return (tid % 32) / 8; }
 // The tile loop: d (FragMap) += A (rows m0 .., K) x B (K, columns n0 ..).
 // A vector loader (AVEC) provides  void issue(int8_t* tile, int k0),  which
 // cp.asyncs the thread's 16 bytes of the stage at code k0 (called once per
-// stage, in order); a byte Gather (!AVEC) goes through gather_a. rows is B's count of byte rows; bvec picks B's cp.async.
-// smem is SMEM_BYTES of dynamic shared memory.
+// stage, in order); a byte Gather (!AVEC) goes through gather_a. K is
+// the reduction length (A's lanes at or past it load 0), rows is B's count
+// of byte rows; bvec picks B's cp.async. smem is SMEM_BYTES of dynamic
+// shared memory. It ends with this warpgroup's MMAs complete, not the
+// other's: a caller that runs it again on the same smem puts a barrier
+// between the calls.
 //
 // Step kt, for stage kt (slot kt % RING of the A and raw B rings, slot
 // kt % BT_RING of the transposed one):

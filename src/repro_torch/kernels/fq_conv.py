@@ -17,11 +17,13 @@ For a CUDA tensor the wrapper launches ``csrc/fq_conv.cu``, which gathers
 each window in place with zero padding by bounds check; for a CPU tensor it
 runs the plain version, :func:`fq_conv2d_plain`. The reference's block
 picker and autotune table have no counterpart yet: the CUDA kernel's tile
-is fixed. K3 runs on the tensor cores; its A operand takes the loader
-:func:`a_loader` picks per launch, and ``fq_conv2d.vector_launches``
-counts the launches that took the vector one. With packed weights the kernel reduces over taps x cin_p and
-decodes the bytes in its tile loop; the activations are not padded.
-``launches`` counts every launch, ``packed_launches[fmt]`` the packed ones.
+is fixed. K3 and K3b run on the tensor cores; their A operand takes the
+loader :func:`a_loader` picks per launch, and ``vector_launches`` (on
+:func:`fq_conv2d` and on :func:`fq_conv2d_pool`) counts the launches that
+took the vector one. With packed weights the kernel reduces over taps x
+cin_p and decodes the bytes in its tile loop; the activations are not
+padded. ``launches`` counts every launch, ``packed_launches[fmt]`` the
+packed ones.
 
 ADC noise (K4), as in K2: the field at the conv output's global index
 ((b * Ho + h) * Wo + w) * Cout + c goes onto f32(acc) before the pool and
@@ -44,7 +46,7 @@ from .ref import ref_fq_conv2d as fq_conv2d_plain
 
 _CONV_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
 _SIG = {"fq_conv2d_s8": _CONV_ARGS + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-        "fq_conv2d_pool_s8": _CONV_ARGS + [ctypes.c_int] * 7
+        "fq_conv2d_pool_s8": _CONV_ARGS + [ctypes.c_int] * 9
         + [ctypes.c_void_p]}
 
 
@@ -54,10 +56,10 @@ def conv_out_size(size: int, k: int, stride: int, padding: int,
 
 
 def a_loader(cin: int, x_ptr: int) -> str:
-    """K3's A loader: ``"vector"`` when a 16-byte chunk of a reduction row
-    is one tap's channels of one pixel, at an aligned address (Cin % 16 ==
-    0 and the activations 16-byte aligned), else ``"byte"``. K3b (``pool=``)
-    gathers bytes whatever the shape."""
+    """The A loader of K3 and K3b (``pool=``): ``"vector"`` when a 16-byte
+    chunk of a reduction row is one tap's channels of one pixel, at an
+    aligned address (Cin % 16 == 0 and the activations 16-byte aligned),
+    else ``"byte"``."""
     ok = cin % VECTOR_BYTES == 0 and x_ptr % VECTOR_BYTES == 0
     return "vector" if ok else "byte"
 
@@ -134,18 +136,18 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
     lib = _build.library("fq_conv", _SIG)
     shape = (b, h, w, cin, cout, kh, kw, *stride, *padding, *dilation, ho, wo)
     tail = (factor, int(dequant), int(lo), int(n_out), mac_chunks)
-    vector = (pool is None
-              and a_loader(cin, a_codes.data_ptr()) == "vector")
+    vector = a_loader(cin, a_codes.data_ptr()) == "vector"
+    bvec = b_vector(cout, w_codes.data_ptr())
     with torch.cuda.device(a_codes.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         ptrs = (_build.ptr(a_codes), _build.ptr(w_codes), _build.ptr(scale),
                 _build.ptr(out), sigma, seed)
         if pool is None:
             err = lib.fq_conv2d_s8(*ptrs, *shape, *tail, int(vector),
-                                   int(b_vector(cout, w_codes.data_ptr())),
-                                   stream)
+                                   int(bvec), stream)
         else:
-            err = lib.fq_conv2d_pool_s8(*ptrs, *shape, *pool, *tail, stream)
+            err = lib.fq_conv2d_pool_s8(*ptrs, *shape, *pool, *tail,
+                                        int(vector), int(bvec), stream)
     _build.check(err, what, lib)
     counted = fq_conv2d if pool is None else fq_conv2d_pool
     counted.launches += 1
@@ -175,6 +177,7 @@ def fq_conv2d_pool(a_codes: torch.Tensor, w_codes: torch.Tensor,
 fq_conv2d_pool.launches = 0
 fq_conv2d_pool.packed_launches = packed_counts()
 fq_conv2d_pool.noisy_launches = 0
+fq_conv2d_pool.vector_launches = 0
 
 
 def fq_conv1d(a_codes: torch.Tensor, w_codes: torch.Tensor,

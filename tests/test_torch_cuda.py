@@ -20,6 +20,7 @@ from repro_torch.core import quant as tq
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.fq_conv import a_loader as conv_a_loader
 from repro_torch.kernels.fq_conv import fq_conv2d, fq_conv2d_pool
 from repro_torch.kernels.fq_matmul import a_loader as matmul_a_loader
 from repro_torch.kernels.fq_matmul import fq_matmul
@@ -199,12 +200,20 @@ DARKNET_POOLED = [(1, 112, 112, 32, 64), (1, 56, 56, 64, 128),
                   (1, 28, 28, 128, 256), (1, 14, 14, 256, 512)]
 
 
-@pytest.mark.parametrize("shape", DARKNET_POOLED + [(2, 13, 15, 40, 70)],
-                         ids=lambda s: "x".join(map(str, s)))
+# Cin 16 and 48 take the vector A loader on windows that end past a 16- and
+# a 64-row tile (Mp 84 and 42 at pool 2) and Cout past a 64-column tile
+POOL_EDGES = [(2, 13, 15, 16, 64), (2, 13, 15, 48, 1000),
+              (1, 13, 15, 48, 48)]
+
+
+@pytest.mark.parametrize("shape", DARKNET_POOLED + [(2, 13, 15, 40, 70)]
+                         + POOL_EDGES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("pool", [2, 3])
 @pytest.mark.parametrize("epilogue,lo", [("requant", 0), ("requant", -7),
                                          ("dequant", 0)])
 def test_fq_conv2d_pool_matches_plain(cuda, shape, pool, epilogue, lo):
+    """K3b on the tensor-core loop: DarkNet's pooled convs and Cin 16 / 48
+    take the vector A loader, Cin 40 the byte one."""
     b, h, w, cin, cout = shape
     rng = np.random.default_rng(h + cin + pool)
     a = _codes(rng, (b, h, w, cin), 0, 7, cuda)
@@ -213,16 +222,39 @@ def test_fq_conv2d_pool_matches_plain(cuda, shape, pool, epilogue, lo):
     kw = dict(kh=3, kw=3, padding=(1, 1), pool=(pool, pool),
               epilogue=epilogue, n_out=7, lo=lo)
     before = fq_conv2d.launches, fq_conv2d_pool.launches
+    vec = fq_conv2d_pool.vector_launches
     got = fq_conv2d(a, wc, s, **kw)
     torch.cuda.synchronize()
     assert (fq_conv2d.launches, fq_conv2d_pool.launches) == \
         (before[0], before[1] + 1)
+    assert fq_conv2d_pool.vector_launches - vec == (cin % 16 == 0)
     assert got.shape == (b, h // pool, w // pool, cout)
     assert torch.equal(got, tref.ref_fq_conv2d(a, wc, s, **kw))
     im2col = tops.fq_conv2d_pool_int(a, wc, s, ksize=3, padding=1, pool=pool,
                                      epilogue=epilogue, n_out=7, lo=lo,
                                      impl="im2col")
     assert torch.equal(got, im2col)
+
+
+@pytest.mark.parametrize("pool", [2, 3])
+def test_fq_conv2d_pool_misaligned_a_takes_byte_loader(cuda, pool):
+    """An activation view at a 1-byte offset: K3b's byte loader, the same
+    codes as the aligned copy on the vector loader."""
+    rng = np.random.default_rng(40 + pool)
+    shape = (2, 13, 15, 32)
+    flat = _codes(rng, (int(np.prod(shape)) + 1,), 0, 7, cuda)
+    a = flat[1:].view(shape)
+    assert conv_a_loader(32, a.data_ptr()) == "byte"
+    wc = _codes(rng, (9 * 32, 64), -1, 1, cuda)
+    s = torch.tensor(np.float32(0.0131), device=cuda)
+    kw = dict(kh=3, kw=3, padding=(1, 1), pool=(pool, pool), n_out=7, lo=-7)
+    before = fq_conv2d_pool.vector_launches
+    got = fq_conv2d(a, wc, s, **kw)
+    torch.cuda.synchronize()
+    assert fq_conv2d_pool.vector_launches == before
+    assert torch.equal(got, tref.ref_fq_conv2d(a, wc, s, **kw))
+    assert torch.equal(got, fq_conv2d(a.contiguous().clone(), wc, s, **kw))
+    assert fq_conv2d_pool.vector_launches == before + 1
 
 
 def _darknet_reduced_stack(dev, weight_format=None):
@@ -316,9 +348,11 @@ def test_fq_conv2d_packed_matches_plain(cuda, fmt, cin, pool, epilogue, lo):
               epilogue=epilogue, n_out=15, lo=lo)
     counted = fq_conv2d if pool is None else fq_conv2d_pool
     before = counted.packed_launches[fmt]
+    vec = counted.vector_launches
     got = fq_conv2d(a, wp, s, weight_format=fmt, **kw)
     torch.cuda.synchronize()
     assert counted.packed_launches[fmt] == before + 1
+    assert counted.vector_launches - vec == (cin % 16 == 0)
     assert torch.equal(got, tref.ref_fq_conv2d(a, wp, s, weight_format=fmt,
                                                **kw))
     assert torch.equal(got, fq_conv2d(a, w, s, **kw))
@@ -445,9 +479,11 @@ def test_fq_conv2d_noisy_matches_plain(cuda, fmt, chunks, cin, pool):
               weight_format=fmt, **_noise(cuda, 0.011, chunks))
     counted = fq_conv2d if pool is None else fq_conv2d_pool
     before = counted.noisy_launches
+    vec = counted.vector_launches
     got = fq_conv2d(a, wp, s, **kw)
     torch.cuda.synchronize()
     assert counted.noisy_launches == before + 1
+    assert counted.vector_launches - vec == (cin % 16 == 0)
     assert torch.equal(got, tref.ref_fq_conv2d(a, wp, s, **kw))
 
 

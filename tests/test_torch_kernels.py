@@ -456,5 +456,54 @@ def test_cpu_path_uses_plain_versions_and_counts_no_vector_launch():
     assert torch.equal(fq_conv2d(x, w, s, **kw),
                        tref.ref_fq_conv2d(x, w, s, **kw))
     assert tkernels.vector_launch_counts() == {"fq_matmul_vector": 0,
-                                               "fq_conv2d_vector": 0}
+                                               "fq_conv2d_vector": 0,
+                                               "fq_conv2d_pool_vector": 0}
     assert sum(tkernels.launch_counts().values()) == 0
+
+
+def test_vector_kernels_include_k3b():
+    """K3b runs on the tensor-core loop beside K2 and K3."""
+    assert tkernels.VECTOR == ("fq_matmul", "fq_conv2d", "fq_conv2d_pool")
+
+
+def test_reset_zeroes_k3b_vector_launches():
+    from repro_torch.kernels.fq_conv import fq_conv2d_pool
+    fq_conv2d_pool.vector_launches = 3
+    tkernels.reset_launch_counts()
+    assert fq_conv2d_pool.vector_launches == 0
+
+
+def test_vector_launch_counts_read_k3b():
+    from repro_torch.kernels.fq_conv import fq_conv2d_pool
+    tkernels.reset_launch_counts()
+    fq_conv2d_pool.vector_launches = 2
+    try:
+        assert tkernels.vector_launch_counts() == {
+            "fq_matmul_vector": 0, "fq_conv2d_vector": 0,
+            "fq_conv2d_pool_vector": 2}
+    finally:
+        tkernels.reset_launch_counts()
+
+
+@pytest.mark.parametrize("pool", [(2, 2), (3, 3), (2, 3)])
+@pytest.mark.parametrize("fmt", ["int8", "ternary"])
+def test_cpu_pool_call_counts_no_launch(pool, fmt):
+    """On the CPU, K3b at a vector-loader shape (Cin 32) runs the plain
+    version and counts no launch of any kind: all, packed, noisy or
+    vector."""
+    from repro_torch.core.quant import format_range, pack_im2col_codes
+    tkernels.reset_launch_counts()
+    rng = np.random.default_rng(32 + pool[1])
+    x = _t(_codes(rng, (2, 13, 15, 32), 0, 7))
+    r = format_range(fmt)
+    w = _t(_codes(rng, (9 * 32, 64), -r, r))
+    wp = w if fmt == "int8" else pack_im2col_codes(w, 9, fmt)
+    s = torch.tensor(np.float32(0.0131))
+    kw = dict(kh=3, kw=3, padding=(1, 1), pool=pool, n_out=7, lo=-7,
+              weight_format=fmt)
+    assert torch.equal(fq_conv2d(x, wp, s, **kw),
+                       tref.ref_fq_conv2d(x, wp, s, **kw))
+    counts = (tkernels.launch_counts(), tkernels.packed_launch_counts(),
+              tkernels.noisy_launch_counts(), tkernels.vector_launch_counts())
+    assert all(v == 0 for c in counts for v in c.values()), counts
+    assert "fq_conv2d_pool_vector" in counts[3]
