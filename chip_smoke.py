@@ -71,7 +71,25 @@ Phases, each of which must pass:
    CPU run given the same entry codes and key (codes that differ are
    counted: the normal draws are not bit-exact across devices), that every
    conv launch was noisy and the fused path launched only K3 / K3b, and
-   that the noise moved the logits; they time noisy serving.
+   that the noise moved the logits; they time noisy serving;
+11. serve_batcher: CNN serving through
+   ``repro_torch.serve.cnn_batching.CNNBatcher`` (``max_batch=8``,
+   ``max_wait_ticks=2``, ``max_inflight=4``): a seeded Poisson trace with
+   bursts (the reference benchmark's mixed arrivals, rate 6 a tick) of
+   full-width KWS clips of 100-220 frames on the ladder (140, 180) and of
+   DarkNet-19 images 128-288 a side on the ladder (160, 224), served four
+   ways (sync, dispatch-ahead, dispatch-ahead on 2 lanes, all int8; and
+   dispatch-ahead ternary), each counted in a run of its own (graph
+   kernels count at capture). It fails unless every request is served
+   once, every clean flush replayed a CUDA graph and equals the eager
+   ``int_serve_fn`` on its padded batch bit for bit, the four ways agree
+   request for request, at most ``n_signatures`` graphs a lane were
+   captured, every DarkNet launch took the vector loader, and a profiled
+   replay shows K1, K3 and (DarkNet) K3b. It times the warm trace (requests
+   per second, latency and wait-tick percentiles), one flush against the
+   eager call on the same batch, the pinned copies, and runs a KWS noise
+   canary (eager noisy flushes, one ``fold_in`` key each) against the eager
+   noisy ``int_serve_fn``.
 
 It imports nothing of JAX or of the JAX package ``repro``. The second-to-
 last lines are the ``{"kernels": [...]}`` record (one entry per kernel and
@@ -1784,6 +1802,381 @@ def phase_serve_darknet(torch, dev):
     return {"int8": counts, **result, "noisy": noisy}
 
 
+# ---------------------------------------------------------------------------
+# The batcher: CNN serving with each clean flush replayed as a CUDA graph
+# ---------------------------------------------------------------------------
+
+BATCHER = dict(max_batch=8, max_wait_ticks=2, max_inflight=4)
+KWS_RUNGS = (140, 180)     # frames; clips of 100-220 frames crop or pad
+DN_RUNGS = (160, 224)      # image sides; images of 128-288 a side
+TRACE_TICKS = 10           # at 6 requests per tick and bursts of 3: ~84
+MIN_TRACE_REQUESTS = 64
+CANARY_REQUESTS = 12       # of the KWS trace, served noisy
+# (label, stack format, batcher options): the four ways the trace is served
+BATCHER_WAYS = (("sync", "int8", dict(dispatch_ahead=False)),
+                ("ahead", "int8", dict(dispatch_ahead=True)),
+                ("ahead 2 lanes", "int8", dict(dispatch_ahead=True,
+                                               n_replicas=2)),
+                ("ahead ternary", "ternary", dict(dispatch_ahead=True)))
+# K1, K3 and K3b as the profiler names them on the card
+GRAPH_KERNELS = {"kws": ("quantize_codes_kernel", "fq_conv_kernel"),
+                 "darknet": ("quantize_codes_kernel", "fq_conv_kernel",
+                             "fq_conv_pool2_kernel")}
+
+
+def mixed_arrivals(rng, sample_fn, *, n_ticks, rate, burst_p=0.2, burst=3):
+    """Seeded arrival trace: per tick, Poisson(rate) requests; some
+    arrivals burst into ``burst`` same-shape copies (hot-bucket pressure).
+    The reference benchmark's trace (``benchmarks/run.py``,
+    ``_mixed_arrivals``), copied."""
+    import numpy as np
+    arrivals = []
+    for _ in range(n_ticks):
+        batch = []
+        for _ in range(int(rng.poisson(rate))):
+            x = sample_fn(rng)
+            batch.append(x)
+            if rng.random() < burst_p:
+                batch.extend(np.array(x) for _ in range(burst - 1))
+        arrivals.append(batch)
+    return arrivals
+
+
+class Resolved:
+    """The batcher's ``on_event`` sink: each resolved flush's requests and
+    the host-clock time each request resolved at."""
+
+    def __init__(self):
+        self.flushes, self.at = [], {}
+
+    def __call__(self, etype, fields):
+        if etype == "resolve":
+            now = time.perf_counter()
+            self.flushes.append(fields["reqs"])
+            for r in fields["reqs"]:
+                self.at[r.rid] = now
+
+
+def replay(cb, b, sink, arrivals):
+    """Drive ``arrivals`` through batcher ``b`` tick by tick with no drain
+    (completion through ticks alone, as the reference benchmark replays
+    it). Returns (requests, ticks, wall s, per-request wall latency ms:
+    submit to resolve, s of the wall spent in ``submit``: the ladder)."""
+    import numpy as np
+    sink.flushes.clear()
+    sink.at.clear()
+    reqs, submitted, ticks, in_submit = [], {}, 0, 0.0
+    t0 = time.perf_counter()
+    for batch in arrivals:
+        new = [cb.CNNRequest(rid=len(reqs) + i, x=x)
+               for i, x in enumerate(batch)]
+        now = time.perf_counter()
+        b.submit(new)
+        in_submit += time.perf_counter() - now
+        reqs.extend(new)
+        submitted.update((r.rid, now) for r in new)
+        b.tick()
+        ticks += 1
+    while b.outstanding() and ticks < 10_000:
+        b.tick()
+        ticks += 1
+    wall = time.perf_counter() - t0
+    if b.outstanding():
+        raise AssertionError("the trace did not complete through ticks")
+    lat = np.asarray([(sink.at[r.rid] - submitted[r.rid]) * 1e3
+                      for r in reqs])
+    return reqs, ticks, wall, lat, in_submit
+
+
+def padded_batch(cb, reqs, max_batch):
+    """A flush's batch as the batcher packs it: the normalized payloads in
+    order, zero rows up to its slot count."""
+    import numpy as np
+    x = np.zeros((cb.batch_bucket(len(reqs), max_batch),)
+                 + reqs[0].x_served.shape, reqs[0].x_served.dtype)
+    for i, r in enumerate(reqs):
+        x[i] = r.x_served
+    return x
+
+
+def check_served(cb, label, b, reqs, flushes, fn):
+    """Every request served once; every flush replayed a graph, at most
+    n_signatures graphs a lane; each flush's rows bit-identical to the
+    eager ``fn`` on the same padded batch. Returns {rid: slots}."""
+    import numpy as np
+    st, steps = b.stats, b.step_stats
+    rids = sorted(r.rid for batch in flushes for r in batch)
+    if (rids != list(range(len(reqs))) or st["served"] != len(reqs)
+            or not all(r.done and r.error is None for r in reqs)):
+        raise AssertionError(f"{label}: not every request served once")
+    if steps["graph_flushes"] != st["flushes"] or steps["eager_flushes"]:
+        raise AssertionError(f"{label}: a clean flush ran eagerly: {steps}")
+    if max(steps["graphs"]) > b.n_signatures:
+        raise AssertionError(f"{label}: graphs per lane {steps['graphs']} "
+                             f"> n_signatures {b.n_signatures}")
+    slots = {}
+    for batch in flushes:
+        x = padded_batch(cb, batch, b.max_batch)
+        want = fn(x).cpu().numpy()
+        for i, r in enumerate(batch):
+            slots[r.rid] = x.shape[0]
+            if r.out.dtype != want.dtype or not np.array_equal(r.out,
+                                                               want[i]):
+                raise AssertionError(f"{label}: request {r.rid} != the "
+                                     "eager int_serve_fn on its flush's "
+                                     "batch")
+    return slots
+
+
+def serve_batcher_model(torch, dev, path, fns, ladder, sample, smi):
+    """One model's trace through the batcher the four ways of
+    BATCHER_WAYS, each counted in a run of its own and checked; then the
+    sync and dispatch-ahead int8 batchers serve it again, warm and timed,
+    and the dispatch-ahead one once more, profiled."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.serve import cnn_batching as cb
+    arrivals = mixed_arrivals(np.random.default_rng(SEED + 5), sample,
+                              n_ticks=TRACE_TICKS, rate=6.0, burst_p=0.2,
+                              burst=3)
+    n = sum(len(a) for a in arrivals)
+    if n < MIN_TRACE_REQUESTS:
+        raise AssertionError(f"{path}: the trace has {n} requests < "
+                             f"{MIN_TRACE_REQUESTS}")
+    outs, slots, kept = {}, {}, {}
+    for label, fmt, kw in BATCHER_WAYS:
+        sink = Resolved()
+        b = cb.CNNBatcher(fns[fmt], ladder=ladder, on_event=sink,
+                          **BATCHER, **kw)
+        (reqs, ticks, wall, _, _), counts, packed = counted(
+            torch, kernels, lambda: replay(cb, b, sink, arrivals))
+        loader_note = loaders(kernels, path, counts)
+        slots[label] = check_served(cb, f"{path} {label}", b, reqs,
+                                    sink.flushes, fns[fmt])
+        outs[label] = [r.out for r in reqs]
+        missing = [k for k in PATH_KERNELS[path] if k != "fq_matmul"
+                   and counts[k] == 0]
+        if missing or counts["fq_matmul"]:
+            raise AssertionError(f"{path} {label}: launches {counts}: "
+                                 f"{missing} never captured, or K2 on the "
+                                 "fused path")
+        if fmt != "int8" and any(
+                packed[f"{k}_{fmt}"] != counts[k]
+                for k in ("fq_conv2d", "fq_conv2d_pool")):
+            raise AssertionError(f"{path} {label}: {packed} not all {fmt}")
+        st, steps = b.stats, b.step_stats
+        print(launch_line(f"batcher, {path}, {label}, at capture and "
+                          "warm-up", counts, packed) + loader_note,
+              flush=True)
+        print(f"serve_batcher {path} {label}: {n} requests served once in "
+              f"{ticks} ticks, {st['flushes']} flushes all replayed from "
+              f"graphs ({steps['graph_flushes']}), {st['padded_rows']} "
+              f"padded rows, n_signatures {b.n_signatures}, graphs per lane "
+              f"{steps['graphs']}, {steps['captures']} captures in "
+              f"{steps['capture_s']:.4f} s; wall {wall:.4f} s with the "
+              "captures; every flush == eager int_serve_fn on its padded "
+              "batch, bit for bit", flush=True)
+        kept[label] = (b, sink)
+    for label in ("ahead", "ahead 2 lanes", "ahead ternary"):
+        other = "ahead" if label == "ahead ternary" else "sync"
+        diff = [i for i, (a, c) in enumerate(zip(outs[label], outs[other]))
+                if not np.array_equal(a, c)]
+        if diff:
+            moved = sum(slots[label][i] != slots[other][i] for i in diff)
+            raise AssertionError(
+                f"{path}: {label} != {other} on {len(diff)} of {n} requests "
+                f"({moved} of them served at another slot count)")
+    same_slots = sum(slots["sync"][i] == slots["ahead"][i] for i in range(n))
+    print(f"serve_batcher {path}: sync == ahead == ahead 2 lanes and ahead "
+          f"ternary == ahead int8, bit for bit, on all {n} requests "
+          f"({same_slots} served at the same slot count in sync and ahead)",
+          flush=True)
+
+    # graph-served sync and dispatch-ahead, warm: timed; then profiled
+    for label in ("sync", "ahead"):
+        b, sink = kept[label]
+        reqs, ticks, wall, lat, in_submit = replay(cb, b, sink, arrivals)
+        waits = np.asarray([r.wait_ticks for r in reqs])
+        padded = sum(padded_batch(cb, f, b.max_batch).shape[0] - len(f)
+                     for f in sink.flushes)
+        print(f"serve_batcher {path} {label} int8 graphs (warm): {n} "
+              f"requests in {wall:.4f} s = {n / wall:.1f} requests/s, "
+              f"{ticks} ticks, {in_submit:.4f} s of it in submit (the "
+              f"ladder); wall latency per request p50 "
+              f"{np.percentile(lat, 50):.4f} ms p99 "
+              f"{np.percentile(lat, 99):.4f} ms (host clock, submit to "
+              f"resolve); wait ticks p50 {np.percentile(waits, 50):g} p99 "
+              f"{np.percentile(waits, 99):g}; {len(sink.flushes)} flushes, "
+              f"{padded} padded rows; graphs {b.n_graphs} (n_signatures "
+              f"{b.n_signatures}); {smi}", flush=True)
+    b, sink = kept["ahead"]
+    captures = b.step_stats["captures"]
+    wall_ms, busy, n_ops, names = device_profile(
+        torch, lambda: replay(cb, b, sink, arrivals), reps=1, top=1000)
+    if b.step_stats["captures"] != captures:
+        raise AssertionError(f"{path}: warm replays captured again")
+    seen = [k for k in GRAPH_KERNELS[path] if any(k in name
+                                                  for name, _ in names)]
+    print(f"serve_batcher {path} ahead int8 graphs profile: wall "
+          f"{wall_ms:.4f} ms for {n} requests, device busy {busy:.4f} ms, "
+          f"busy share {busy / wall_ms:.4f}, {n_ops:g} device ops "
+          f"({n_ops / len(sink.flushes):.1f} per flush); kernels seen in "
+          f"the replayed graphs: {seen}; most device time: " + "; ".join(
+              re.sub(r"^void |\(anonymous namespace\)::", "", name)[:56]
+              + f" {ms:.4f} ms" for name, ms in names[:8]), flush=True)
+    if seen != list(GRAPH_KERNELS[path]):
+        raise AssertionError(f"{path}: the profiled replay shows "
+                             f"{[name for name, _ in names]}, not all of "
+                             f"{GRAPH_KERNELS[path]}")
+    staged = sum(padded_batch(cb, f, b.max_batch).nbytes
+                 for f in sink.flushes)
+    h2d = sum(ms for name, ms in names if "Pinned -> Device" in name)
+    rate = f"{staged / h2d / 1e6:.1f} GB/s" if h2d else "not measured"
+    print(f"serve_batcher {path} ahead int8 graphs profile: pinned "
+          f"host-to-device copies {h2d:.4f} ms for {staged / 1e6:.3f} MB of "
+          f"padded batches ({rate})", flush=True)
+
+
+def flush_vs_eager(torch, cb, path, fn, ladder, xs, smi, reps=50):
+    """One flush of the requests ``xs`` (all on one rung) through a sync
+    batcher with max_batch len(xs), against the eager ``fn`` on the same
+    normalized batch, result fetched to the host either way: host-clock
+    ms per request batch (mean of ``reps``, graph first), then the
+    profiled device busy time, ops and host-to-device copy of each."""
+    import numpy as np
+    b = cb.CNNBatcher(fn, ladder=ladder, max_batch=len(xs),
+                      max_wait_ticks=0)
+    b.run([cb.CNNRequest(rid=i, x=x) for i, x in enumerate(xs)])  # capture
+
+    def graph():
+        rs = [cb.CNNRequest(rid=i, x=x) for i, x in enumerate(xs)]
+        b.submit(rs)
+        b.tick()
+        assert all(r.done for r in rs)
+    x = np.stack([ladder.normalize(x) for x in xs])
+
+    def eager():
+        fn(x).cpu()
+    ms, prof = {}, {}
+    for name, call in (("graph", graph), ("eager", eager)):
+        call()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / reps
+        prof[name] = device_profile(torch, call, reps=10, top=1000)
+    if b.step_stats["eager_flushes"] or b.step_stats["captures"] != 1:
+        raise AssertionError(f"{path}: {b.step_stats}")
+
+    def h2d(names):
+        return sum(v for k, v in names if k.startswith("Memcpy HtoD"))
+    print(f"serve_batcher {path} one flush of {len(xs)} on the "
+          f"{x.shape[1:]} rung, to the host: graph {ms['graph']:.4f} ms vs "
+          f"eager {ms['eager']:.4f} ms per request batch (host clock, mean of "
+          f"{reps}); device busy graph {prof['graph'][1]:.4f} ms "
+          f"({prof['graph'][2]:g} ops, host-to-device copy "
+          f"{h2d(prof['graph'][3]):.4f} ms pinned) vs eager "
+          f"{prof['eager'][1]:.4f} ms ({prof['eager'][2]:g} ops, "
+          f"{h2d(prof['eager'][3]):.4f} ms pageable) (profiled); {smi}",
+          flush=True)
+
+
+def phase_serve_batcher(torch, dev):
+    """CNN serving through ``repro_torch.serve.cnn_batching.CNNBatcher``:
+    full-width KWS and DarkNet-19 mixed traces with every clean flush
+    replayed from a CUDA graph, and a KWS noise canary run eagerly."""
+    import numpy as np
+    from repro_torch.core import integer_inference as ii
+    from repro_torch.core import prng
+    from repro_torch.core.noise import TABLE7_CONDITIONS
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models import darknet, frontends, kws
+    from repro_torch.serve import cnn_batching as cb
+
+    smi = nvidia_smi()
+    qcfg = QuantConfig(2, 4, 4, fq=True)
+    kcfg = kws.KWSConfig()
+    params, state = kws.init(torch.Generator().manual_seed(SEED), kcfg,
+                             device=dev)
+    params = kws.to_fq(params, state, kcfg)
+    names = kws.conv_names(kcfg)
+    for name in names:
+        params[name] = {**params[name],
+                        "s_out": torch.tensor(S_OUT, device=dev)}
+    params = ii.sync_handoff(params, names)
+    kfns = {fmt: kws.int_serve_fn(kws.convert_int(
+        params, state, qcfg, kcfg, weight_format=wf), qcfg, kcfg)
+        for fmt, wf in (("int8", None), ("ternary", "auto"))}
+
+    dcfg = darknet.DarkNetConfig()
+    calib = torch.from_numpy(np.random.default_rng(SEED + 3).standard_normal(
+        (DN_CALIB, DN_SIZE, DN_SIZE, dcfg.in_channels)).astype(np.float32))
+    dparams, dstate, _ = darknet_live_params(torch, dcfg, qcfg, calib, dev)
+    dfns = {fmt: darknet.int_serve_fn(darknet.convert_int(
+        dparams, dstate, qcfg, dcfg, weight_format=wf), qcfg, dcfg)
+        for fmt, wf in (("int8", None), ("ternary", "auto"))}
+
+    def kws_sample(rng):
+        t = int(rng.integers(100, 221))
+        return rng.standard_normal((t, kcfg.n_mfcc)).astype(np.float32)
+
+    def dn_sample(rng):
+        h, w = (int(v) for v in rng.integers(128, 289, size=2))
+        return rng.standard_normal(
+            (h, w, dcfg.in_channels)).astype(np.float32)
+
+    kladder = frontends.kws_serving_ladder(kcfg, KWS_RUNGS)
+    dladder = frontends.darknet_serving_ladder(dcfg, DN_RUNGS)
+    serve_batcher_model(torch, dev, "kws", kfns, kladder, kws_sample, smi)
+    serve_batcher_model(torch, dev, "darknet", dfns, dladder, dn_sample,
+                        smi)
+    rng = np.random.default_rng(SEED + 6)
+    for path, fn, ladder, shape, sizes in (
+            ("kws", kfns["int8"], kladder, (kcfg.seq_len, kcfg.n_mfcc),
+             (1, 8)),
+            ("darknet", dfns["int8"], dladder,
+             (DN_SIZE, DN_SIZE, dcfg.in_channels), DN_BATCHES)):
+        for size in sizes:
+            flush_vs_eager(torch, cb, path, fn, ladder, list(
+                rng.standard_normal((size,) + shape).astype(np.float32)),
+                smi)
+
+    # the noise canary: eager on the lane's stream, one fold_in key a flush
+    cond = TABLE7_CONDITIONS[-1]
+    xs = [x for batch in mixed_arrivals(
+        np.random.default_rng(SEED + 5), kws_sample, n_ticks=TRACE_TICKS,
+        rate=6.0) for x in batch][:CANARY_REQUESTS]
+    sink = Resolved()
+    b = cb.CNNBatcher(kfns["int8"], ladder=kladder, on_event=sink,
+                      noise_config=cond, noise_seed=NOISE_KEY, **BATCHER)
+    t0 = time.perf_counter()
+    out = b.run([cb.CNNRequest(rid=i, x=x) for i, x in enumerate(xs)])
+    wall = time.perf_counter() - t0
+    steps, st = b.step_stats, b.stats
+    if not (steps["eager_flushes"] == st["flushes"] == st["noise_trials"]
+            == len(sink.flushes) > 0) or steps["graph_flushes"] or b.n_graphs:
+        raise AssertionError(f"noise canary: {steps} {st['flushes']} "
+                             f"flushes, {st['noise_trials']} trials")
+    moved = 0
+    for trial, batch in enumerate(sink.flushes):
+        x = padded_batch(cb, batch, b.max_batch)
+        key = prng.fold_in(prng.PRNGKey(NOISE_KEY), trial).to(dev)
+        want = kfns["int8"](x, noise=cond, rng=key).cpu().numpy()
+        clean = kfns["int8"](x).cpu().numpy()
+        for i, r in enumerate(batch):
+            if not np.array_equal(out[r.rid], want[i]):
+                raise AssertionError(f"noise canary: request {r.rid} != the "
+                                     "eager noisy int_serve_fn, same key")
+            moved += not np.array_equal(out[r.rid], clean[i])
+    if not moved:
+        raise AssertionError("noise canary: the noise moved no output")
+    print(f"serve_batcher kws noise canary (Table 7's noisiest, noise_seed "
+          f"{NOISE_KEY}): {len(xs)} requests, {st['flushes']} flushes run "
+          f"eagerly on the lane's stream in {wall:.3f} s, each == eager "
+          "int_serve_fn(noise, rng=fold_in(PRNGKey(seed), trial)) bit for "
+          f"bit; the noise moved {moved} of {len(xs)} outputs", flush=True)
+
+
 def kernels_record(rows, counts, batch, per_apply, names=None):
     """One entry per kernel of one path (or per kernel in ``names``): the
     work of one int_apply at request batch ``batch`` (``per_apply`` picks
@@ -1943,7 +2336,8 @@ def main() -> int:
             ("kernels_noise", lambda: phase_kernels_noise(torch, dev)),
             ("kernels_tc", lambda: phase_kernels_tc(torch, dev)),
             ("serve_kws", lambda: phase_serve_kws(torch, dev)),
-            ("serve_darknet", lambda: phase_serve_darknet(torch, dev))):
+            ("serve_darknet", lambda: phase_serve_darknet(torch, dev)),
+            ("serve_batcher", lambda: phase_serve_batcher(torch, dev))):
         print(f"== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

@@ -141,11 +141,14 @@ def int_serve_fn(ip, qcfg: QuantConfig, cfg: KWSConfig, **kw):
     """Fixed-signature serving closure: (B, T, n_mfcc) -> logits.
 
     Requests (numpy arrays or tensors) are moved to the stack's device;
-    ``noise``/``rng`` pass through to :func:`int_apply`.
+    ``noise``/``rng`` pass through to :func:`int_apply`. The closure's
+    ``device`` attribute is the stack's device, where
+    ``serve.cnn_batching.CNNBatcher`` places its lanes.
     """
     device = ip.device
 
     def fn(x, noise=None, rng=None):
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
         return int_apply(ip, x, qcfg, cfg, noise=noise, rng=rng, **kw)
+    fn.device = device
     return fn

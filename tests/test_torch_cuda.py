@@ -515,3 +515,186 @@ def test_noisy_stacks_serve_on_the_card(cuda, chunks):
             assert torch.equal(tdn.int_serve_fn(
                 stack, dq, dcfg, mac_chunks=chunks, **kw)(
                     xd, noise=cond, rng=key), want)
+
+
+# ---------------------------------------------------------------------------
+# CNN serving: clean flushes replayed as CUDA graphs from pinned staging
+# ---------------------------------------------------------------------------
+
+
+def _kws_reduced_stack(dev, weight_format=None):
+    """The port's reduced KWS stack, s_out 0.1 per layer, handed off."""
+    cfg, qcfg = tkws.KWSConfig.reduced(), QuantConfig(2, 4, 4, fq=True)
+    params, state = tkws.init(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    params = tkws.to_fq(params, state, cfg)
+    names = tkws.conv_names(cfg)
+    for n in names:
+        params[n] = {**params[n], "s_out": torch.tensor(0.1, device=dev)}
+    stack = tkws.convert_int(tii.sync_handoff(params, names), state, qcfg,
+                             cfg, weight_format=weight_format)
+    return cfg, qcfg, stack
+
+
+def _served(model, dev, weight_format=None):
+    """(int_serve_fn, ladder, request sampler) of a reduced model."""
+    from repro_torch.models import frontends
+    if model == "kws":
+        cfg, qcfg, stack = _kws_reduced_stack(dev, weight_format)
+        return (tkws.int_serve_fn(stack, qcfg, cfg),
+                frontends.kws_serving_ladder(cfg, (16, 24)),
+                lambda rng: rng.standard_normal(
+                    (int(rng.integers(10, 30)), cfg.n_mfcc)))
+    cfg, qcfg, stack = _darknet_reduced_stack(dev, weight_format)
+    return (tdn.int_serve_fn(stack, qcfg, cfg),
+            frontends.darknet_serving_ladder(cfg, (12, 16)),
+            lambda rng: rng.standard_normal(
+                tuple(int(v) for v in rng.integers(8, 20, size=2)) + (3,)))
+
+
+def _serve_trace(fn, ladder, sample, seed=0, ticks=8, **kw):
+    """A seeded bursty trace through a batcher, tick by tick; returns
+    (batcher, requests, [requests of each resolved flush])."""
+    from repro_torch.serve import cnn_batching as tcb
+    flushes = []
+    b = tcb.CNNBatcher(fn, ladder=ladder, on_event=lambda e, f: (
+        flushes.append(f["reqs"]) if e == "resolve" else None), **kw)
+    rng, reqs = np.random.default_rng(seed), []
+    for _ in range(ticks):
+        new = [tcb.CNNRequest(rid=len(reqs) + i,
+                              x=sample(rng).astype(np.float32))
+               for i in range(int(rng.integers(0, 6)))]
+        b.submit(new)
+        reqs.extend(new)
+        b.tick()
+    while b.outstanding():
+        b.tick()
+    assert all(r.done and r.error is None for r in reqs)
+    return b, reqs, flushes
+
+
+def _eager_rows(fn, reqs, max_batch, **kw):
+    """The flush's padded batch through the eager step."""
+    from repro_torch.serve.cnn_batching import batch_bucket
+    x = np.zeros((batch_bucket(len(reqs), max_batch),)
+                 + reqs[0].x_served.shape, np.float32)
+    for i, r in enumerate(reqs):
+        x[i] = r.x_served
+    return fn(x, **kw).cpu().numpy()[:len(reqs)]
+
+
+@pytest.mark.parametrize("model", ["kws", "darknet"])
+@pytest.mark.parametrize("dispatch_ahead", [False, True])
+def test_graph_served_equals_eager(cuda, model, dispatch_ahead):
+    """Every clean flush replays a graph, at most one per signature, and
+    gives the eager step's bytes on the same padded batch; K1, K3 and K3b
+    were captured (counted at capture, never at replay)."""
+    from repro_torch import kernels
+    fn, ladder, sample = _served(model, cuda)
+    kernels.reset_launch_counts()
+    b, reqs, flushes = _serve_trace(fn, ladder, sample, max_batch=4,
+                                    dispatch_ahead=dispatch_ahead,
+                                    max_inflight=3)
+    counts = kernels.launch_counts()
+    st = b.step_stats
+    assert st["graph_flushes"] == b.stats["flushes"] == len(flushes) > 0
+    assert st["eager_flushes"] == 0
+    assert 0 < b.n_graphs == st["captures"] <= b.n_signatures
+    for batch in flushes:
+        want = _eager_rows(fn, batch, 4)
+        for r, row in zip(batch, want):
+            assert r.out.dtype == row.dtype and np.array_equal(r.out, row)
+    assert counts["quantize_codes"] > 0 and counts["fq_conv2d"] > 0
+    assert (counts["fq_conv2d_pool"] > 0) == (model == "darknet")
+
+
+def test_pinned_staging_reuse_under_full_window(cuda):
+    """A slow step (a device sleep) keeps both window slots busy while the
+    host packs ahead: each staging buffer is refilled only after its copy
+    completed, so every output is of its own batch."""
+    from repro_torch.serve import cnn_batching as tcb
+
+    def slow(x):
+        torch.cuda._sleep(2_000_000)
+        return x.sum(dim=(1, 2)) * 3.0 + x.amax(dim=(1, 2))
+    slow.device = cuda
+    b = tcb.CNNBatcher(slow, max_batch=2, max_wait_ticks=50,
+                       dispatch_ahead=True, max_inflight=2)
+    rng = np.random.default_rng(3)
+    reqs = [tcb.CNNRequest(rid=i, x=rng.standard_normal((5, 3)).astype(
+        np.float32)) for i in range(12)]
+    b.submit(reqs)
+    assert b.drain() == 12
+    assert b.stats["inflight_peak"] == 2 and b.n_graphs == 1
+    assert sum(buf is not None for buf in b._lanes[0].staging._bufs) == 2
+    for r in reqs:
+        x = torch.from_numpy(r.x)[None].to(cuda)
+        assert np.array_equal(r.out, (x.sum(dim=(1, 2)) * 3.0 + x.amax(
+            dim=(1, 2))).cpu().numpy()[0])
+
+
+def test_lane_count_invariance(cuda):
+    """One, two and three lanes (streams) serve the same trace to the same
+    bytes; each lane captures its own graphs."""
+    fn, ladder, sample = _served("kws", cuda, weight_format="auto")
+    outs = {}
+    for n in (1, 2, 3):
+        b, reqs, _ = _serve_trace(fn, ladder, sample, seed=4, max_batch=4,
+                                  dispatch_ahead=True, max_inflight=2,
+                                  n_replicas=n)
+        assert b.step_stats["graph_flushes"] == b.stats["flushes"]
+        assert b.n_graphs <= n * b.n_signatures
+        assert sum(l["flushes"] > 0 for l in b.stats["replicas"]) > n // 2
+        outs[n] = [r.out for r in reqs]
+    for n in (2, 3):
+        assert all(np.array_equal(a, c) for a, c in zip(outs[1], outs[n]))
+
+
+def test_swap_releases_graphs_after_inflight_resolve(cuda):
+    """The old generation's graphs live while its flushes are in flight
+    and are released when they resolve; each output is its generation's."""
+    from repro_torch.serve import cnn_batching as tcb
+
+    def gen(g):
+        def fn(x):
+            return x.sum(dim=1) * (3 + g) - g
+        fn.device = cuda
+        return fn
+    b = tcb.CNNBatcher(gen(0), max_batch=2, max_wait_ticks=0,
+                       dispatch_ahead=True, max_inflight=4)
+    first = [tcb.CNNRequest(rid=i, x=np.full(4, i, np.float32))
+             for i in range(4)]
+    b.submit(first)
+    b.tick()                              # two flushes in flight, gen 0
+    assert b.in_flight == 4 and b.n_graphs == 1
+    b.swap_apply_fn(gen(1))
+    assert b.n_graphs == 1                # held by the in-flight flushes
+    b.tick()                              # they resolve: released
+    assert all(r.done for r in first) and b.n_graphs == 0
+    second = [tcb.CNNRequest(rid=10 + i, x=np.full(4, i, np.float32))
+              for i in range(2)]
+    b.submit(second)
+    b.drain()
+    assert b.n_graphs == 1 and b.step_stats["captures"] == 2
+    for r, g in [(r, 0) for r in first] + [(r, 1) for r in second]:
+        assert r.generation == g
+        assert r.out == np.float32(r.x.sum() * (3 + g) - g)
+
+
+def test_noise_canary_runs_eagerly_on_the_card(cuda):
+    """Noisy flushes run the eager step on the lane's stream with the
+    flush's fold_in key, and equal the eager noisy step on that batch."""
+    from repro_torch.core import prng
+    from repro_torch.core.noise import TABLE7_CONDITIONS
+    fn, ladder, sample = _served("kws", cuda)
+    cond = TABLE7_CONDITIONS[-1]
+    b, _, flushes = _serve_trace(fn, ladder, sample, ticks=3, max_batch=2,
+                                 noise_config=cond, noise_seed=5)
+    assert b.step_stats["eager_flushes"] == b.stats["flushes"] \
+        == b.stats["noise_trials"] == len(flushes) > 0
+    assert b.step_stats["graph_flushes"] == b.n_graphs == 0
+    for trial, batch in enumerate(flushes):
+        key = prng.fold_in(prng.PRNGKey(5), trial).to(cuda)
+        want = _eager_rows(fn, batch, 2, noise=cond, rng=key)
+        for r, row in zip(batch, want):
+            assert np.array_equal(r.out, row)
