@@ -89,7 +89,27 @@ Phases, each of which must pass:
    per second, latency and wait-tick percentiles), one flush against the
    eager call on the same batch, the pinned copies, and runs a KWS noise
    canary (eager noisy flushes, one ``fold_in`` key each) against the eager
-   noisy ``int_serve_fn``.
+   noisy ``int_serve_fn``;
+12. train_fq: float FQ training, which reaches no TPU-kernel counterpart
+   (the K1-K5 counters must read 0 across it). Full-width KWS (B=64, 140
+   frames) and DarkNet-19 (224 x 224, B=8) from seed SEED each run a short
+   gradual-quantization ladder through ``gradual.run_ladder`` and the
+   port's training entry points: FP; Q (KWS W2A4, DarkNet W2A5); BN folded
+   by ``to_fq`` and ranges set by ``calibrate`` (3 iterations on the
+   batch), then FQ W2A4; FQ under Table 7's noisiest condition. Each stage
+   takes 3 steps of SGD (Nesterov 0.9, weight decay 5e-4, cosine from
+   0.05), every stage after the first distilling from the best so far.
+   Each step is repeated on the CPU from a copy of the card's params; the
+   CPU's quantizer inputs whose code or clip class differ from the card's
+   are counted and pinned to the card's. It fails unless loss, logits and
+   gradients are finite; logits, loss, gradients and the updated params
+   agree with the CPU's within the bounds stated at TRAIN_*; the fold and
+   calibration agree; every quantized layer's w, s_w, s_in and s_out get a
+   gradient in each FQ stage; and an FQ backward with
+   ``cudnn.allow_tf32 = True`` set globally gives the gradients of the run
+   with it False bit for bit. It prints each stage's step time (host
+   clock, mean of 10), profiled busy share and top device ops, and peak
+   memory, beside the card's name and power limit.
 
 It imports nothing of JAX or of the JAX package ``repro``. The second-to-
 last lines are the ``{"kernels": [...]}`` record (one entry per kernel and
@@ -2177,6 +2197,623 @@ def phase_serve_batcher(torch, dev):
           f"bit; the noise moved {moved} of {len(xs)} outputs", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Float FQ training (train_fq)
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = {"kws": 64, "darknet": 8}
+TRAIN_STEPS = 3            # SGD steps a ladder stage, each checked
+TRAIN_TIMED = 10           # steps timed a stage (host clock, mean)
+TRAIN_LR = 0.05            # benchmarks/common.py's BenchTask.lr
+TRAIN_ALPHA = 0.7          # its distillation alpha
+TRAIN_CAL_ITERS = 3        # calibrate iterations at the FQ transition
+TRAIN_KEY = 9              # PRNGKey of the noisy stage (fold_in per step)
+# DarkNet's weight scales at the FQ transition: e^{s_w} at the 99th
+# percentile of |w| (init_scale(percentile=99)). The reference's to_fq sets
+# it at max|w|, where 2-bit weights keep 1-3% of their codes nonzero and
+# the BN-free net is dead from conv12 on after calibrate's 3 iterations
+# (still past conv16 after 10); at the percentile ~20% are nonzero and
+# every layer is live.
+TRAIN_DN_SW_PERCENTILE = 99.0
+# card against CPU, each step
+TRAIN_RTOL_LOGITS = 1e-4   # x max|logit|: float32 sums in other orders
+TRAIN_RTOL_LOSS = 1e-5     # relative: a mean of log-softmaxes
+TRAIN_RTOL_W = 1e-3        # relative L2 of a weight's gradient (w, head)
+# A log-scale s's gradient sums one term per element its quantizers see
+# (BN's gamma and beta one per position): the terms cancel, so the bound
+# scales with M = the sum of their magnitudes (g sum |dL/dQ| (|Q| + |x|) a
+# quantizer, g its LSQ scale; sum |dL/dy * noise| a draw; sum |dL/dy| and
+# sum |dL/dy x_hat| a BN channel, L2 over channels), not with the result.
+# Card and CPU sum in other orders from activations apart by float32
+# rounding (their discrete choices are counted and pinned, TrainTaps):
+# 1e-3 M. A conv's weight
+# gradient is such a sum too (one term per output position; M the L2 norm
+# of the weight gradient of |x| and |dL/dy|): behind a training-mode BN,
+# DarkNet's conv0 sums 401,408 terms a weight to a gradient the card and
+# the CPU give 9e-3 apart in relative L2, which TRAIN_RTOL_W cannot hold.
+TRAIN_C_S = 1e-3
+
+
+TAPPED_FQL = ("learned_quantize", "add_lsb_noise", "batchnorm", "_conv",
+              "fq_conv2d", "fq_conv1d")
+TAPPED_DARKNET = ("_maxpool_train", "_leaky_relu")
+
+
+class TrainTaps:
+    """Wraps the quantizer, the noise, BN and the convs that ``fq_layers``
+    calls and DarkNet's max-pool. With ``record``, keeps each quantizer's
+    and pool's input. With ``ref`` (another run's taps, call by call),
+    counts the positions whose code or clip class differ from that run's (a
+    code flip rounds to another code; a tie flip sits on a clip bound in
+    one run only, where the straight-through gradient is 0.5, against 1
+    inside and 0 outside) and the pool windows whose maximum is elsewhere
+    (a pool flip: the gradient goes to another position), and pins them to
+    its values (the value pinned, the gradient passed through), so both
+    runs differentiate the same forward. Sums, per leaf named in ``paths``
+    ({id: name}; log-scales, BN's gamma and beta, conv weights), the
+    magnitude M of its gradient's terms as the backward runs."""
+
+    def __init__(self, torch, paths=None, record=False, ref=None):
+        self.torch, self.paths, self.record, self.ref = (torch, paths or {},
+                                                          record, ref)
+        self.calls, self.pools, self.relus, self.mag = [], [], [], {}
+        self.code_flips = self.tie_flips = self.positions = 0
+        self.pool_flips = self.windows = self.relu_flips = 0
+
+    def _add(self, s, value):
+        name = self.paths[id(s)]
+        self.mag[name] = self.mag.get(name, 0.0) + value
+
+    def _pin(self, x, e, b, n):
+        torch = self.torch
+        xr = self.ref.calls[len(self.calls)].to(x.device)
+        cats = []
+        for v in (torch.div(x.detach(), e), torch.div(xr, e)):
+            cls = (v > b).int() + (v >= b).int() + (v >= 1).int() + \
+                (v > 1).int()
+            cats.append((torch.round(torch.clamp(v, b, 1.0) * n), cls))
+        code = cats[0][0] != cats[1][0]
+        tie = (cats[0][1] != cats[1][1]) & ~code
+        self.code_flips += int(code.sum())
+        self.tie_flips += int(tie.sum())
+        self.positions += x.numel()
+        mask = code | tie
+        if bool(mask.any()):
+            x = torch.where(mask, xr, x) + torch.where(
+                mask, x - x.detach(), torch.zeros_like(x))
+        return x
+
+    def quantize(self, x, s, *, bits, b, stabilize=True):
+        from repro_torch.core import quant
+        lq = self.orig["learned_quantize"]
+        if bits is None or bits >= 32:
+            return lq(x, s, bits=bits, b=b, stabilize=stabilize)
+        n = quant.n_levels(bits)
+        g = 1.0 / math.sqrt(max(x.numel(), 1) * n) if stabilize else 1.0
+        if self.ref is not None:
+            sd = s.detach()
+            e = quant.exp(quant._grad_scale(sd, g) if stabilize else sd)
+            x = self._pin(x, e.to(x.dtype), b, n)
+        if self.record or self.ref is not None:
+            self.calls.append(x.detach().clone() if self.record else None)
+        q = lq(x, s, bits=bits, b=b, stabilize=stabilize)
+        if q.requires_grad and id(s) in self.paths:
+            size = q.detach().abs() + x.detach().abs()
+            q.register_hook(lambda gq, s=s, size=size, g=g: self._add(
+                s, g * float((gq.abs() * size).double().sum())))
+        return q
+
+    def noise(self, x, key, sigma, s, bits):
+        y = self.orig["add_lsb_noise"](x, key, sigma, s, bits)
+        if y is not x and y.requires_grad and id(s) in self.paths:
+            d = (y - x).detach().abs()
+            y.register_hook(lambda gy, s=s, d=d: self._add(
+                s, float((gy.abs() * d).double().sum())))
+        return y
+
+    def batchnorm(self, p, st, x, **kw):
+        """BN's gamma and beta gradients sum one term per position too:
+        M is the L2 norm over channels of sum |dL/dy| (beta) and of
+        sum |dL/dy * x_hat| (gamma)."""
+        y, new = self.orig["batchnorm"](p, st, x, **kw)
+        if y.requires_grad and id(p["beta"]) in self.paths:
+            xhat = (y.detach() - p["beta"].detach()) / p["gamma"].detach()
+            dims = tuple(range(y.dim() - 1))
+
+            def hook(gy, p=p, xhat=xhat):
+                a = gy.abs().double()
+                self._add(p["beta"], float(a.sum(dims).norm()))
+                self._add(p["gamma"], float((a * xhat.abs()).sum(dims)
+                                            .norm()))
+            y.register_hook(hook)
+        return y, new
+
+    def pool(self, h):
+        torch = self.torch
+        if self.ref is not None:
+            hr = self.ref.pools[len(self.pools)].to(h.device)
+            idx = [torch.nn.functional.max_pool2d(
+                v.movedim(-1, 1), 2, 2, return_indices=True)[1]
+                for v in (h.detach(), hr)]
+            moved = idx[0] != idx[1]
+            self.pool_flips += int(moved.sum())
+            self.windows += moved.numel()
+            if bool(moved.any()):
+                mask = moved.repeat_interleave(2, 2).repeat_interleave(2, 3)
+                mask = torch.nn.functional.pad(mask, (
+                    0, h.shape[2] - mask.shape[3],
+                    0, h.shape[1] - mask.shape[2])).movedim(1, -1)
+                h = torch.where(mask, hr, h) + torch.where(
+                    mask, h - h.detach(), torch.zeros_like(h))
+        if self.record or self.ref is not None:
+            self.pools.append(h.detach().clone() if self.record else None)
+        return self.orig["_maxpool_train"](h)
+
+    def leaky_relu(self, h):
+        """DarkNet's leaky ReLU: its gradient is 1 at h >= 0 and 0.1 below;
+        an input on the other side of 0 (a relu flip) is pinned."""
+        torch = self.torch
+        if self.ref is not None:
+            hr = self.ref.relus[len(self.relus)].to(h.device)
+            mask = (h.detach() >= 0) != (hr >= 0)
+            self.relu_flips += int(mask.sum())
+            if bool(mask.any()):
+                h = torch.where(mask, hr, h) + torch.where(
+                    mask, h - h.detach(), torch.zeros_like(h))
+        if self.record or self.ref is not None:
+            self.relus.append(h.detach().clone() if self.record else None)
+        return self.orig["_leaky_relu"](h)
+
+    def layer(self, orig):
+        """fq_conv2d / fq_conv1d, naming the weight leaf its conv serves."""
+        def run(p, x, qcfg, **kw):
+            self.weight = p["w"]
+            try:
+                return orig(p, x, qcfg, **kw)
+            finally:
+                self.weight = None
+        return run
+
+    def conv(self, x, w, **kw):
+        """A conv's weight gradient sums one term per output position: M is
+        the L2 norm over the weight of the weight gradient of |x| and
+        |dL/dy| (each element's sum of |terms|)."""
+        y = self.orig["_conv"](x, w, **kw)
+        leaf = self.weight
+        if y.requires_grad and leaf is not None and id(leaf) in self.paths:
+            def hook(gy, x=x.detach().abs(), w=w.detach(), leaf=leaf):
+                with self.torch.enable_grad():
+                    wv = w.clone().requires_grad_(True)
+                    m, = self.torch.autograd.grad(
+                        self.orig["_conv"](x, wv, **kw), wv, gy.abs())
+                self._add(leaf, float(m.double().norm()))
+            y.register_hook(hook)
+        return y
+
+    def __enter__(self):
+        from repro_torch.core import fq_layers as fql
+        from repro_torch.models import darknet
+        self.orig = {k: getattr(m, k) for m, names in (
+            (fql, TAPPED_FQL), (darknet, TAPPED_DARKNET)) for k in names}
+        self.weight = None
+        patch = {"learned_quantize": self.quantize,
+                 "add_lsb_noise": self.noise, "batchnorm": self.batchnorm,
+                 "_conv": self.conv,
+                 "fq_conv2d": self.layer(self.orig["fq_conv2d"]),
+                 "fq_conv1d": self.layer(self.orig["fq_conv1d"]),
+                 "_maxpool_train": self.pool, "_leaky_relu": self.leaky_relu}
+        self._set(patch)
+        return self
+
+    def __exit__(self, *exc):
+        self._set(self.orig)
+
+    @staticmethod
+    def _set(funcs):
+        from repro_torch.core import fq_layers as fql
+        from repro_torch.models import darknet
+        for k, v in funcs.items():
+            setattr(fql if k in TAPPED_FQL else darknet, k, v)
+
+
+def named_leaves(tree_, prefix=""):
+    if isinstance(tree_, dict):
+        return [kv for k in sorted(tree_)
+                for kv in named_leaves(tree_[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree_)]
+
+
+def summed_leaf(name):
+    """A leaf whose gradient is one sum over every position its layer sees,
+    of terms that can cancel: the log-scales, BN's gamma and beta and the
+    conv weights. Where the taps measured M, the magnitude of its terms, a
+    leaf is held by it (TRAIN_C_S); else (dense layers; an unused
+    log-scale, zero on both sides) by TRAIN_RTOL_W."""
+    return name.rsplit(".", 1)[-1] in ("s_w", "s_in", "s_out", "gamma",
+                                       "beta", "w")
+
+
+def grads_with_terms(torch, tree, fn, params, record=False, ref=None):
+    """((loss, (logits, state)), {leaf: grad}, {s leaf: M}, taps) of
+    ``fn(params) -> (loss, (logits, state))``: the gradients over fresh
+    leaves, as ``tree.value_and_grad`` takes them, through
+    :class:`TrainTaps` (``record``, ``ref``)."""
+    live = tree.map(lambda t: t.detach().requires_grad_(True), params)
+    named = named_leaves(live)
+    with TrainTaps(torch, {id(t): k for k, t in named
+                           if summed_leaf(k)}, record, ref) as taps:
+        loss, (logits, new_state) = fn(live)
+        grads = torch.autograd.grad(loss, [t for _, t in named],
+                                    allow_unused=True)
+    return (loss.detach(), (logits.detach(), new_state)), {
+        k: torch.zeros_like(t) if g is None else g
+        for (k, t), g in zip(named, grads)}, taps.mag, taps
+
+
+def train_model(torch, dev, path, smi):
+    """One model's short ladder on the card, each step repeated on the CPU
+    from a copy of the card's params, state and momentum (an independent
+    CPU run drifts by float32 rounding until codes flip between the two);
+    returns the rows of its step-time table."""
+    import numpy as np
+    from repro_torch import tree
+    from repro_torch.core import distill, gradual, prng
+    from repro_torch.core import fq_layers as fql
+    from repro_torch.core import integer_inference as ii
+    from repro_torch.core.noise import NoiseConfig, TABLE7_CONDITIONS
+    from repro_torch.core.quant import QuantConfig, init_scale
+    from repro_torch.models import darknet, kws
+    from repro_torch.optim import schedules, sgd
+
+    model = kws if path == "kws" else darknet
+    cfg = kws.KWSConfig() if path == "kws" else darknet.DarkNetConfig()
+    batch = TRAIN_BATCH[path]
+    shape = ((batch, cfg.seq_len, cfg.n_mfcc) if path == "kws"
+             else (batch, DN_SIZE, DN_SIZE, cfg.in_channels))
+    rng = np.random.default_rng(SEED + 7)
+    x_np = rng.standard_normal(shape).astype(np.float32)
+    y_np = rng.integers(0, cfg.num_classes, batch)
+    fq = QuantConfig(2, 4, 4, fq=True)
+    ladder = [QuantConfig(), QuantConfig(2, 4) if path == "kws"
+              else QuantConfig(2, 5), fq, fq]
+    labels = ["FP", ladder[1].label(), fq.label(), fq.label() + " noisy"]
+    cond = TABLE7_CONDITIONS[-1]
+    noise = NoiseConfig(cond.sigma_w, cond.sigma_a, cond.sigma_mac)
+    quantized = (kws.conv_names(cfg) if path == "kws"
+                 else darknet.int_conv_names(cfg))
+    devs = {"card": dev, "cpu": torch.device("cpu")}
+    data = {d: (torch.from_numpy(x_np).to(v), torch.from_numpy(y_np).to(v))
+            for d, v in devs.items()}
+    rows, last = [], [(0.0, "")]
+
+    def cpu(t):
+        return ii.to_device(t, "cpu")
+
+    def loss_fn(d, qcfg, state, teacher_logits, key, nz):
+        x, y = data[d]
+
+        def fn(p):
+            logits, new = model.apply(p, state, x, qcfg, cfg, train=True,
+                                      rng=key, noise=nz)
+            if teacher_logits is None:
+                onehot = torch.nn.functional.one_hot(
+                    y, cfg.num_classes).float()
+                loss = torch.mean(distill.softmax_cross_entropy(logits,
+                                                                onehot))
+            else:
+                loss = distill.distillation_loss(logits, teacher_logits, y,
+                                                 alpha=TRAIN_ALPHA)
+            return loss, (logits, new)
+        return fn
+
+    def train_stage(bundle, qcfg, teacher, idx):
+        label = labels[idx]
+        nz = noise if idx == len(ladder) - 1 else None
+        p, st, prev = bundle
+        if qcfg.fq and not prev.fq:
+            # paper §3.4: fold BN, calibrate the ranges on the batch; the
+            # CPU does the same from the same params, then takes the card's
+            # each calibration forward pinned to the card's, as the steps
+            folded, card_taps = {}, []
+            for d, v in devs.items():
+                pd, sd = ii.to_device(p, v), ii.to_device(st, v)
+                pd = model.to_fq(pd, sd, cfg)
+                if path == "darknet":
+                    for n in quantized:
+                        pd[n] = {**pd[n], "s_w": init_scale(
+                            pd[n]["w"], percentile=TRAIN_DN_SW_PERCENTILE)}
+                refs = iter(list(card_taps))
+
+                def forward(pp, sd=sd, d=d, refs=refs):
+                    with TrainTaps(torch, record=d == "card", ref=(
+                            None if d == "card" else next(refs))) as taps:
+                        model.apply(pp, sd, data[d][0], qcfg, cfg)
+                    if d == "card":
+                        card_taps.append(taps)
+                folded[d] = fql.calibrate(forward, pd, iters=TRAIN_CAL_ITERS)
+            worst = compare_params(torch, f"train_fq {path} {label}: "
+                                   "to_fq + calibrate", folded["card"],
+                                   folded["cpu"], {})
+            print(f"train_fq {path} {label}: to_fq + calibrate "
+                  f"({TRAIN_CAL_ITERS} iterations), card against CPU from "
+                  "the same params: "
+                  f"worst |diff| / bound {worst[0]:.3g} ({worst[1]})",
+                  flush=True)
+            p = folded["card"]
+        t_logits = {}
+        for d, v in devs.items():
+            t_logits[d] = None
+            if teacher is not None:
+                tp, ts, tq = ii.to_device(teacher, v)
+                with torch.no_grad():
+                    t_logits[d], _ = model.apply(tp, ts, data[d][0], tq, cfg)
+        sched = schedules.cosine(TRAIN_LR, TRAIN_STEPS)
+        opt = sgd.make(sched, weight_decay=5e-4)
+        ost = opt.init(p)
+        flips, live = [0] * 6, set()
+        for i in range(TRAIN_STEPS):
+            key = (prng.fold_in(prng.PRNGKey(TRAIN_KEY), i)
+                   if nz is not None else None)
+            start = {"card": (p, st, ost), "cpu": cpu((p, st, ost))}
+            res, new = {}, {}
+            for d, v in devs.items():
+                pd, sd, od = start[d]
+                fn = loss_fn(d, qcfg, sd, t_logits[d],
+                             None if key is None else key.to(v), nz)
+                # the CPU pinned to the card's codes and clip classes
+                res[d] = grads_with_terms(
+                    torch, tree, fn, pd, record=d == "card",
+                    ref=res["card"][3] if d == "cpu" else None)
+                grads = res[d][1]
+                g_tree = tree.unflatten(pd, [grads[k] for k, _ in
+                                             named_leaves(pd)])
+                new[d] = opt.update(pd, g_tree, od, i) + (res[d][0][1][1],)
+            live |= check_train_step(torch, path, label, i, res, quantized,
+                                     qcfg)
+            taps = res["cpu"][3]
+            flips = [a + b for a, b in zip(flips, (
+                taps.code_flips, taps.tie_flips, taps.positions,
+                taps.pool_flips, taps.windows, taps.relu_flips))]
+            # the update: lr (1 + 0.9) times each gradient's bound (Nesterov
+            # from the same momentum)
+            lr = float(sched(i))
+            bounds = {name: lr * 1.9 * (
+                TRAIN_C_S * res["cpu"][2][name]
+                if name in res["cpu"][2] else
+                TRAIN_RTOL_W * float(g.norm()))
+                for name, g in res["cpu"][1].items()}
+            last[0] = compare_params(
+                torch, f"train_fq {path} {label} step {i}: updated params",
+                new["card"][0], new["cpu"][0], bounds)
+            p, ost, st = new["card"]
+            del res, new, start
+        dead = [f"{n}.{k}" for n in quantized
+                for k in ("w", "s_w", "s_in", "s_out")
+                if f"{n}.{k}" not in live]
+        if qcfg.fq and dead:
+            # the net is live: each leaf moves in some step of the stage
+            raise AssertionError(f"train_fq {path} {label}: zero gradients "
+                                 f"in every step at {dead}")
+        print(f"train_fq {path} {label}: CPU against card over "
+              f"{TRAIN_STEPS} steps, pinned: quantizer inputs {flips[0]} "
+              f"code flips and {flips[1]} tie flips of {flips[2]} "
+              f"positions; max-pools {flips[3]} flips of {flips[4]} "
+              f"windows; leaky ReLUs {flips[5]} flips", flush=True)
+        rows.append(time_train_step(torch, tree, path, label, opt,
+                                    (p, st, t_logits["card"]), ost, qcfg,
+                                    nz, loss_fn, smi))
+        x, y = data["card"]
+        with torch.no_grad():
+            logits, _ = model.apply(p, st, x, qcfg, cfg)
+        acc = float((logits.argmax(-1) == y).float().mean())
+        return (p, st, qcfg), acc
+
+    p, st = model.init(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    result = gradual.run_ladder(ladder, (p, st, QuantConfig()), train_stage)
+    print(f"train_fq {path}: after the ladder, the CPU's last update from "
+          f"the card's params: worst |diff| / bound {last[0][0]:.3g} "
+          f"({last[0][1]})", flush=True)
+    check_tf32_pinned(torch, tree, path, model, cfg, result.final.params,
+                      data["card"], fq)
+    print(f"train_fq {path}: ladder {result.summary()} (accuracy on the "
+          "batch, card)", flush=True)
+    return rows
+
+
+def compare_params(torch, where, card, cpu, bounds):
+    """Every leaf card against CPU: |diff| <= its bound in ``bounds`` plus
+    1e-5 of the leaf's norm (of 1 for a leaf smaller than 1: the float32
+    rounding of an update, a BN fold or the host's log of a calibrated
+    maximum an ulp apart). Returns (worst |diff| / bound, leaf)."""
+    worst = (0.0, "")
+    card = dict(named_leaves(card))
+    for name, t in named_leaves(cpu):
+        diff = float((card[name].cpu() - t).norm())
+        bound = bounds.get(name, 0.0) + 1e-5 * max(float(t.norm()), 1.0)
+        if diff > bound:
+            raise AssertionError(f"{where}: {name} off the CPU run by "
+                                 f"{diff} > {bound}")
+        worst = max(worst, (diff / bound, name))
+    return worst
+
+
+def check_train_step(torch, path, label, i, res, quantized, qcfg):
+    """Card against CPU for one step: finite, logits, loss, gradients; in
+    the FQ stages every quantized layer live."""
+    (l_card, (lg_card, _)), g_card, _, _ = res["card"]
+    (l_cpu, (lg_cpu, _)), g_cpu, mag, _ = res["cpu"]
+    where = f"train_fq {path} {label} step {i}"
+    if not (torch.isfinite(l_card) and torch.isfinite(lg_card).all()
+            and all(torch.isfinite(g).all() for g in g_card.values())):
+        raise AssertionError(f"{where}: loss, logits or gradients not "
+                             "finite")
+    lg = lg_card.cpu()
+    d_logit = float((lg - lg_cpu).abs().max())
+    if d_logit > TRAIN_RTOL_LOGITS * float(lg_cpu.abs().max()):
+        raise AssertionError(f"{where}: logits off the CPU run by {d_logit}")
+    if abs(float(l_card) - float(l_cpu)) > TRAIN_RTOL_LOSS * abs(
+            float(l_cpu)):
+        raise AssertionError(f"{where}: loss {float(l_card)} vs CPU "
+                             f"{float(l_cpu)}")
+    worst_w, worst_s = (0.0, ""), (0.0, "")
+    gmax = max(float(g.norm()) for g in g_cpu.values())
+    for name, gc in g_cpu.items():
+        diff = g_card[name].cpu() - gc
+        err = float(diff.norm())
+        rel = err / float(gc.norm()) if gc.norm() > 0 else err
+        if name.rsplit(".", 1)[-1] == "w":
+            worst_w = max(worst_w, (rel, name))
+        if name in zero_by_construction(path, qcfg):
+            # rounding noise on both sides, held at zero
+            if max(float(gc.norm()), float(g_card[name].norm())) > \
+                    1e-5 * gmax:
+                raise AssertionError(f"{where}: {name} gradient not zero")
+        elif name in mag:
+            m = mag[name]
+            if err > TRAIN_C_S * m:
+                raise AssertionError(f"{where}: {name} gradient off the "
+                                     f"CPU's by {err} > {TRAIN_C_S} x M = "
+                                     f"{TRAIN_C_S * m}")
+            worst_s = max(worst_s, (err / m if m else 0.0, name))
+        elif rel > TRAIN_RTOL_W:
+            raise AssertionError(f"{where}: {name} gradient rel L2 {rel} > "
+                                 f"{TRAIN_RTOL_W}")
+    live = {f"{n}.{k}" for n in quantized
+            for k in ("w", "s_w", "s_in", "s_out")
+            if bool((g_card[f"{n}.{k}"] != 0).any())}
+    zero = len(quantized) * 4 - len(live)
+    print(f"{where}: loss {float(l_card):.6f} (CPU {float(l_cpu):.6f}); "
+          f"max |logit diff| {d_logit:.3g}; worst |diff| / M "
+          f"{worst_s[0]:.3g} ({worst_s[1]}); worst weight-gradient rel L2 "
+          f"{worst_w[0]:.3g} ({worst_w[1]})"
+          + (f"; quantized layers' w, s_w, s_in, s_out: {zero} zero "
+             "gradients" if qcfg.fq else ""), flush=True)
+    return live
+
+
+def zero_by_construction(path, qcfg):
+    """Leaves the loss does not depend on in exact arithmetic: KWS's
+    embedding bias sits before a training-mode BN, and in FP mode that BN's
+    beta too (conv0, VALID and unquantized, passes a per-channel shift on
+    to the next training-mode BN)."""
+    if path != "kws":
+        return ()
+    return ("embed.b",) + (("embed_bn.beta",) if qcfg.is_fp else ())
+
+
+def time_train_step(torch, tree, path, label, opt, out, ost, qcfg, nz,
+                    loss_fn, smi):
+    """One training step on the card (value_and_grad + SGD update) from the
+    stage's end: host clock over TRAIN_TIMED steps, profiled busy share and
+    top device ops, peak memory. The steps' results are dropped."""
+    from repro_torch.core import prng
+    p, st, t_logits = out
+    key = (prng.fold_in(prng.PRNGKey(TRAIN_KEY), 99).to(
+        tree.leaves(p)[0].device) if nz is not None else None)
+    vg = tree.value_and_grad(loss_fn("card", qcfg, st, t_logits, key, nz),
+                             has_aux=True)
+
+    def step():
+        (loss, _), g = vg(p)
+        return opt.update(p, g, ost, 0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    wall, busy, ops, top = device_profile(torch, step, reps=3, top=5)
+    print(f"train_fq {path} {label}: one step {ms:.4f} ms (host clock, mean "
+          f"of {TRAIN_TIMED}); profiled {wall:.4f} ms, device busy "
+          f"{busy:.4f} ms (share {busy / wall:.4f}), {ops:.1f} device ops; "
+          f"peak memory {peak:.1f} MiB; top: " + ", ".join(
+              f"{n[:60]} {t:.4f}" for n, t in top) + f"; {smi}", flush=True)
+    return {"path": path, "stage": label, "ms": ms, "busy_ms": busy,
+            "busy_share": busy / wall, "device_ops": ops, "peak_mib": peak}
+
+
+def check_tf32_pinned(torch, tree, path, model, cfg, bundle, data, qcfg):
+    """One FQ backward with ``cudnn.allow_tf32`` set True globally gives
+    the gradients of the run with it False, bit for bit (the convs pin it
+    off in both directions); both runs with cuDNN's deterministic
+    algorithms. Then the same conv through plain autograd, to show TF32
+    would have moved it."""
+    p, st, _ = bundle
+    x, y = data
+
+    def fn(pp):
+        logits, _ = model.apply(pp, st, x, qcfg, cfg, train=True)
+        onehot = torch.nn.functional.one_hot(y, cfg.num_classes).float()
+        return torch.mean(-torch.sum(onehot * torch.log_softmax(logits, -1),
+                                     -1))
+    vg = tree.value_and_grad(fn)
+    det = torch.backends.cudnn.deterministic
+    grads = {}
+    try:
+        torch.backends.cudnn.deterministic = True
+        for flag in (False, True):
+            torch.backends.cudnn.allow_tf32 = flag
+            grads[flag] = tree.leaves(vg(p)[1])
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = det
+    same = all(torch.equal(a, b) for a, b in zip(grads[False], grads[True]))
+    # the teeth: a conv of the net through plain autograd, TF32 on and off
+    name = "conv1" if path == "darknet" else "conv0"
+    w = p[name]["w"]
+    nd = w.dim() - 2
+    xin = torch.randn((x.shape[0], w.shape[-2]) + (32,) * nd,
+                      device=x.device, generator=torch.Generator(
+                          x.device).manual_seed(SEED))
+    conv = torch.nn.functional.conv2d if nd == 2 else \
+        torch.nn.functional.conv1d
+    wc = w.permute(nd + 1, nd, *range(nd)).contiguous()
+    plain = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cudnn.allow_tf32 = flag
+            wl = wc.clone().requires_grad_(True)
+            conv(xin, wl).square().sum().backward()
+            plain[flag] = wl.grad
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    teeth = float((plain[True] - plain[False]).abs().max())
+    print(f"train_fq {path}: FQ gradients with cudnn.allow_tf32 = True "
+          f"globally {'==' if same else '!='} with False, bit for bit, over "
+          f"{len(grads[False])} leaves; the unpinned {name} weight gradient "
+          f"moves by {teeth:.3g} under TF32", flush=True)
+    if not same:
+        raise AssertionError(f"train_fq {path}: TF32 reached the gradients")
+
+
+def phase_train_fq(torch, dev):
+    """Float FQ training: a short gradual-quantization ladder of full-width
+    KWS and DarkNet-19 through the port's training entry points, card
+    against its CPU twin step by step; no TPU-kernel counterpart runs."""
+    from repro_torch import kernels
+    smi = nvidia_smi()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    rows = []
+    for path in ("kws", "darknet"):
+        rows += train_model(torch, dev, path, smi)
+    torch.cuda.synchronize()
+    counts = {**kernels.launch_counts(), **kernels.packed_launch_counts(),
+              **kernels.noisy_launch_counts(),
+              **kernels.vector_launch_counts()}
+    print("kernels (train_fq): " + " ".join(f"{k}={v}" for k, v in
+                                            counts.items()), flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"the training path launched K1-K5: {counts}")
+    return rows
+
+
 def kernels_record(rows, counts, batch, per_apply, names=None):
     """One entry per kernel of one path (or per kernel in ``names``): the
     work of one int_apply at request batch ``batch`` (``per_apply`` picks
@@ -2337,7 +2974,8 @@ def main() -> int:
             ("kernels_tc", lambda: phase_kernels_tc(torch, dev)),
             ("serve_kws", lambda: phase_serve_kws(torch, dev)),
             ("serve_darknet", lambda: phase_serve_darknet(torch, dev)),
-            ("serve_batcher", lambda: phase_serve_batcher(torch, dev))):
+            ("serve_batcher", lambda: phase_serve_batcher(torch, dev)),
+            ("train_fq", lambda: phase_train_fq(torch, dev))):
         print(f"== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

@@ -19,8 +19,11 @@ a fraction of one LSB, the paper's parameterization, so Table 7's
 
 Every uint32 value is held in int64 and masked with ``0xFFFFFFFF``
 (PyTorch has no CPU ``>>`` on uint32); a wrapping 32-bit multiply is split
-into the constant's 16-bit halves so no partial product reaches 2^63. The
-float training helper ``add_lsb_noise`` belongs to the training slice.
+into the constant's 16-bit halves so no partial product reaches 2^63.
+
+The float training path draws its noise with :func:`add_lsb_noise`:
+Gaussian on the dequantized tensors, sigma in fractions of the
+quantizer's LSB, from the reference's keys.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 
 from . import prng
 from .prng import M32
+from .quant import lsb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +58,20 @@ TABLE7_CONDITIONS = [
     NoiseConfig(0.20, 0.20, 1.00),
     NoiseConfig(0.30, 0.30, 1.50),
 ]
+
+
+def add_lsb_noise(x: torch.Tensor, key: Optional[torch.Tensor], sigma: float,
+                  s: torch.Tensor, bits: Optional[int]) -> torch.Tensor:
+    """x + N(0, sigma * LSB), LSB = e^s / n of the given quantizer.
+
+    The draw is ``jax.random.normal(key, x.shape)`` as :mod:`.prng` makes
+    it, on x's device. No-op when sigma == 0, key is None, or the tensor is
+    full precision (bits is None).
+    """
+    if sigma <= 0.0 or key is None or bits is None:
+        return x
+    step = lsb(s, bits).to(x.dtype)
+    return x + sigma * step * prng.normal(key.to(x.device), x.shape)
 
 
 def perturb_codes(codes: torch.Tensor, key: Optional[torch.Tensor],

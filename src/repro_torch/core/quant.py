@@ -10,14 +10,28 @@ quantized ReLUs) and ``n = 2^(nb-1) - 1`` positive levels for ``nb`` bits.
 ``torch.round`` rounds half to even, like ``jnp.round``, so codes that sit
 exactly on a half-LSB land on the same integer as in the reference.
 
+The training side follows the reference expression by expression, so the
+forward values are the reference's bit for bit wherever ``torch.exp``
+rounds e^s as XLA does (C1), and the straight-through gradients are its
+gradients:
+
+  * the clip is ``minimum(maximum(x, b), 1)``, as ``jnp.clip`` is written:
+    at a bound each side takes half the gradient (``torch.clamp`` would
+    pass all of it);
+  * ``ste_round`` and ``_grad_scale`` keep the reference's
+    ``v + stop_gradient(.)`` forms with ``.detach()``: ``_grad_scale`` is
+    not an identity in float32;
+  * every division is tensor by tensor: CUDA turns ``t / <python number>``
+    into a multiply by the reciprocal, 1 ulp off in some outputs.
+
 Beside them, the packed weight formats (``int4``, ``ternary``): storage of
 several weight codes per byte, the layout the kernels' packed prologue
-(K5) reads. The training-side helpers (STE, learned_quantize) belong to a
-later slice of the port.
+(K5) reads.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -56,6 +70,100 @@ class QuantConfig:
 
         base = f"W{f(self.bits_w)}A{f(self.bits_a)}"
         return ("FQ" if self.fq else "Q") + base
+
+
+def _const(v, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d float tensor of ``v`` on ``like``'s device, in its dtype."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+# XLA's float32 exp on the CPU (the reference's): Cephes' expf with every
+# multiply-add fused. Each fma is taken in float64, where the product of two
+# float32 values is exact, then rounded to float32.
+_EXP_LO, _EXP_HI = -88.3762626647949, 88.3762626647950
+_LOG2E = 1.44269504088896341
+_LN2_HI, _LN2_LO = 0.693359375, -2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _f32(v: float) -> float:
+    """A Python number rounded to the nearest float32."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c with one rounding (a, b, c float32 values)."""
+    return (a.double() * b + c).float()
+
+
+class _ExpXLA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s):
+        x = torch.clamp(s.float(), _f32(_EXP_LO), _f32(_EXP_HI))
+        fx = torch.floor(_fma32(x, _f32(_LOG2E), 0.5))
+        r = _fma32(fx, -_f32(_LN2_HI), x.double())
+        r = _fma32(fx, -_f32(_LN2_LO), r.double())
+        y = torch.full_like(r, _f32(_EXP_POLY[0]))
+        for p in _EXP_POLY[1:]:
+            y = _fma32(y, r.double(), _f32(p))
+        y = _fma32(y, (r * r).double(), r.double()) + 1.0
+        two_n = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+        out = y * two_n
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, = ctx.saved_tensors
+        return g * out
+
+
+def exp(s: torch.Tensor) -> torch.Tensor:
+    """float32 e^s bit for bit as the reference computes it (XLA on the CPU;
+    ``torch.exp`` is 1 ulp off in ~9.6% of inputs, C1), on any device; its
+    gradient is e^s. For the scalar log-scales of the quantizers, where an
+    ulp of e^s moves a value across a rounding boundary or a clip bound."""
+    return _ExpXLA.apply(s)
+
+
+def ste_round(v: torch.Tensor) -> torch.Tensor:
+    """round() in the forward pass, identity in the backward pass."""
+    return v + (torch.round(v) - v).detach()
+
+
+def quantize_unit(x: torch.Tensor, b: float, n: int) -> torch.Tensor:
+    """Paper eq. (1): uniform quantization in the standardized [b, 1] range."""
+    clipped = torch.minimum(torch.maximum(x, _const(b, x)), _const(1.0, x))
+    return torch.div(ste_round(clipped * n), _const(n, x))
+
+
+def _grad_scale(v: torch.Tensor, g: float) -> torch.Tensor:
+    """v in the forward pass; gradient scaled by g in the backward pass."""
+    return v * g + (v * (1.0 - g)).detach()
+
+
+def learned_quantize(x: torch.Tensor, s: torch.Tensor, *,
+                     bits: Optional[int], b: float,
+                     stabilize: bool = True) -> torch.Tensor:
+    """Paper eq. (2): Q(x) = e^s * quantize(x / e^s). bits=None -> identity.
+
+    ``stabilize`` scales the gradient of ``s`` by 1/sqrt(numel * n) (LSQ,
+    Esser et al. 2020), as the reference does; forward values are the same.
+    """
+    if bits is None or bits >= 32:
+        return x
+    n = n_levels(bits)
+    if stabilize:
+        s = _grad_scale(s, 1.0 / math.sqrt(max(x.numel(), 1) * n))
+    scale = exp(s).to(x.dtype)
+    return scale * quantize_unit(torch.div(x, scale), b, n)
+
+
+def lsb(s: torch.Tensor, bits: int) -> torch.Tensor:
+    """One quantization interval in real units, e^s / n (the noise unit)."""
+    e = exp(s)
+    return torch.div(e, _const(n_levels(bits), e))
 
 
 def quantize_to_int(x: torch.Tensor, s: torch.Tensor, *, bits: int, b: float,
@@ -222,11 +330,36 @@ def unpack_im2col_codes(packed: torch.Tensor, taps: int, cin: int,
     return w
 
 
-def init_scale(x: torch.Tensor) -> torch.Tensor:
-    """Log-scale s with e^s covering max|x|.
+def _percentile(a: torch.Tensor, percentile: float) -> torch.Tensor:
+    """``jnp.percentile(a, percentile)`` (linear) of a flat float32 tensor,
+    in the reference's float32 steps: q = p / 100 * (n - 1), the values at
+    floor(q) and ceil(q) weighted 1 - (q - floor q) and q - floor q.
+    ``torch.quantile`` lerps in another order and refuses more than 2^24
+    elements; ``kthvalue`` has no such limit."""
+    f32 = dict(dtype=torch.float32, device=a.device)
+    n = a.numel()
+    q = torch.div(torch.tensor(percentile, **f32), torch.tensor(100.0, **f32))
+    q = q * (torch.tensor(float(n), **f32) - 1)
+    lo, hi = torch.floor(q), torch.ceil(q)
+    w_hi = q - lo
+    w_lo = 1 - w_hi
+    top = torch.tensor(float(n), **f32) - 1
+    lo, hi = (int(torch.clamp(v, torch.zeros_like(top), top)) for v in (lo, hi))
+    v_lo = torch.kthvalue(a, lo + 1).values
+    v_hi = torch.kthvalue(a, hi + 1).values
+    return v_lo * w_lo + v_hi * w_hi
 
-    The reference's ``percentile`` option is not on the serving path and
-    is not ported yet.
-    """
-    m = torch.max(torch.abs(x.to(torch.float32)))
-    return torch.log(torch.clamp(m, min=1e-8))
+
+def init_scale(x: torch.Tensor, *, percentile: float = 100.0) -> torch.Tensor:
+    """Log-scale s with e^s covering max|x| (or a percentile of |x|)."""
+    a = torch.abs(x.detach().to(torch.float32))
+    m = torch.max(a) if percentile >= 100.0 else \
+        _percentile(a.flatten(), percentile)
+    return host_log(torch.clamp(m, min=1e-8))
+
+
+def host_log(v: torch.Tensor) -> torch.Tensor:
+    """float32 log of a scalar, taken on the host and placed back on v's
+    device: a log-scale set at initialisation, BN folding or calibration
+    then has the same bits on every device."""
+    return torch.log(v.detach().to("cpu", torch.float32)).to(v.device)

@@ -1,18 +1,21 @@
-"""DarkNet-19 (paper §4.1 Table 3): the integer serving path.
+"""DarkNet-19 (paper §4.1 Table 3).
 
-Counterpart of ``repro.models.darknet``. 19 convs (3x3 / 1x1), a 2x2
-max-pool between stages, a 1x1 classifier conv and a global average pool.
-Integer deployment (paper §3.4): the first conv and the classifier stay
-full precision; every conv between runs integer-in / integer-out on int8
-codes, and a conv followed by a pool runs as one op whose pool is fused
-into the conv kernel's epilogue (K3b).
+Counterpart of ``repro.models.darknet``. 19 convs (3x3 / 1x1), BN and
+leaky ReLU(0.1) after each, a 2x2 max-pool between stages, a 1x1
+classifier conv and a global average pool. The first conv and the
+classifier stay full precision (the paper's ImageNet protocol).
 
-The float FQ training path (``apply``, ``qat_apply``) is a later slice; this
-module builds a stack from random weights (``init`` -> ``to_fq`` ->
-``convert_int``) or serves one carried across from the reference
-(``repro_torch.interop``). ``noise`` + ``rng`` run the paper's §4.4 noise
-model on every integer conv, one key per conv (fused pool or not), split
-from ``rng`` as the reference splits it; the FP edge convs stay clean.
+``apply`` is the float network of every ladder stage (FP, Q, and FQ with
+BN folded by ``to_fq``, where quantized ReLUs replace BN + leaky ReLU),
+trained through straight-through gradients. Integer deployment (paper
+§3.4): every conv between the FP edges runs integer-in / integer-out on
+int8 codes, and a conv followed by a pool runs as one op whose pool is
+fused into the conv kernel's epilogue (K3b); ``int_apply`` serves a stack
+built with ``init`` -> ``to_fq`` -> ``convert_int`` or carried across from
+the reference (``repro_torch.interop``). ``noise`` + ``rng`` run the
+paper's §4.4 noise model on every conv, one key per conv, split from
+``rng`` as the reference splits it. The deployment-in-the-loop forward
+(``qat_apply``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core import fq_layers as fql
 from ..core import integer_inference as ii
@@ -65,6 +69,47 @@ def init(gen: torch.Generator, cfg: DarkNetConfig, *,
         cin = cout
     params["head"] = fql.init_fq_conv2d(gen, 1, cin, cfg.num_classes)
     return ii.to_device(params, dev), ii.to_device(state, dev)
+
+
+def _maxpool_train(h):
+    """2x2 / 2 VALID max-pool of NHWC floats whose gradient, like the
+    reference's ``-reduce_window(-h, min)``, goes to the first maximum of
+    each window (``amax`` would split it between ties, and FQ codes tie
+    often)."""
+    return F.max_pool2d(h.movedim(-1, 1), 2, 2).movedim(1, -1)
+
+
+def _leaky_relu(h):
+    """``jax.nn.leaky_relu(h, 0.1)``: gradient 1 at 0 (torch's is 0.1)."""
+    return torch.where(h >= 0, h, 0.1 * h)
+
+
+def apply(params, state, x, qcfg: QuantConfig, cfg: DarkNetConfig, *,
+          train: bool = False, rng=None, noise=None):
+    """x: (B, H, W, 3) -> (logits (B, num_classes), new BN state)."""
+    new_state = dict(state)
+    n_convs = sum(layer != "M" for layer in cfg.layers)
+    rngs = prng.layer_keys(rng, n_convs)
+    h, ci = x, 0
+    fp = QuantConfig(fq=qcfg.fq)
+    for layer in cfg.layers:
+        if layer == "M":
+            h = _maxpool_train(h)
+            continue
+        lq = fp if ci == 0 else qcfg  # the first conv stays FP
+        b_in = WEIGHT_BOUND if ci == 0 else RELU_BOUND
+        h = fql.fq_conv2d(params[f"conv{ci}"], h, lq, padding="SAME",
+                          b_in=b_in, relu_out=True, noise=noise,
+                          rng=rngs[ci])
+        if not lq.fq:
+            h, new_state[f"bn{ci}"] = fql.batchnorm(
+                params[f"bn{ci}"], state[f"bn{ci}"], h, train=train)
+            h = _leaky_relu(h)
+        ci += 1
+    # the classifier conv stays FP; GAP, the softmax is the loss's
+    h = fql.fq_conv2d(params["head"], h, QuantConfig(), padding="SAME",
+                      b_in=RELU_BOUND)
+    return torch.mean(h, dim=(1, 2)), new_state
 
 
 def to_fq(params, state, cfg: DarkNetConfig):

@@ -1,16 +1,18 @@
-"""Keyword-spotting network (paper §4.2, Figure 2): the integer serving path.
+"""Keyword-spotting network (paper §4.2, Figure 2).
 
 Counterpart of ``repro.models.kws``. MFCC frames -> FP fully connected
 embedding (N=100) -> BN -> 4-bit entry quantizer -> 7 dilated FQ-Conv1d
-layers (45 filters, k=3, VALID, exponential dilation), integer-in /
-integer-out -> decode -> global average pool -> FP head.
+layers (45 filters, k=3, VALID, exponential dilation) -> global average
+pool -> FP head.
 
-The float FQ training path (``apply``, ``qat_apply``) is a later slice; this
-module builds a stack from random weights (``init`` -> ``to_fq`` ->
-``convert_int``) or serves one carried across from the reference
-(``repro_torch.interop``). ``noise`` + ``rng`` run the paper's §4.4 noise
-model on every integer conv, one key per conv split from ``rng`` as the
-reference splits it.
+``apply`` is the float network of every ladder stage (FP, Q with BN and
+ReLU after each conv, FQ with BN folded by ``to_fq``), trained through
+straight-through gradients; ``int_apply`` serves the converted stack
+integer-in / integer-out (``init`` -> ``to_fq`` -> ``convert_int``, or a
+stack carried across from the reference with ``repro_torch.interop``).
+``noise`` + ``rng`` run the paper's §4.4 noise model on every conv, one
+key per conv split from ``rng`` as the reference splits it. The
+deployment-in-the-loop forward (``qat_apply``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -63,6 +65,29 @@ def init(gen: torch.Generator, cfg: KWSConfig, *, device: DeviceLike = None):
         cin = cfg.filters
     params["head"] = fql.init_dense(gen, cfg.filters, cfg.num_classes)
     return ii.to_device(params, dev), ii.to_device(state, dev)
+
+
+def apply(params, state, x, qcfg: QuantConfig, cfg: KWSConfig, *,
+          train: bool = False, rng=None, noise=None):
+    """x: (B, T, n_mfcc) -> (logits (B, num_classes), new BN state)."""
+    new_state = dict(state)
+    # FP expansive embedding (the paper keeps this layer full precision)
+    h = fql.dense(params["embed"], x)
+    h, new_state["embed_bn"] = fql.batchnorm(
+        params["embed_bn"], state["embed_bn"], h, train=train)
+    rngs = prng.layer_keys(rng, len(cfg.dilations))
+    for i, dil in enumerate(cfg.dilations):
+        # the first conv's input quantizer is Fig. 2's 4-bit entry quantize
+        h = fql.fq_conv1d(
+            params[f"conv{i}"], h, qcfg, dilation=dil, padding="VALID",
+            b_in=RELU_BOUND, relu_out=True, noise=noise, rng=rngs[i])
+        if not qcfg.fq:
+            # before FQ: BN + ReLU after each quantized conv
+            h, new_state[f"bn{i}"] = fql.batchnorm(
+                params[f"bn{i}"], state[f"bn{i}"], h, train=train)
+            h = torch.relu(h)
+    h = torch.mean(h, dim=1)  # FP global average pool (paper §3.4)
+    return fql.dense(params["head"], h), new_state
 
 
 def to_fq(params, state, cfg: KWSConfig):

@@ -435,13 +435,13 @@ def test_ternary_logits_within_tolerance(name):
                                atol=1e-4 * np.abs(want).max())
 
 
-def test_noise_and_quantized_modes_refused_packed_served():
-    """The quantized float modes are not ported and raise. Noise, once
-    refused, now runs: the noisy logits of the carried stack equal the
-    reference's given the same key, under every impl and pool fusion. The
-    packed formats are served: a packed stack serves the int8 stack's
-    logits under every impl, its noisy logits are the same under every
-    impl, and an unknown format raises."""
+def test_noise_quantized_modes_and_packed_served():
+    """The quantized float modes (Q and FQ) of ``fq_conv2d`` give the
+    reference's outputs on the carried params. Noise runs: the noisy logits
+    of the carried stack equal the reference's given the same key, under
+    every impl and pool fusion. The packed formats are served: a packed
+    stack serves the int8 stack's logits under every impl, its noisy logits
+    are the same under every impl, and an unknown format raises."""
     from repro.core.noise import TABLE7_CONDITIONS
     from repro_torch.core.noise import NoiseConfig
     st, (jcfg, tcfg, _, _) = _carried("reduced"), CFGS["reduced"]
@@ -479,5 +479,15 @@ def test_noise_and_quantized_modes_refused_packed_served():
                     noise=noise, rng=key), noisy)
     with pytest.raises(ValueError):
         tdn.convert_int(params, bn, QCFG, tcfg, weight_format="int2")
-    with pytest.raises(NotImplementedError):
-        tfql.fq_conv2d(params["conv0"], x, QCFG)
+    # Q and FQ mode: float32 conv sums in another order (1e-5 x max|y|);
+    # in FQ mode an output on a rounding boundary may flip a code, counted
+    # and bounded at 1e-4 of the outputs
+    for jq in (JQuantConfig(2, 4), JQCFG):
+        want = np.asarray(jfql.fq_conv2d(fq_params["conv0"], jnp.asarray(
+            x.numpy()), jq, padding="SAME", b_in=WEIGHT_BOUND,
+            relu_out=True))
+        got = tfql.fq_conv2d(params["conv0"], x, QuantConfig(
+            jq.bits_w, jq.bits_a, jq.bits_out, jq.fq), padding="SAME",
+            b_in=WEIGHT_BOUND, relu_out=True).numpy()
+        off = np.abs(got - want) > 1e-5 * np.abs(want).max()
+        assert got.shape == want.shape and off.mean() <= 1e-4, off.sum()

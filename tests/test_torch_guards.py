@@ -52,7 +52,10 @@ def test_source_imports_no_jax_or_reference(path):
 
 def test_import_leaves_jax_and_reference_unloaded():
     code = ("import sys, repro_torch.models.kws, repro_torch.interop, "
-            "repro_torch.kernels.ops, repro_torch.models.darknet\n"
+            "repro_torch.kernels.ops, repro_torch.models.darknet, "
+            "repro_torch.core.distill, repro_torch.core.gradual, "
+            "repro_torch.optim.sgd, repro_torch.optim.schedules, "
+            "repro_torch.tree\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
