@@ -67,6 +67,11 @@ def init(gen: torch.Generator, cfg: KWSConfig, *, device: DeviceLike = None):
     return ii.to_device(params, dev), ii.to_device(state, dev)
 
 
+def _relu(h):
+    """``jax.nn.relu``: gradient 0 at 0, as ``torch.relu``'s."""
+    return torch.relu(h)
+
+
 def apply(params, state, x, qcfg: QuantConfig, cfg: KWSConfig, *,
           train: bool = False, rng=None, noise=None):
     """x: (B, T, n_mfcc) -> (logits (B, num_classes), new BN state)."""
@@ -85,7 +90,7 @@ def apply(params, state, x, qcfg: QuantConfig, cfg: KWSConfig, *,
             # before FQ: BN + ReLU after each quantized conv
             h, new_state[f"bn{i}"] = fql.batchnorm(
                 params[f"bn{i}"], state[f"bn{i}"], h, train=train)
-            h = torch.relu(h)
+            h = _relu(h)
     h = torch.mean(h, dim=1)  # FP global average pool (paper §3.4)
     return fql.dense(params["head"], h), new_state
 

@@ -1,0 +1,251 @@
+"""Taps on a training forward, to hold one run of it against another.
+
+Two runs of one float forward (the port on the card and on the CPU, or the
+port against the JAX reference) sum in other orders, so where a value sits
+on a boundary the runs part on a discrete choice:
+
+  * a quantizer's code (a *code flip*: the input rounds to another code);
+  * whether the input sits on a clip bound, where the straight-through
+    gradient is 0.5, against 1 inside and 0 outside (a *tie flip*: a conv
+    of quantized operands sums to exactly 0 in one order and not in the
+    other);
+  * the element of a 2x2 max-pool window that is its maximum (a *pool
+    flip*: the gradient goes to another position);
+  * the side of 0 of a ReLU's or leaky ReLU's input (a *ReLU flip*:
+    gradient 1 against 0 or 0.1).
+
+Each moves one gradient term by O(1). :class:`Taps` wraps the functions
+that make those choices (``fq_layers.learned_quantize``, KWS's ReLU and
+DarkNet's pool and leaky ReLU), records their inputs, counts the positions
+where this run parts from a reference run's inputs and pins them to the
+reference's values (the value pinned, the gradient passed through), so that
+both runs differentiate the same forward. It also sums, for the leaves
+named in ``paths``, the magnitude M of the terms each one's gradient sums: a
+log-scale's over its quantizers and noise draws, BN's gamma and beta over
+positions. Those terms cancel, so float32 sums of them in two orders
+differ by ~sqrt(N) eps M, whatever the result.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+
+from . import tree
+from .core import fq_layers as fql
+from .core import quant
+from .models import darknet, kws
+
+# (module, function name) of each tapped function
+_TAPPED = ((fql, "learned_quantize"), (fql, "add_lsb_noise"),
+           (fql, "batchnorm"), (darknet, "_maxpool_train"),
+           (darknet, "_leaky_relu"), (kws, "_relu"))
+
+
+def category(x, e, b, n):
+    """(code, clip class) of ``x`` under the quantizer of scale ``e``,
+    lower bound ``b`` and ``n`` levels: the class is 0 below b, 1 on b, 2
+    inside, 3 on 1, 4 above 1."""
+    v = torch.div(x, e)
+    code = torch.round(torch.clamp(v, b, 1.0) * n)
+    cls = torch.where(v < b, 0, torch.where(v == b, 1, torch.where(
+        v < 1, 2, torch.where(v == 1, 3, 4))))
+    return code, cls
+
+
+def _pin(x, mask, ref):
+    """``ref``'s value at ``mask``, ``x``'s elsewhere; ``x``'s gradient."""
+    if not bool(mask.any()):
+        return x
+    return torch.where(mask, ref, x) + torch.where(
+        mask, x - x.detach(), torch.zeros_like(x))
+
+
+class Taps:
+    """A context in which ``fq_layers`` and the models' forwards run
+    through the taps (module doc).
+
+    ``record``: keep each quantizer's, pool's and (leaky) ReLU's input
+    (``calls``, ``pools``, ``relus``), to serve as another run's ``ref``.
+    ``ref``: a run's recorded inputs (a :class:`Taps`, or
+    :func:`recorded`), call by call; a kind it holds None for is not
+    compared. Positions whose code or class differ are counted and, with
+    ``pin``, pinned. ``paths``: {id(leaf): name} of the leaves whose M is
+    summed into ``mag`` as the backward runs.
+    """
+
+    def __init__(self, ref=None, *, pin: bool = True, record: bool = False,
+                 paths: Optional[Dict[int, str]] = None):
+        self.ref, self.pin, self.record = ref, pin, record
+        self.paths = paths or {}
+        self.calls, self.pools, self.relus = [], [], []
+        self.count = {"calls": 0, "pools": 0, "relus": 0}
+        self.mag: Dict[str, float] = {}
+        self.code_flips = self.tie_flips = self.positions = 0
+        self.pool_flips = self.windows = 0
+        self.relu_flips = self.relu_positions = 0
+
+    # -- bookkeeping -------------------------------------------------------
+
+    def _reference(self, kind, x):
+        """The reference's input of this call of ``kind``, on x's device,
+        or None where the reference has none of that kind."""
+        i = self.count[kind]
+        self.count[kind] += 1
+        refs = None if self.ref is None else getattr(self.ref, kind)
+        if refs is None:
+            return None
+        if i >= len(refs):
+            raise AssertionError(f"{kind}: call {i}, the reference made "
+                                 f"{len(refs)}")
+        ref = refs[i].to(x.device)
+        if ref.shape != x.shape:
+            raise AssertionError(f"{kind} {i}: {tuple(x.shape)}, the "
+                                 f"reference's {tuple(ref.shape)}")
+        return ref
+
+    def _keep(self, kind, x):
+        if self.record:
+            getattr(self, kind).append(x.detach().clone())
+
+    def _add(self, leaf, value):
+        name = self.paths[id(leaf)]
+        self.mag[name] = self.mag.get(name, 0.0) + value
+
+    def matched(self):
+        """Raises unless this run made as many calls of each kind as the
+        reference."""
+        for kind, n in self.count.items():
+            refs = getattr(self.ref, kind)
+            if refs is not None and len(refs) != n:
+                raise AssertionError(f"{kind}: {n} calls, the reference "
+                                     f"made {len(refs)}")
+
+    # -- the tapped functions ---------------------------------------------
+
+    def quantize(self, x, s, *, bits, b, stabilize=True):
+        lq = self._orig["learned_quantize"]
+        if bits is None or bits >= 32:
+            return lq(x, s, bits=bits, b=b, stabilize=stabilize)
+        n = quant.n_levels(bits)
+        g = 1.0 / math.sqrt(max(x.numel(), 1) * n) if stabilize else 1.0
+        ref = self._reference("calls", x)
+        if ref is not None:
+            sd = s.detach()
+            e = quant.exp(quant._grad_scale(sd, g) if stabilize else sd)
+            (code, cls), (code_r, cls_r) = (category(v, e.to(x.dtype), b, n)
+                                            for v in (x.detach(), ref))
+            cf = code != code_r
+            tf = (cls != cls_r) & ~cf
+            self.code_flips += int(cf.sum())
+            self.tie_flips += int(tf.sum())
+            self.positions += x.numel()
+            if self.pin:
+                x = _pin(x, cf | tf, ref)
+        self._keep("calls", x)
+        q = lq(x, s, bits=bits, b=b, stabilize=stabilize)
+        if q.requires_grad and id(s) in self.paths:
+            size = (q.detach().abs() + x.detach().abs()).double()
+            q.register_hook(lambda gq, s=s, size=size, g=g: self._add(
+                s, g * float((gq.double().abs() * size).sum())))
+        return q
+
+    def noise(self, x, key, sigma, s, bits):
+        y = self._orig["add_lsb_noise"](x, key, sigma, s, bits)
+        if y is not x and y.requires_grad and id(s) in self.paths:
+            d = (y - x).detach().abs().double()
+            y.register_hook(lambda gy, s=s, d=d: self._add(
+                s, float((gy.double().abs() * d).sum())))
+        return y
+
+    def batchnorm(self, p, st, x, **kw):
+        """M of gamma and beta: the L2 norm over channels of sum |dL/dy|
+        (beta) and of sum |dL/dy * x_hat| (gamma)."""
+        y, new = self._orig["batchnorm"](p, st, x, **kw)
+        if y.requires_grad and id(p["beta"]) in self.paths:
+            xhat = (y.detach() - p["beta"].detach()) / p["gamma"].detach()
+            dims = tuple(range(y.dim() - 1))
+
+            def hook(gy, p=p, xhat=xhat):
+                a = gy.double().abs()
+                self._add(p["beta"], float(a.sum(dims).norm()))
+                self._add(p["gamma"], float((a * xhat.abs()).sum(dims)
+                                            .norm()))
+            y.register_hook(hook)
+        return y, new
+
+    def pool(self, h):
+        ref = self._reference("pools", h)
+        if ref is not None:
+            idx = [torch.nn.functional.max_pool2d(
+                v.movedim(-1, 1), 2, 2, return_indices=True)[1]
+                for v in (h.detach(), ref)]
+            moved = idx[0] != idx[1]
+            self.pool_flips += int(moved.sum())
+            self.windows += moved.numel()
+            if self.pin and bool(moved.any()):
+                mask = moved.repeat_interleave(2, 2).repeat_interleave(2, 3)
+                mask = torch.nn.functional.pad(mask, (
+                    0, h.shape[2] - mask.shape[3],
+                    0, h.shape[1] - mask.shape[2])).movedim(1, -1)
+                h = _pin(h, mask, ref)
+        self._keep("pools", h)
+        return self._orig["_maxpool_train"](h)
+
+    def _signs(self, h):
+        ref = self._reference("relus", h)
+        if ref is not None:
+            mask = torch.sign(h.detach()) != torch.sign(ref)
+            self.relu_flips += int(mask.sum())
+            self.relu_positions += h.numel()
+            if self.pin:
+                h = _pin(h, mask, ref)
+        self._keep("relus", h)
+        return h
+
+    def relu(self, h):
+        return self._orig["_relu"](self._signs(h))
+
+    def leaky_relu(self, h):
+        return self._orig["_leaky_relu"](self._signs(h))
+
+    def __enter__(self):
+        self._orig = {name: getattr(mod, name) for mod, name in _TAPPED}
+        taps = {"learned_quantize": self.quantize,
+                "add_lsb_noise": self.noise, "batchnorm": self.batchnorm,
+                "_maxpool_train": self.pool, "_leaky_relu": self.leaky_relu,
+                "_relu": self.relu}
+        for mod, name in _TAPPED:
+            setattr(mod, name, taps[name])
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name in _TAPPED:
+            setattr(mod, name, self._orig[name])
+
+
+class recorded:
+    """Another run's recorded inputs as a ``Taps(ref=)``: tensors or
+    arrays, call by call; None for a kind not recorded."""
+
+    def __init__(self, calls=None, pools=None, relus=None):
+        self.calls, self.pools, self.relus = (
+            None if v is None else [torch.as_tensor(a) for a in v]
+            for v in (calls, pools, relus))
+
+
+def value_and_grad(fn: Callable, params, taps: Taps):
+    """``(value, aux), {path: grad}`` of ``fn(params) -> (value, aux)``
+    run through ``taps``, over fresh leaves as ``tree.value_and_grad``
+    takes them (zeros where the value does not depend on a leaf); the taps
+    sum M for every leaf."""
+    named = tree.named_leaves(params)
+    live = [t.detach().requires_grad_(True) for _, t in named]
+    taps.paths = {id(t): k for (k, _), t in zip(named, live)}
+    with taps, torch.enable_grad():
+        value, aux = fn(tree.unflatten(params, live))
+        grads = torch.autograd.grad(value, live, allow_unused=True)
+    return (value.detach(), aux), {
+        k: torch.zeros_like(t) if g is None else g
+        for (k, _), t, g in zip(named, live, grads)}

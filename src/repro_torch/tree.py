@@ -42,6 +42,17 @@ def leaves(t) -> List[Any]:
     return [leaf for k in kids for leaf in leaves(k)]
 
 
+def named_leaves(t, prefix: str = "") -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` in ``leaves`` order, a path the dict keys and list
+    indices from the root joined by dots (``"conv3.s_w"``)."""
+    kids = _children(t)
+    if kids is None:
+        return [(prefix[:-1], t)]
+    names = sorted(t) if isinstance(t, dict) else range(len(kids))
+    return [nl for k, kid in zip(names, kids)
+            for nl in named_leaves(kid, f"{prefix}{k}.")]
+
+
 def unflatten(t, values) -> Any:
     """A tree of ``t``'s structure holding ``values`` in leaf order."""
     it = iter(values)

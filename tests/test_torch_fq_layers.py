@@ -12,11 +12,13 @@ Where the two frameworks sum in another order (a conv, a BN statistic), a
 quantizer's input can land on the other side of a rounding boundary (a
 *code flip*) or on a clip bound in one framework and not in the other (a
 *tie flip*: the straight-through gradient is 0.5 at a bound, 1 inside and
-0 outside; discrete codes times weights make exact ties common). The
-helpers here count both at every quantizer, then run the port again with
-those inputs pinned to the reference's values (the value pinned, the
-gradient passed through), so that the gradients are held against the
-reference's on the same forward. Tolerances, stated beside each assert:
+0 outside; discrete codes times weights make exact ties common).
+``hold_against_reference`` counts both at every quantizer with
+``repro_torch.taps`` (the taps ``chip_smoke.py`` holds the card against
+the CPU with), then runs the port again with those inputs pinned to the
+reference's values (the value pinned, the gradient passed through), so
+that the gradients are held against the reference's on the same forward.
+Tolerances, stated beside each assert:
 
   * codes: bit-exact given the same operands; code flips <= 1e-4 of the
     positions (the expectation is 0); tie flips are counted and reported;
@@ -32,7 +34,6 @@ reference's on the same forward. Tolerances, stated beside each assert:
     terms carry the weight gradients' ~1e-6 relative differences.
 """
 import contextlib
-import math
 from unittest import mock
 
 import jax
@@ -45,12 +46,13 @@ from repro.core import fq_layers as jfql
 from repro.core import noise as jnoise
 from repro.core.quant import QuantConfig as JQuantConfig
 from repro.models import kws as jkws
-from repro_torch import interop
+from repro_torch import interop, tree
 from repro_torch.core import fq_layers as tfql
-from repro_torch.core import quant as tq
 from repro_torch.core.noise import NoiseConfig
 from repro_torch.core.quant import QuantConfig
 from repro_torch.models import kws as tkws
+from repro_torch.taps import Taps, recorded
+from repro_torch.taps import value_and_grad as taps_value_and_grad
 
 MAX_CODE_FLIPS = 1e-4   # of the quantized positions
 RTOL_FLOAT = 1e-5       # x max|y|, float32 sums in another order
@@ -68,8 +70,8 @@ def port_noise(c):
                                               c.sigma_mac)
 
 
-def np_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
+def np_tree(t):
+    return jax.tree_util.tree_map(np.asarray, t)
 
 
 def key_pair(seed):
@@ -78,7 +80,7 @@ def key_pair(seed):
 
 
 # ---------------------------------------------------------------------------
-# Quantizer taps: count code and tie flips, pin them, sum the terms of s
+# Quantizer taps (``repro_torch.taps``): the reference's side
 # ---------------------------------------------------------------------------
 
 
@@ -97,119 +99,6 @@ def reference_taps():
         yield taps
 
 
-def _category(x, e, b, n):
-    """(code, clip class) of x under the quantizer of scale e: the class is
-    0 below b, 1 on b, 2 inside, 3 on 1, 4 above 1."""
-    v = torch.div(x, e)
-    code = torch.round(torch.clamp(v, b, 1.0) * n)
-    cls = torch.where(v < b, 0, torch.where(v == b, 1, torch.where(
-        v < 1, 2, torch.where(v == 1, 3, 4))))
-    return code, cls
-
-
-class PortTaps:
-    """Wraps the quantizer and the noise that ``fq_layers`` calls: records
-    each quantizer's input and scale, pins inputs to the reference's values
-    at given positions (value pinned, gradient passed through) and, for the
-    leaves in ``paths`` ({id(leaf): name}), sums the magnitude M of the
-    terms of each log-scale's gradient as the backward runs."""
-
-    def __init__(self, pins=None, paths=None):
-        self.pins, self.paths = pins or {}, paths or {}
-        self.calls, self.mag = [], {}
-
-    def _add(self, s, value):
-        name = self.paths.get(id(s))
-        if name is not None:
-            self.mag[name] = self.mag.get(name, 0.0) + value
-
-    def quantize(self, x, s, *, bits, b, stabilize=True):
-        if bits is None or bits >= 32:
-            return self._lq(x, s, bits=bits, b=b, stabilize=stabilize)
-        i = len(self.calls)
-        if i in self.pins:
-            mask, ref = self.pins[i]
-            x = torch.where(mask, ref, x) + torch.where(
-                mask, x - x.detach(), torch.zeros_like(x))
-        n = tq.n_levels(bits)
-        g = 1.0 / math.sqrt(max(x.numel(), 1) * n) if stabilize else 1.0
-        sd = s.detach()
-        e = tq.exp(tq._grad_scale(sd, g) if stabilize else sd).to(x.dtype)
-        self.calls.append((x.detach().clone(), e, b, n))
-        q = self._lq(x, s, bits=bits, b=b, stabilize=stabilize)
-        if q.requires_grad and id(s) in self.paths:
-            size = (q.detach().abs() + x.detach().abs()).double()
-            q.register_hook(lambda gq, s=s, size=size, g=g: self._add(
-                s, g * float((gq.double().abs() * size).sum())))
-        return q
-
-    def noise(self, x, key, sigma, s, bits):
-        y = self._noise(x, key, sigma, s, bits)
-        if y is not x and y.requires_grad and id(s) in self.paths:
-            d = (y - x).detach().abs().double()
-            y.register_hook(lambda gy, s=s, d=d: self._add(
-                s, float((gy.double().abs() * d).sum())))
-        return y
-
-    @contextlib.contextmanager
-    def active(self):
-        self._lq, self._noise = tfql.learned_quantize, tfql.add_lsb_noise
-        with mock.patch.object(tfql, "learned_quantize", self.quantize), \
-                mock.patch.object(tfql, "add_lsb_noise", self.noise):
-            yield self
-
-
-def flips(ref_taps, port_calls):
-    """Per quantizer call: the positions whose code or clip class differs
-    from the reference's, as pins {call: (mask, reference input)}; and the
-    code flips, tie flips and positions in all."""
-    if len(ref_taps) != len(port_calls):
-        raise AssertionError(f"{len(ref_taps)} reference quantizer calls, "
-                             f"{len(port_calls)} in the port")
-    pins, codes, ties, total = {}, 0, 0, 0
-    for i, (ref, (x, e, b, n)) in enumerate(zip(ref_taps, port_calls)):
-        ref = torch.from_numpy(np.array(ref, copy=True))
-        if ref.shape != x.shape:
-            raise AssertionError(f"quantizer {i}: {tuple(ref.shape)} vs "
-                                 f"{tuple(x.shape)}")
-        cr, kr = _category(ref, e, b, n)
-        cp, kp = _category(x, e, b, n)
-        code, tie = cr != cp, (cr == cp) & (kr != kp)
-        codes, ties, total = (codes + int(code.sum()), ties + int(tie.sum()),
-                              total + x.numel())
-        if (code | tie).any():
-            pins[i] = (code | tie, ref)
-    return pins, codes, ties, total
-
-
-def _paths(tree, prefix=""):
-    if isinstance(tree, dict):
-        return [(p, v) for k in sorted(tree)
-                for p, v in _paths(tree[k], f"{prefix}{k}.")]
-    return [(prefix[:-1], tree)]
-
-
-def _unflatten(tree, values, prefix=""):
-    if isinstance(tree, dict):
-        return {k: _unflatten(v, values, f"{prefix}{k}.")
-                for k, v in tree.items()}
-    return values[prefix[:-1]]
-
-
-def port_value_and_grad(fn, params, taps):
-    """(loss, aux), {path: grad} of ``fn(params) -> (loss, aux)`` through
-    ``taps``, which learns the leaves' names (for M)."""
-    live = {p: v.detach().requires_grad_(True) for p, v in _paths(params)}
-    taps.paths = {id(v): p for p, v in live.items()}
-    with taps.active():
-        loss, aux = fn(_unflatten(params, live))
-        grads = torch.autograd.grad(loss, list(live.values()),
-                                    allow_unused=True)
-    return (loss.detach(), aux), {
-        p: torch.zeros_like(v) if g is None else g
-        for (p, v), g in zip(live.items(), grads)}
-
-
 def hold_against_reference(ref_fn, port_fn, jparams, tparams, *,
                            zero_leaves=(), loss_scale=None, label=""):
     """``ref_fn(p) -> (loss, out)`` (jax) and ``port_fn(p) -> (loss, out)``
@@ -223,31 +112,27 @@ def hold_against_reference(ref_fn, port_fn, jparams, tparams, *,
         (jloss, jout), jgrad = jax.value_and_grad(ref_fn, has_aux=True)(
             jparams)
         jax.block_until_ready(jgrad)
-    taps = PortTaps()
-    with taps.active(), torch.no_grad():
+    ref = recorded(calls=[np.array(a, copy=True) for a in rtaps])
+    # the port's own forward, its flips against the reference counted
+    counted = Taps(ref, pin=False)
+    with counted, torch.no_grad():
         _, tout0 = port_fn(tparams)
-    pins, code_flips, tie_flips, total = flips(rtaps, taps.calls)
-    for _ in range(4):  # pinning can move the inputs downstream
-        taps = PortTaps(pins)
-        (tloss, tout), tgrad = port_value_and_grad(port_fn, tparams, taps)
-        more, _, _, _ = flips(rtaps, taps.calls)
-        new = {i: m for i, m in more.items() if i not in pins
-               or (m[0] & ~pins[i][0]).any()}
-        if not new:
-            break
-        for i, (mask, ref) in new.items():
-            pins[i] = (mask | pins[i][0], ref) if i in pins else (mask, ref)
-    else:
-        raise AssertionError(f"{label}: flips did not settle")
+    counted.matched()
+    # again, each flipped quantizer input pinned to the reference's
+    pinned = Taps(ref)
+    (tloss, tout), tgrad = taps_value_and_grad(port_fn, tparams, pinned)
+    pinned.matched()
+    code_flips, tie_flips, total = (counted.code_flips, counted.tie_flips,
+                                    counted.positions)
     report = dict(code_flips=code_flips, tie_flips=tie_flips,
-                  positions=total, pinned=sum(int(m.sum()) for m, _ in
-                                              pins.values()))
+                  positions=total,
+                  pinned=pinned.code_flips + pinned.tie_flips)
     print(f"\n{label}: {report}")
     # code flips: <= 1e-4 of the positions (the expectation is 0)
     assert code_flips <= MAX_CODE_FLIPS * max(total, 1), report
     for name, jo, to in (("unpinned", jout, tout0), ("pinned", jout, tout)):
         for a, b in zip(jax.tree_util.tree_leaves(jo),
-                        jax.tree_util.tree_leaves(_torch_leaves(to))):
+                        tree.leaves(to)):
             a, b = np.asarray(a), b.detach().numpy()
             assert a.shape == b.shape
             # float32 sums in another order; unpinned, a counted code flip
@@ -274,7 +159,7 @@ def hold_against_reference(ref_fn, port_fn, jparams, tparams, *,
             assert np.linalg.norm(b) <= 1e-5 * gmax, name
             continue
         if leaf.startswith("s_"):
-            err, m = float(abs(b - a)), taps.mag.get(name, 0.0)
+            err, m = float(abs(b - a)), pinned.mag.get(name, 0.0)
             worst[name] = err / m if m else err
             assert err <= C_S * m, (f"{label} {name}: {b} vs {a}, |diff| "
                                     f"{err:.3g} > {C_S} x M = {C_S * m:.3g}")
@@ -284,14 +169,6 @@ def hold_against_reference(ref_fn, port_fn, jparams, tparams, *,
             assert rel <= RTOL_W, f"{label} {name}: rel L2 {rel:.3g}"
     report["worst"] = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
     return report
-
-
-def _torch_leaves(tree):
-    if isinstance(tree, dict):
-        return {k: _torch_leaves(v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return [_torch_leaves(v) for v in tree]
-    return tree
 
 
 # ---------------------------------------------------------------------------
