@@ -111,6 +111,36 @@ Phases, each of which must pass:
    clock, mean of 10), profiled busy share and top device ops, and peak
    memory, beside the card's name and power limit.
 
+13. train_qat: deploy-QAT, whose training forward is the deployed integer
+   path (K1, K3, K3b; K4 under noise) and whose backward is the float
+   FQ/STE surrogate. Full-width KWS (B=64, 140 frames) and DarkNet-19
+   (224 x 224, B=8) from seed SEED, BN folded by ``to_fq`` (DarkNet's
+   e^{s_w} at the 99th percentile of |w|) and ranges set by ``calibrate``,
+   each train ``QAT_STEPS`` ``QATFinetune`` steps on a synthetic training
+   set (``data.synthetic``), clean and then under Table 7's noisiest
+   condition (mac_chunks 1), softmax cross-entropy, SGD at QAT_LR, the
+   gradients clipped to a global norm of 1. It fails unless (a)
+   ``qat_apply`` equals ``int_apply`` of ``sync_handoff`` + ``convert_int``
+   of the same params bit for bit, clean and noisy with one key, at
+   mac_chunks 1 and 4 (KWS) and 2 (DarkNet, both ``fuse_pool``); (b) one
+   training step launches K1 once, K3 7 / 13 times and K3b 0 / 4 times,
+   K2 never, every conv launch noisy under noise; (c) a step's value and
+   gradients on the card agree with the CPU's from the card's params (the
+   CPU taking the card's entry codes, its own counted): integer codes
+   equal (clean) or within MAX_FLIP_FRACTION (noisy), logits, loss and
+   gradients within train_fq's bounds, the surrogate's discrete choices
+   pinned and bounded with ``repro_torch.taps`` (train_fq's limits, code
+   flips that are float32 rounding ties at a half-LSB boundary counted as
+   ties: ``check_flips``), every stale inner s_in's
+   gradient exactly 0; (d) a finetune advanced 1 + 2 steps equals one run
+   of 3 bit for bit under ``cudnn.deterministic``; (e) the trained params,
+   synced and rederived into the deployed stack, serve the logits of
+   ``qat_apply`` with the same key. It prints each model and condition's
+   step time (host clock, mean of 10), profiled busy share and device ops,
+   peak memory and the kernels' device time in one QAT forward against
+   ``int_apply``'s, beside the card's name and power limit; its launches
+   join the record as ``train_qat_<model>`` entries.
+
 It imports nothing of JAX or of the JAX package ``repro``. The second-to-
 last lines are the ``{"kernels": [...]}`` record (one entry per kernel and
 path) and the card's name and power limit; the last line is
@@ -2259,13 +2289,32 @@ FLIP_KINDS = (("code", "code_flips", "positions"),
 
 def add_flips(total, taps):
     """``total`` plus the flips and positions ``taps`` counted."""
-    for k in {k for _, n, of in FLIP_KINDS for k in (n, of)}:
+    for k in {k for _, n, of in FLIP_KINDS for k in (n, of)} | {
+            "round_ties"}:
         total[k] = total.get(k, 0) + getattr(taps, k)
     return total
 
 
-def check_flips(where, path, total):
-    """Fails where the CPU parted from the card more often than allowed."""
+def check_flips(where, path, total, rounding_ties=False):
+    """Fails where the CPU parted from the card more often than allowed.
+
+    With ``rounding_ties`` the code flips that are rounding ties (taps:
+    both inputs within float32 rounding of the half-LSB boundary between
+    the two codes) count as ties. Deploy-QAT's surrogate needs it: its
+    quantizers see sums of lattice values (the entry codes times ternary
+    weights, k units each), and calibrate sets e^{s_out} of the entry
+    layer to the largest of them, K units, so that layer's rescale is 7 / K
+    up to the rounding of log and exp; where K / 7 is even, every output of
+    K / 14 mod K / 7 units sits on a half-LSB boundary, and card and CPU
+    sums resolve such ties apart, as they resolve ties at a clip bound. An
+    H100 read 1.2e-3 of DarkNet's surrogate inputs flipped (K = 56: all in
+    conv1's outputs, within 1.5e-6 LSB of the boundary) and 8e-6 of KWS's.
+    The other code flips stay under TRAIN_MAX_CODE_FLIPS."""
+    total = dict(total)
+    if rounding_ties:
+        r = total.get("round_ties", 0)
+        total["code_flips"] -= r
+        total["tie_flips"] += r
     limits = {"code": TRAIN_MAX_CODE_FLIPS, "tie": TRAIN_MAX_TIE_FLIPS[path],
               "pool": TRAIN_MAX_POOL_FLIPS, "relu": TRAIN_MAX_RELU_FLIPS}
     parts = []
@@ -2275,8 +2324,9 @@ def check_flips(where, path, total):
         if flips > limits[kind] * positions:
             raise AssertionError(f"{where}: {kind} flips {flips} of "
                                  f"{positions} > {limits[kind]}")
-    print(f"{where}: CPU against card, flips pinned: " + ", ".join(parts),
-          flush=True)
+    print(f"{where}: CPU against card, flips pinned: " + ", ".join(parts)
+          + (f" (ties: {total.get('round_ties', 0)} rounding ties among "
+             "them)" if rounding_ties else ""), flush=True)
 
 
 def train_model(torch, dev, path, smi):
@@ -2477,21 +2527,25 @@ def compare_params(torch, where, card, cpu, bounds):
     return worst
 
 
-def check_train_step(torch, path, label, i, res, quantized, qcfg,
-                     on_grid=()):
-    """Card against CPU for one step: finite, logits, loss, gradients; in
-    the FQ stages every quantized layer live."""
-    (l_card, (lg_card, _)), g_card, _ = res["card"]
-    (l_cpu, (lg_cpu, _)), g_cpu, cpu_taps = res["cpu"]
+def compare_step(torch, where, card, cpu, mag, *, exact_zero=(),
+                 near_zero=()):
+    """One value and gradient, card against the CPU run from the same
+    params; ``card`` and ``cpu`` are (loss, logits, {leaf: gradient}).
+    Fails unless the card's are finite, the logits within TRAIN_RTOL_LOGITS
+    x max|logit| and the loss within TRAIN_RTOL_LOSS of the CPU's, and
+    every leaf's gradient agrees: ``exact_zero`` leaves exactly 0 on both,
+    ``near_zero`` ones (0 in exact arithmetic) within 1e-5 of the largest
+    gradient's norm on both, a leaf with a magnitude M in ``mag`` (taps:
+    the log-scales, BN's gamma and beta) within TRAIN_C_S x M, every other
+    within TRAIN_RTOL_W relative L2. Returns (max |logit diff|, (worst
+    |diff| / M, leaf), (worst relative L2, leaf))."""
+    (l_card, lg_card, g_card), (l_cpu, lg_cpu, g_cpu) = card, cpu
     lg_card, lg_cpu = lg_card.detach(), lg_cpu.detach()
-    mag = cpu_taps.mag  # of the log-scales and BN's gamma and beta
-    where = f"train_fq {path} {label} step {i}"
     if not (torch.isfinite(l_card) and torch.isfinite(lg_card).all()
             and all(torch.isfinite(g).all() for g in g_card.values())):
         raise AssertionError(f"{where}: loss, logits or gradients not "
                              "finite")
-    lg = lg_card.cpu()
-    d_logit = float((lg - lg_cpu).abs().max())
+    d_logit = float((lg_card.cpu() - lg_cpu).abs().max())
     if d_logit > TRAIN_RTOL_LOGITS * float(lg_cpu.abs().max()):
         raise AssertionError(f"{where}: logits off the CPU run by {d_logit}")
     if abs(float(l_card) - float(l_cpu)) > TRAIN_RTOL_LOSS * abs(
@@ -2501,34 +2555,53 @@ def check_train_step(torch, path, label, i, res, quantized, qcfg,
     worst_w, worst_s = (0.0, ""), (0.0, "")
     gmax = max(float(g.norm()) for g in g_cpu.values())
     for name, gc in g_cpu.items():
-        diff = g_card[name].cpu() - gc
-        err = float(diff.norm())
-        rel = err / float(gc.norm()) if gc.norm() > 0 else err
-        if name.rsplit(".", 1)[-1] == "w":
-            worst_w = max(worst_w, (rel, name))
-        if name in zero_by_construction(path, qcfg):
+        g = g_card[name].cpu()
+        if name in exact_zero:
+            if bool(g.any()) or bool(gc.any()):
+                raise AssertionError(f"{where}: {name} gradient not exactly "
+                                     f"0 (card {float(g.norm())}, CPU "
+                                     f"{float(gc.norm())})")
+            continue
+        if name in near_zero:
             # rounding noise on both sides, held at zero
-            if max(float(gc.norm()), float(g_card[name].norm())) > \
-                    1e-5 * gmax:
+            if max(float(gc.norm()), float(g.norm())) > 1e-5 * gmax:
                 raise AssertionError(f"{where}: {name} gradient not zero")
-        elif name in mag:
+            continue
+        err = float((g - gc).norm())
+        if name in mag:
             m = mag[name]
             if err > TRAIN_C_S * m:
                 raise AssertionError(f"{where}: {name} gradient off the "
                                      f"CPU's by {err} > {TRAIN_C_S} x M = "
                                      f"{TRAIN_C_S * m}")
             worst_s = max(worst_s, (err / m if m else 0.0, name))
-        elif rel > TRAIN_RTOL_W:
-            raise AssertionError(f"{where}: {name} gradient rel L2 {rel} > "
-                                 f"{TRAIN_RTOL_W}")
+        else:
+            rel = err / float(gc.norm()) if gc.norm() > 0 else err
+            if rel > TRAIN_RTOL_W:
+                raise AssertionError(f"{where}: {name} gradient rel L2 "
+                                     f"{rel} > {TRAIN_RTOL_W}")
+            worst_w = max(worst_w, (rel, name))
+    return d_logit, worst_s, worst_w
+
+
+def check_train_step(torch, path, label, i, res, quantized, qcfg,
+                     on_grid=()):
+    """Card against CPU for one step (:func:`compare_step`); in the FQ
+    stages every quantized layer live."""
+    (l_card, (lg_card, _)), g_card, _ = res["card"]
+    (l_cpu, (lg_cpu, _)), g_cpu, cpu_taps = res["cpu"]
+    where = f"train_fq {path} {label} step {i}"
+    d_logit, worst_s, worst_w = compare_step(
+        torch, where, (l_card, lg_card, g_card), (l_cpu, lg_cpu, g_cpu),
+        cpu_taps.mag, near_zero=zero_by_construction(path, qcfg))
     leaves = [f"{n}.{k}" for n in quantized
               for k in ("w", "s_w", "s_in", "s_out")]
     live = {k for k in leaves if bool((g_card[k] != 0).any())}
     zero = [k for k in leaves if k not in live]
     print(f"{where}: loss {float(l_card):.6f} (CPU {float(l_cpu):.6f}); "
           f"max |logit diff| {d_logit:.3g}; worst |diff| / M "
-          f"{worst_s[0]:.3g} ({worst_s[1]}); worst weight-gradient rel L2 "
-          f"{worst_w[0]:.3g} ({worst_w[1]})"
+          f"{worst_s[0]:.3g} ({worst_s[1]}); worst weight / bias gradient "
+          f"rel L2 {worst_w[0]:.3g} ({worst_w[1]})"
           + (f"; quantized layers' w, s_w, s_in, s_out: {len(zero)} zero "
              f"gradients {zero}, on the code grid {sorted(on_grid)}"
              if qcfg.fq else ""), flush=True)
@@ -2545,11 +2618,38 @@ def zero_by_construction(path, qcfg):
     return ("embed.b",) + (("embed_bn.beta",) if qcfg.is_fp else ())
 
 
+def time_step(torch, step, reps):
+    """``step()`` on the card: one warm-up, then TRAIN_TIMED steps on the
+    host clock (their peak memory), then ``reps`` profiled (busy share,
+    device ops, device time by name). Returns the row's numbers, the
+    names by time (``names``) and the printed text (``line``)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    wall, busy, ops, names = device_profile(torch, step, reps=reps,
+                                            top=10 ** 6)
+    line = (f"one step {ms:.4f} ms (host clock, mean of {TRAIN_TIMED}); "
+            f"profiled over {reps}: {wall:.4f} ms, device busy {busy:.4f} "
+            f"ms (share {busy / wall:.4f}), {ops:.1f} device ops; peak "
+            f"memory {peak:.1f} MiB; top: " + ", ".join(
+                f"{n[:60]} {t:.4f}" for n, t in names[:5]))
+    return {"ms": ms, "busy_ms": busy, "busy_share": busy / wall,
+            "device_ops": ops, "peak_mib": peak, "names": names,
+            "line": line}
+
+
 def time_train_step(torch, tree, path, label, opt, out, ost, qcfg, nz,
                     loss_fn, smi):
     """One training step on the card (value_and_grad + SGD update) from the
-    stage's end: host clock over TRAIN_TIMED steps, profiled busy share and
-    top device ops, peak memory. The steps' results are dropped."""
+    stage's end, timed by :func:`time_step` over 3 profiled steps. The
+    steps' results are dropped."""
     from repro_torch.core import prng
     p, st, t_logits = out
     key = (prng.fold_in(prng.PRNGKey(TRAIN_KEY), 99).to(
@@ -2561,24 +2661,10 @@ def time_train_step(torch, tree, path, label, opt, out, ost, qcfg, nz,
         (loss, _), g = vg(p)
         return opt.update(p, g, ost, 0)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED):
-        step()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    wall, busy, ops, top = device_profile(torch, step, reps=3, top=5)
-    print(f"train_fq {path} {label}: one step {ms:.4f} ms (host clock, mean "
-          f"of {TRAIN_TIMED}); profiled {wall:.4f} ms, device busy "
-          f"{busy:.4f} ms (share {busy / wall:.4f}), {ops:.1f} device ops; "
-          f"peak memory {peak:.1f} MiB; top: " + ", ".join(
-              f"{n[:60]} {t:.4f}" for n, t in top) + f"; {smi}", flush=True)
-    return {"path": path, "stage": label, "ms": ms, "busy_ms": busy,
-            "busy_share": busy / wall, "device_ops": ops, "peak_mib": peak}
+    t = time_step(torch, step, reps=3)
+    print(f"train_fq {path} {label}: {t.pop('line')}; {smi}", flush=True)
+    del t["names"]
+    return {"path": path, "stage": label, **t}
 
 
 def check_tf32_pinned(torch, tree, path, model, cfg, bundle, data, qcfg):
@@ -2656,6 +2742,407 @@ def phase_train_fq(torch, dev):
     if any(counts.values()):
         raise AssertionError(f"the training path launched K1-K5: {counts}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Deploy-QAT training (train_qat)
+# ---------------------------------------------------------------------------
+
+QAT_STEPS = 3              # QATFinetune steps a condition (1 + 2 against 3)
+QAT_LR = 0.01              # SGD, constant: the reference's QAT step smoke
+QAT_CLIP = 1.0             # clip_by_global_norm
+QAT_PROFILED = 2           # steps (int_apply calls) a profile runs
+QAT_DATA = {"kws": 256, "darknet": 32}   # synthetic training-set sizes
+QAT_DATA_KEY = 21          # PRNGKey of the datasets
+# mac_chunks of the forward-equals-int_apply check (the reference's test's)
+QAT_FWD_CHUNKS = {"kws": (1, 4), "darknet": (2,)}
+# launches of K1, K3 and K3b inside one training step of each model
+QAT_LAUNCHES = {"kws": {"quantize_codes": 1, "fq_matmul": 0,
+                        "fq_conv2d": 7, "fq_conv2d_pool": 0},
+                "darknet": {"quantize_codes": 1, "fq_matmul": 0,
+                            "fq_conv2d": 13, "fq_conv2d_pool": 4}}
+QAT_KERNEL_NAMES = ("quantize_codes_kernel", "fq_conv_kernel",
+                    "fq_conv_pool2_kernel", "fq_conv_pool_kernel",
+                    "fq_matmul_kernel")
+
+
+def qat_model(torch, dev, path):
+    """(module, cfg, data, BN-folded FQ params, state, integer conv names)
+    of one model on the card: the synthetic training set, init from seed
+    SEED, to_fq (DarkNet: e^{s_w} at the 99th percentile of |w|, C-ref-5)
+    and calibrate (3 iterations) on the set's first batch."""
+    from repro_torch.core import fq_layers as fql
+    from repro_torch.core import prng
+    from repro_torch.core.quant import QuantConfig, init_scale
+    from repro_torch.data import synthetic
+    from repro_torch.models import darknet, kws
+
+    fq = QuantConfig(2, 4, 4, fq=True)
+    key = prng.PRNGKey(QAT_DATA_KEY, device=dev)
+    if path == "kws":
+        model, cfg = kws, kws.KWSConfig()
+        data = synthetic.make_mfcc_dataset(
+            key, n=QAT_DATA[path], seq_len=cfg.seq_len, n_mfcc=cfg.n_mfcc,
+            num_classes=cfg.num_classes)
+        names = kws.conv_names(cfg)
+    else:
+        model, cfg = darknet, darknet.DarkNetConfig()
+        data = synthetic.make_image_dataset(
+            key, n=QAT_DATA[path], shape=(DN_SIZE, DN_SIZE,
+                                          cfg.in_channels),
+            num_classes=cfg.num_classes)
+        names = darknet.int_conv_names(cfg)
+    p, st = model.init(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    p = model.to_fq(p, st, cfg)
+    if path == "darknet":
+        for n in names:
+            p[n] = {**p[n], "s_w": init_scale(
+                p[n]["w"], percentile=TRAIN_DN_SW_PERCENTILE)}
+    x0 = data[0][:TRAIN_BATCH[path]]
+    p = fql.calibrate(lambda pp: model.apply(pp, st, x0, fq, cfg), p,
+                      iters=TRAIN_CAL_ITERS)
+    return model, cfg, data, p, st, names
+
+
+def qat_loss(torch, model, cfg, st, nz, **kw):
+    """fn(params, (x, y), rng) -> (softmax cross-entropy of ``qat_apply``,
+    logits)."""
+    from repro_torch.core import distill
+    from repro_torch.core.quant import QuantConfig
+    fq = QuantConfig(2, 4, 4, fq=True)
+
+    def fn(p, batch, rng):
+        x, y = batch
+        logits = model.qat_apply(p, st, x, fq, cfg, noise=nz, rng=rng, **kw)
+        onehot = torch.nn.functional.one_hot(y, cfg.num_classes).float()
+        return torch.mean(distill.softmax_cross_entropy(logits, onehot)), \
+            logits
+    return fn
+
+
+def qat_forward_is_int_apply(torch, path, model, cfg, p, st, x, noise):
+    """(a): ``qat_apply`` == ``int_apply`` of ``sync_handoff`` +
+    ``convert_int`` of the same params, bit for bit on the card, clean and
+    noisy with one key, at each of QAT_FWD_CHUNKS (DarkNet at both
+    ``fuse_pool``)."""
+    from repro_torch.core import integer_inference as ii
+    from repro_torch.core import prng
+    from repro_torch.core.quant import QuantConfig
+    fq = QuantConfig(2, 4, 4, fq=True)
+    names = (model.conv_names(cfg) if path == "kws"
+             else model.int_conv_names(cfg))
+    ip = model.convert_int(ii.sync_handoff(p, names), st, fq, cfg)
+    key = prng.PRNGKey(QAT_DATA_KEY + 1, device=x.device)
+    pools = (True, False) if path == "darknet" else (None,)
+    n = 0
+    with torch.no_grad():
+        for pool in pools:
+            kw = {} if pool is None else {"fuse_pool": pool}
+            for nz, rng, chunks in ([(None, None, 1)] + [
+                    (noise, key, c) for c in QAT_FWD_CHUNKS[path]]):
+                want = model.int_apply(ip, x, fq, cfg, noise=nz, rng=rng,
+                                       mac_chunks=chunks, **kw)
+                got = model.qat_apply(p, st, x, fq, cfg, noise=nz, rng=rng,
+                                      mac_chunks=chunks, **kw)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"train_qat {path}: qat_apply != int_apply "
+                        f"(noise {nz}, mac_chunks {chunks}, {kw}): max "
+                        f"|diff| {float((got - want).abs().max())}")
+                n += 1
+    print(f"train_qat {path}: qat_apply == int_apply(sync_handoff + "
+          f"convert_int) bit for bit on the card in {n} runs (clean; noisy "
+          f"with one key at mac_chunks {QAT_FWD_CHUNKS[path]}"
+          + (", fuse_pool True and False" if path == "darknet" else "")
+          + ")", flush=True)
+    return ip
+
+
+def qat_card_vs_cpu(torch, path, label, model, cfg, p, st, batch, key, nz,
+                    names):
+    """(c): one QAT value-and-gradient on the card and again on the CPU from
+    the card's params, batch and key, the CPU taking the card's entry codes
+    (its own counted against them) and its surrogate's discrete choices
+    pinned to the card's (``repro_torch.taps``; train_fq's limits, rounding
+    ties counted as ties). Fails unless the integer codes of every layer
+    are equal (clean) or differ in at most MAX_FLIP_FRACTION of them (noisy:
+    the code-domain normals are not bit-exact, C4), logits, loss and
+    gradients agree within train_fq's bounds (:func:`compare_step`), every
+    stale inner s_in's
+    gradient is exactly 0 on both, every layer's w and s_w and the entry
+    s_in get a gradient, and no layer's output codes are all 0. Returns the
+    card's gradients."""
+    from repro_torch import taps
+    from repro_torch.core import deploy_qat as dq
+    from repro_torch.core import integer_inference as ii
+
+    where = f"train_qat {path} {label}"
+    unit = "qat_conv1d" if path == "kws" else "qat_conv2d"
+    res = {}
+    for d, v in (("card", batch[0].device), ("cpu", torch.device("cpu"))):
+        codes, entry = [], []
+        orig_unit, orig_entry = getattr(dq, unit), ii.entry_codes
+
+        def unit_fn(*a, _orig=orig_unit, _codes=codes, **kw):
+            h, c = _orig(*a, **kw)
+            _codes.append(c)
+            return h, c
+
+        def entry_fn(h, pp, qcfg, *, b_in, _orig=orig_entry, _entry=entry,
+                     _d=d):
+            c = _orig(h, pp, qcfg, b_in=b_in)
+            _entry.append(c)
+            return res["card"]["entry"][0].cpu() if _d == "cpu" else c
+
+        fn = qat_loss(torch, model, cfg, ii.to_device(st, v), nz)
+        xb, yb = (t.to(v) for t in batch)
+        k = None if key is None else key.to(v)
+        t = taps.Taps(res["card"]["taps"] if d == "cpu" else None,
+                      record=d == "card")
+        setattr(dq, unit, unit_fn)
+        ii.entry_codes = entry_fn
+        try:
+            (loss, logits), grads = taps.value_and_grad(
+                lambda pp: fn(pp, (xb, yb), k), ii.to_device(p, v), t)
+        finally:
+            setattr(dq, unit, orig_unit)
+            ii.entry_codes = orig_entry
+        res[d] = dict(loss=loss, logits=logits.detach(), grads=grads,
+                      taps=t, codes=codes, entry=entry)
+    card, cpu = res["card"], res["cpu"]
+    cpu["taps"].matched()
+    # entry codes: the CPU's own from its float edge, counted (C2)
+    flips = int((cpu["entry"][0] != card["entry"][0].cpu()).sum())
+    n_entry = cpu["entry"][0].numel()
+    if flips > MAX_FLIP_FRACTION * n_entry:
+        raise AssertionError(f"{where}: {flips} of {n_entry} entry codes "
+                             "flipped")
+    differ = [int((a.cpu() != b).sum()) for a, b in zip(card["codes"],
+                                                        cpu["codes"])]
+    n_codes = sum(c.numel() for c in card["codes"])
+    if len(differ) != len(names) or (
+            sum(differ) > (MAX_FLIP_FRACTION * n_codes if nz else 0)):
+        raise AssertionError(f"{where}: integer codes card against CPU "
+                             f"differ per layer {differ} of {n_codes}")
+    live = {n: float((c != 0).double().mean())
+            for n, c in zip(names, card["codes"])}
+    dead = [n for n, share in live.items() if share == 0.0]
+    if dead:
+        raise AssertionError(f"{where}: all output codes 0 at {dead}")
+    stale = {f"{n}.s_in" for n in names[1:]}
+    d_logit, worst_s, worst_w = compare_step(
+        torch, where, (card["loss"], card["logits"], card["grads"]),
+        (cpu["loss"], cpu["logits"], cpu["grads"]), cpu["taps"].mag,
+        exact_zero=stale)
+    # every layer's weights and weight scale and the entry scale move; an
+    # s_out's surrogate gradient can be 0 in exact arithmetic (the
+    # reference's is, for KWS conv0 after calibrate at reduced width), so
+    # the zero ones are printed
+    want_live = [f"{n}.{k}" for n in names for k in ("w", "s_w")]
+    zero = [k for k in want_live + [f"{names[0]}.s_in"]
+            if not bool(card["grads"][k].any())]
+    if zero:
+        raise AssertionError(f"{where}: zero gradients at {zero}")
+    zero_out = [f"{n}.s_out" for n in names
+                if not bool(card["grads"][f"{n}.s_out"].any())]
+    check_flips(f"{where}: surrogate", path, add_flips({}, cpu["taps"]),
+                rounding_ties=True)
+    print(f"{where}: card against CPU from the card's params: loss "
+          f"{float(card['loss']):.6f} (CPU {float(cpu['loss']):.6f}); entry "
+          f"codes flipped {flips} of {n_entry}; integer codes differing per "
+          f"layer {differ} of {n_codes}; max |logit diff| {d_logit:.3g}; "
+          f"worst weight / bias gradient rel L2 {worst_w[0]:.3g} "
+          f"({worst_w[1]}); "
+          f"worst |diff| / M {worst_s[0]:.3g} ({worst_s[1]}); stale s_in "
+          f"gradients exactly 0 on both ({len(stale)}); zero s_out "
+          f"gradients {zero_out}; share of nonzero "
+          "output codes per layer " + " ".join(
+              f"{n}={v:.3f}" for n, v in live.items()), flush=True)
+    return card["grads"]
+
+
+def qat_step_counts(torch, path, ft, nz):
+    """(b): one QATFinetune step with every launch counter set to 0 just
+    before and read just after: K1, K3 and K3b launched QAT_LAUNCHES times
+    (K2 never), each conv launch noisy (K4) under noise, each DarkNet one
+    on the vector A loader. Returns (counts, noisy counts)."""
+    from repro_torch import kernels
+    _, counts, _ = counted(torch, kernels, lambda: ft.step(1))
+    noisy = kernels.noisy_launch_counts()
+    want = QAT_LAUNCHES[path]
+    want_noisy = {f"{k}_noisy": (want[k] if nz else 0)
+                  for k in kernels.NOISY}
+    vec = loaders(kernels, path, counts)
+    if counts != want or noisy != want_noisy:
+        raise AssertionError(f"train_qat {path}: one step launched {counts} "
+                             f"(noisy {noisy}), expected {want} (noisy "
+                             f"{want_noisy})")
+    print(f"kernels (train_qat {path}, one {'noisy ' if nz else ''}step): "
+          + " ".join(f"{k}={v}" for k, v in counts.items()) + " noisy "
+          + " ".join(f"{k}={v}" for k, v in noisy.items()) + vec,
+          flush=True)
+    return counts, noisy
+
+
+def qat_time_step(torch, path, label, loss_fn, opt, p, batch, key, model,
+                  cfg, st, names, nz, smi):
+    """One QAT training step (``make_qat_train_step``) timed by
+    :func:`time_step` over QAT_PROFILED profiled steps; and the device time
+    of the kernels (K1, K3, K3b) in one QAT forward against the same
+    ``int_apply``'s (of the same params, synced and converted)."""
+    from repro_torch.core import integer_inference as ii
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.train import trainer
+    fq = QuantConfig(2, 4, 4, fq=True)
+    ip = model.convert_int(ii.sync_handoff(p, names), st, fq, cfg)
+    step_fn = trainer.make_qat_train_step(
+        lambda pp, b, r: loss_fn(pp, b, r)[0], opt, clip_norm=QAT_CLIP)
+    ost = opt.init(p)
+
+    def step():
+        return step_fn(p, ost, batch, 0, key)
+
+    def kernel_ms(names):
+        return sum(t for n, t in names
+                   if any(k in n for k in QAT_KERNEL_NAMES))
+    # a profile costs seconds of host time here, so two: the step (whose
+    # one QAT forward launches every K1 / K3 / K3b of it) and int_apply
+    t = time_step(torch, step, reps=QAT_PROFILED)
+    k_qat = kernel_ms(t.pop("names"))
+    with torch.no_grad():
+        k_int = kernel_ms(device_profile(
+            torch, lambda: model.int_apply(ip, batch[0], fq, cfg, noise=nz,
+                                           rng=key),
+            reps=QAT_PROFILED, top=10 ** 6)[3])
+    print(f"train_qat {path} {label}: {t.pop('line')}; K1/K3/K3b device "
+          f"time in the step's QAT forward {k_qat:.5f} ms, in the same "
+          f"int_apply {k_int:.5f} ms; {smi}", flush=True)
+    return {"path": path, "stage": label, **t, "qat_kernel_ms": k_qat,
+            "int_kernel_ms": k_int}
+
+
+def qat_train_model(torch, dev, path, smi):
+    """One model's deploy-QAT on the card: checks (a)-(e) of
+    :func:`phase_train_qat`; returns its step-time rows and launch counts."""
+    from repro_torch import tree
+    from repro_torch.core import deploy_qat as dq
+    from repro_torch.core import integer_inference as ii
+    from repro_torch.core import prng
+    from repro_torch.core.noise import NoiseConfig, TABLE7_CONDITIONS
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.optim import schedules, sgd
+    from repro_torch.train import trainer
+
+    fq = QuantConfig(2, 4, 4, fq=True)
+    cond = TABLE7_CONDITIONS[-1]
+    noise = NoiseConfig(cond.sigma_w, cond.sigma_a, cond.sigma_mac)
+    clock = [time.perf_counter()]
+    spent = {}
+
+    def lap(part):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        spent[part] = spent.get(part, 0.0) + now - clock[0]
+        clock[0] = now
+
+    model, cfg, data, p, st, names = qat_model(torch, dev, path)
+    lap("data, init, to_fq, calibrate")
+    batch = TRAIN_BATCH[path]
+    ip = qat_forward_is_int_apply(torch, path, model, cfg, p, st,
+                                  data[0][:batch], noise)
+    lap("(a) forward == int_apply")
+    opt = sgd.make(schedules.constant(QAT_LR))
+    rows, launches = [], {}
+    for label, nz in (("clean", None), ("noisy", noise)):
+        loss_fn = qat_loss(torch, model, cfg, st, nz)
+
+        def finetune(params):
+            return trainer.QATFinetune(
+                lambda pp, b, r: loss_fn(pp, b, r)[0], params, opt,
+                data=data, steps=QAT_STEPS, batch=batch, seed=SEED,
+                clip_norm=QAT_CLIP)
+        # step 0's batch and key, as QATFinetune draws them
+        base = prng.PRNGKey(1000 + SEED, device=dev)
+        idx = prng.randint(prng.fold_in(base, 0), (batch,), 0,
+                           data[0].shape[0])
+        b0 = (data[0][idx], data[1][idx])
+        k0 = dq.train_step_key(base, 1)
+        qat_card_vs_cpu(torch, path, label, model, cfg, p, st, b0, k0, nz,
+                        names)
+        lap("(c) card against CPU")
+        det = torch.backends.cudnn.deterministic
+        try:
+            # (d) under cuDNN's deterministic algorithms: 1 + 2 steps
+            # against one run of 3, bit for bit (the noisy condition)
+            torch.backends.cudnn.deterministic = nz is not None
+            ft = finetune(p)
+            launches[label] = qat_step_counts(torch, path, ft, nz)
+            ft.step(QAT_STEPS - 1)
+            if nz is not None:
+                again = finetune(p).run()
+                same = all(torch.equal(a, b) for a, b in zip(
+                    tree.leaves(ft.params), tree.leaves(again)))
+                print(f"train_qat {path} {label}: QATFinetune 1 + "
+                      f"{QAT_STEPS - 1} steps {'==' if same else '!='} one "
+                      f"run of {QAT_STEPS}, bit for bit over "
+                      f"{len(tree.leaves(again))} leaves (cudnn."
+                      "deterministic)", flush=True)
+                if not same:
+                    raise AssertionError(f"train_qat {path}: QATFinetune "
+                                         "resumed != run to the end")
+        finally:
+            torch.backends.cudnn.deterministic = det
+        if not (ft.done and math.isfinite(ft.last_loss)):
+            raise AssertionError(f"train_qat {path} {label}: finetune "
+                                 f"ended at loss {ft.last_loss}")
+        moved = float(sum((a - b).norm() ** 2 for a, b in zip(
+            tree.leaves(ft.params), tree.leaves(p))) ** 0.5)
+        print(f"train_qat {path} {label}: {QAT_STEPS} QATFinetune steps, "
+              f"last loss {ft.last_loss:.6f}; params moved by {moved:.4g} "
+              "(L2)", flush=True)
+        if moved == 0.0:
+            raise AssertionError(f"train_qat {path} {label}: params did not "
+                                 "move")
+        lap("(b) (d) finetune steps")
+        rows.append(qat_time_step(torch, path, label, loss_fn, opt,
+                                  ft.params, b0, k0, model, cfg, st, names,
+                                  nz, smi))
+        lap("timing and profiles")
+        p = ft.params
+    # (e) hot swap: the trained params synced, the deployed stack rederived
+    # (extras too: the FP edges trained), served with a key == qat_apply
+    synced = ii.sync_handoff(p, names)
+    fresh = ip.rederive({n: synced[n] for n in names},
+                        extras=model.int_extras(synced, st, cfg))
+    key = prng.PRNGKey(QAT_DATA_KEY + 2, device=dev)
+    x = data[0][:batch]
+    with torch.no_grad():
+        served = model.int_apply(fresh, x, fq, cfg, noise=noise, rng=key)
+        trained = model.qat_apply(p, st, x, fq, cfg, noise=noise, rng=key)
+    changed = sum(not torch.equal(fresh[n]["w_codes"], ip[n]["w_codes"])
+                  for n in names)
+    same = torch.equal(served, trained)
+    print(f"train_qat {path}: hot swap, sync_handoff + rederive of the "
+          f"trained params ({changed} of {len(names)} layers' weight codes "
+          f"changed), noisy int_apply {'==' if same else '!='} qat_apply "
+          "with the same key, bit for bit", flush=True)
+    if not same:
+        raise AssertionError(f"train_qat {path}: the hot-swapped stack "
+                             "serves other logits than qat_apply")
+    lap("(e) hot swap")
+    print(f"train_qat {path}: seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in spent.items()), flush=True)
+    return rows, launches
+
+
+def phase_train_qat(torch, dev):
+    """Deploy-QAT of full-width KWS and DarkNet-19 on the card."""
+    smi = nvidia_smi()
+    rows, launches = [], {}
+    for path in ("kws", "darknet"):
+        r, launches[path] = qat_train_model(torch, dev, path, smi)
+        rows += r
+    return {"rows": rows, "launches": launches}
 
 
 def kernels_record(rows, counts, batch, per_apply, names=None):
@@ -2742,6 +3229,24 @@ def kernels_record_all(torch, results):
         for e in kernels_record(rows, dict.fromkeys(rows.rows, 0) | launched,
                                 rows_batch(path), per_apply):
             (record if e["name"] in launched else off_path).append(e)
+    # deploy-QAT: the kernels one training step launches (K1, K3, K3b; K4
+    # in the noisy steps, at mac_chunks 1), at the shapes of the record
+    # batches, which are the training batches
+    for path in ("kws", "darknet"):
+        counts, _ = results["train_qat"]["launches"][path]["clean"]
+        entries = kernels_record(
+            results[f"kernels_{path}"], counts, rows_batch(path),
+            per_apply if path == "darknet" else (lambda name, r: True),
+            [k for k, v in counts.items() if v])
+        _, noisy = results["train_qat"]["launches"][path]["noisy"]
+        launched = {noisy_name(k[:-len("_noisy")], "int8", 1): v
+                    for k, v in noisy.items() if v}
+        entries += kernels_record(results["kernels_noise"][path], launched,
+                                  rows_batch(path), per_apply,
+                                  list(launched))
+        for e in entries:
+            e["path"] = f"train_qat_{path}"
+        record += entries
     # the tensor-core loop's off-path edge rows (kernels_tc) count too
     for e in record + off_path:
         e["max_abs_err"] = max(e["max_abs_err"],
@@ -2772,7 +3277,8 @@ def kernels_record_all(torch, results):
             print(f"device ms per int_apply, {path} B={batch}: "
                   + " ".join(sums), flush=True)
     print(f"kernels record: launches from each path's counted serve run "
-          f"(packed kernels: that format's run); times per int_apply, KWS at "
+          f"(packed kernels: that format's run; train_qat_<model>: one "
+          f"training step, clean or noisy); times per int_apply, KWS at "
           f"request batch {max(BATCHES)}, DarkNet at {max(DN_BATCHES)} "
           f"(quantize_codes once, fq_matmul once per conv, fq_conv2d once per "
           f"unpooled conv and fq_conv2d_pool once per pooled conv, summed)")
@@ -2819,7 +3325,8 @@ def main() -> int:
             ("serve_kws", lambda: phase_serve_kws(torch, dev)),
             ("serve_darknet", lambda: phase_serve_darknet(torch, dev)),
             ("serve_batcher", lambda: phase_serve_batcher(torch, dev)),
-            ("train_fq", lambda: phase_train_fq(torch, dev))):
+            ("train_fq", lambda: phase_train_fq(torch, dev)),
+            ("train_qat", lambda: phase_train_qat(torch, dev))):
         print(f"== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -2847,6 +3354,12 @@ def main() -> int:
                     for f in ("int8",) + PACKED_FORMATS for c in CHUNKS
                     if (k != "fq_matmul" or f == "int8")
                     and not counts["noisy"].get(noisy_name(k, f, c))]
+        launches = results["train_qat"]["launches"][path]
+        missing += [f"train_qat {k}" for k in PATH_KERNELS[path]
+                    if k != "fq_matmul" and not launches["clean"][0][k]]
+        missing += [f"train_qat {k}_noisy" for k in PATH_KERNELS[path]
+                    if k in NOISE_REPLACES and k != "fq_matmul"
+                    and not launches["noisy"][1][f"{k}_noisy"]]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
     print(json.dumps({"kernels": kernels_record_all(torch, results)}))

@@ -62,8 +62,8 @@ def _validate_layer(p, out, name: Optional[str]):
 
 
 def convert_layer(p, qcfg: QuantConfig, *, relu_out: bool = True,
-                  final: bool = False, name: Optional[str] = None,
-                  weight_format: str = "int8"):
+                  final: bool = False, validate: bool = True,
+                  name: Optional[str] = None, weight_format: str = "int8"):
     """Trained FQ layer params -> integer deployment params.
 
     Returns ``w_codes`` plus the folded epilogue scalar: ``rescale`` (inner
@@ -71,7 +71,9 @@ def convert_layer(p, qcfg: QuantConfig, *, relu_out: bool = True,
     im2col layout (taps*cin, cout) int8; "int4"/"ternary" pack 2/4 codes
     per byte, conv weights with cin padded per tap to the pack factor. A
     format too narrow for bits_w codes raises (never clip a trained code).
-    The codes and the scalar are validated; a bad layer raises.
+    With ``validate`` the codes and the scalar are checked and a bad layer
+    raises; the checks read values back to the host, so the deploy-QAT
+    forward, which converts every layer in every step, passes False.
     """
     assert qcfg.fq and qcfg.bits_out is not None and qcfg.bits_w is not None
     tag = f"convert_layer({name or 'layer'})"
@@ -112,7 +114,8 @@ def convert_layer(p, qcfg: QuantConfig, *, relu_out: bool = True,
         out["rescale"] = ops.fold_rescale(
             p["s_in"], p["s_w"], p["s_out"], bits_a=qcfg.bits_a,
             bits_w=qcfg.bits_w, bits_out=qcfg.bits_out)
-    _validate_layer(p, out, name)
+    if validate:
+        _validate_layer(p, out, name)
     return out
 
 
@@ -142,7 +145,11 @@ class ConvertedStack:
 
     * ``layers``: {name: converted dict} from :func:`convert_layer`.
     * ``extras``: what the integer core does not own (FP edge layers, the
-      ``entry`` quantizer scale, the ``s_out_last`` decode scale).
+      ``entry`` quantizer scale, the ``s_out_last`` decode scale). Where
+      ``s_out_last`` is present and the output is coded, the stack adds
+      ``decode_scale`` = e^{s_out_last} / n, derived here whenever a stack
+      is made (so :meth:`rederive` and :meth:`to` keep it in step), so that
+      ``int_apply`` decodes with one multiply and no ``exp`` per request.
     * ``specs``/``qcfg``: the static conversion recipe, so the stack can
       re-derive itself from updated float weights (:meth:`rederive`).
 
@@ -157,11 +164,17 @@ class ConvertedStack:
         self.specs = tuple(specs)
         self.layers = dict(layers)
         self.extras = dict(extras)
+        if "s_out_last" in self.extras and qcfg.bits_out is not None:
+            self.extras["decode_scale"] = decode_scale(
+                self.extras["s_out_last"], qcfg.bits_out)
 
     def __getitem__(self, key: str):
         if key in self.layers:
             return self.layers[key]
         return self.extras[key]
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self else default
 
     def __contains__(self, key: str) -> bool:
         return key in self.layers or key in self.extras
@@ -217,7 +230,7 @@ class ConvertedStack:
             s_in = layer_params[self.specs[0].name]["s_in"]
             entry = {"s_in": s_in}
             if "inv_scale" in extras["entry"]:
-                entry["inv_scale"] = torch.exp(-torch.as_tensor(s_in))
+                entry["inv_scale"] = quant.exp(-torch.as_tensor(s_in))
             extras["entry"] = entry
         if "s_out_last" in extras:
             extras["s_out_last"] = layer_params[self.specs[-1].name]["s_out"]
@@ -286,7 +299,8 @@ def stack_digest(stack: ConvertedStack) -> str:
     C-order bytes, whatever its device). The port's ``entry.inv_scale``
     (e^{-s_in}, carried so the entry quantizer needs no ``exp``) has no
     reference leaf: it is a function of the hashed ``s_in`` and is left
-    out. A packed stack digests apart from its int8 twin: the format is in
+    out, as is ``decode_scale``, a function of ``s_out_last``. A packed
+    stack digests apart from its int8 twin: the format is in
     the specs and the bytes differ.
     """
     h = hashlib.blake2s(digest_size=10)
@@ -321,6 +335,7 @@ def stack_digest(stack: ConvertedStack) -> str:
         h.update(name.encode())
         walk(stack.layers[name])
     extras = dict(stack.extras)
+    extras.pop("decode_scale", None)
     if "entry" in extras:
         extras["entry"] = {k: v for k, v in extras["entry"].items()
                            if k != "inv_scale"}
@@ -450,9 +465,23 @@ def int_maxpool2d(codes, *, window: int = 2, stride: int = 2):
     return ops.maxpool2d(codes, window=window, stride=stride)
 
 
-def decode_output(codes_or_float, s_out, bits_out: Optional[int]):
-    """Final-layer codes -> real values: e^s / n * codes (paper §3.4)."""
+def decode_scale(s_out, bits_out: int) -> torch.Tensor:
+    """e^{s_out} / n, the multiplier that decodes final-layer codes, on
+    ``s_out``'s device (n as a tensor there: no host number divides)."""
+    e = quant.exp(torch.as_tensor(s_out))
+    return torch.div(e, torch.full_like(e, n_levels(bits_out)))
+
+
+def decode_output(codes_or_float, s_out, bits_out: Optional[int], *,
+                  scale=None):
+    """Final-layer codes -> real values: e^s / n * codes (paper §3.4).
+
+    ``scale`` is :func:`decode_scale` of ``s_out`` when the caller carries
+    it (a converted stack's ``decode_scale``); otherwise it is computed
+    here, as deploy-QAT does, whose ``s_out`` changes every step."""
     if bits_out is None:
         return codes_or_float
-    return (torch.exp(s_out) / n_levels(bits_out)
-            * codes_or_float.to(torch.float32))
+    if scale is None:
+        scale = decode_scale(
+            torch.as_tensor(s_out, device=codes_or_float.device), bits_out)
+    return scale * codes_or_float.to(torch.float32)

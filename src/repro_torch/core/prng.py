@@ -16,6 +16,9 @@ field. This module is the port's own copy of what that takes, from
     (hi, lo) words; ``split`` keeps both output words as the new key,
     ``bits`` their xor;
   * :func:`fold_in`: the hash of the counter pair (0, data);
+  * :func:`randint`: int32 draws in [minval, maxval) from 64 bits a draw
+    (the bits of both halves of a split key), reduced modulo the span as
+    jax 0.9's ``_randint`` does it in uint32 arithmetic;
   * :func:`uniform`: the mantissa trick, ``(bits >> 9) | 0x3F800000`` read
     as a float in [1, 2), minus 1, scaled, then ``max(lo, .)``;
   * :func:`normal`: ``sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))``,
@@ -131,6 +134,39 @@ def bits(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     shape = _shape(shape)
     y0, y1 = _hash_iota(key, math.prod(shape))
     return (y0 ^ y1).reshape(shape)
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod 2^32 of uint32 values held in int64: ``a`` split into its
+    16-bit halves, so no partial product reaches 2^63."""
+    lo = (a & 0xFFFF) * b
+    hi = (((a >> 16) * b) & 0xFFFF) << 16
+    return (lo + hi) & M32
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32), bit for
+    bit, as int64 values: the two halves of ``split(key)`` give the high
+    and low 32 bits of each draw, which is reduced modulo the span in
+    uint32 arithmetic (the multiplier 2^32 mod span taken as
+    (2^16 mod span)^2 mod span, the square wrapping at 2^32 as jax's does
+    for spans past 2^16); maxval <= minval gives minval. Both
+    bounds must be int32 values."""
+    check_key(key)
+    i32 = np.iinfo(np.int32)
+    for v in (minval, maxval):
+        if not i32.min <= int(v) <= i32.max:
+            raise ValueError(f"randint: bound {v} is not an int32 value")
+    shape = _shape(shape)
+    span = (int(maxval) - int(minval)) & M32 if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2 & M32) % span
+    k1, k2 = split(key)
+    higher, lower = bits(k1, shape), bits(k2, shape)
+    offset = (_mul32(higher % span, torch.full_like(higher, mult))
+              + lower % span) & M32
+    out = (int(minval) + offset % span) & M32
+    return torch.where(out > i32.max, out - (1 << 32), out)
 
 
 def uniform(key: torch.Tensor, shape: Shape = (), lo=0.0,

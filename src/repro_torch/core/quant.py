@@ -79,8 +79,14 @@ def _const(v, like: torch.Tensor) -> torch.Tensor:
 
 # XLA's float32 exp on the CPU (the reference's): Cephes' expf with every
 # multiply-add fused. Each fma is taken in float64, where the product of two
-# float32 values is exact, then rounded to float32.
-_EXP_LO, _EXP_HI = -88.3762626647949, 88.3762626647950
+# float32 values is exact, then rounded to float32. At the edges XLA is not
+# Cephes: the input is clamped just past ln(FLT_MAX) and n = round(s log2 e)
+# at 127, so e^s stays finite up to 88.7228 (r runs up to ln 2 there); and
+# results below FLT_MIN are flushed to 0 (XLA runs with denormals off).
+# Both edges checked against ``jnp.exp`` over every float32 in
+# [88.3, 88.8] and [-87.8, -87.2].
+_EXP_LO, _EXP_HI = -88.3762626647949, 88.73
+_FLT_MIN = 1.1754943508222875e-38
 _LOG2E = 1.44269504088896341
 _LN2_HI, _LN2_LO = 0.693359375, -2.12194440e-4
 _EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
@@ -101,7 +107,7 @@ class _ExpXLA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, s):
         x = torch.clamp(s.float(), _f32(_EXP_LO), _f32(_EXP_HI))
-        fx = torch.floor(_fma32(x, _f32(_LOG2E), 0.5))
+        fx = torch.clamp(torch.floor(_fma32(x, _f32(_LOG2E), 0.5)), max=127.0)
         r = _fma32(fx, -_f32(_LN2_HI), x.double())
         r = _fma32(fx, -_f32(_LN2_LO), r.double())
         y = torch.full_like(r, _f32(_EXP_POLY[0]))
@@ -110,6 +116,7 @@ class _ExpXLA(torch.autograd.Function):
         y = _fma32(y, (r * r).double(), r.double()) + 1.0
         two_n = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
         out = y * two_n
+        out = torch.where(out < _FLT_MIN, torch.zeros_like(out), out)
         ctx.save_for_backward(out)
         return out
 
@@ -121,9 +128,10 @@ class _ExpXLA(torch.autograd.Function):
 
 def exp(s: torch.Tensor) -> torch.Tensor:
     """float32 e^s bit for bit as the reference computes it (XLA on the CPU;
-    ``torch.exp`` is 1 ulp off in ~9.6% of inputs, C1), on any device; its
-    gradient is e^s. For the scalar log-scales of the quantizers, where an
-    ulp of e^s moves a value across a rounding boundary or a clip bound."""
+    ``torch.exp`` is 1 ulp off in ~9.6% of inputs, C1), on any device and
+    over the whole float32 range; its gradient is e^s. For the log-scales
+    of the quantizers and the integer folds, where an ulp of e^s moves a
+    value across a rounding boundary or a clip bound."""
     return _ExpXLA.apply(s)
 
 
@@ -170,16 +178,16 @@ def quantize_to_int(x: torch.Tensor, s: torch.Tensor, *, bits: int, b: float,
                     dtype: torch.dtype = torch.int8) -> torch.Tensor:
     """Integer codes round(clip(x/e^s, b, 1) * n); real value = e^s / n * code."""
     n = n_levels(bits)
-    scale = torch.exp(torch.as_tensor(s, device=x.device)).to(x.dtype)
-    return torch.round(torch.clamp(x / scale, b, 1.0) * n).to(dtype)
+    scale = exp(torch.as_tensor(s, device=x.device)).to(x.dtype)
+    return torch.round(torch.clamp(torch.div(x, scale), b, 1.0)
+                       * n).to(dtype)
 
 
 def dequantize_int(codes: torch.Tensor, s: torch.Tensor, *,
                    bits: int) -> torch.Tensor:
     """Inverse of :func:`quantize_to_int`: e^s * code / n."""
-    n = n_levels(bits)
-    s = torch.as_tensor(s, device=codes.device)
-    return torch.exp(s) * codes.to(torch.float32) / n
+    v = exp(torch.as_tensor(s, device=codes.device)) * codes.to(torch.float32)
+    return torch.div(v, torch.full_like(v, n_levels(bits)))
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..core.quant import n_levels, unpack_im2col_codes
+from ..core.quant import exp, n_levels, unpack_im2col_codes
 from .fq_conv import check_weights, conv_out_size, fq_conv1d, fq_conv2d
 from .fq_matmul import fq_matmul
 from .quantize import quantize_codes
@@ -51,16 +51,26 @@ def conv_impl(explicit: Optional[str] = None,
     return "fused" if device is not None and device.type == "cuda" else "im2col"
 
 
+# The folds are the reference's expressions in its order of operations,
+# e^s by ``core.quant.exp`` (XLA's) and every division tensor by tensor
+# (CUDA turns ``t / <python number>`` into a reciprocal multiply), so the
+# folded scalars are the reference's bit for bit on any device. Constants
+# are filled on the device (``full_like``): no host copy, so the integer
+# path stays capturable in a CUDA graph.
+
+
 def fold_rescale(s_a, s_w, s_out, *, bits_a: int, bits_w: int, bits_out: int):
     """rescale = e^(s_a + s_w - s_out) * n_out / (n_a * n_w), one scalar."""
     n_a, n_w, n_o = (n_levels(b) for b in (bits_a, bits_w, bits_out))
-    return torch.exp(s_a + s_w - s_out) * (n_o / (n_a * n_w))
+    e = exp(s_a + s_w - s_out)
+    return e * torch.full_like(e, n_o / (n_a * n_w))
 
 
 def fold_alpha(s_a, s_w, *, bits_a: int, bits_w: int):
     """alpha = e^(s_a + s_w) / (n_a n_w): int32 accumulator -> real value."""
     n_a, n_w = n_levels(bits_a), n_levels(bits_w)
-    return torch.exp(s_a + s_w) / (n_a * n_w)
+    e = exp(s_a + s_w)
+    return torch.div(e, torch.full_like(e, n_a * n_w))
 
 
 def int_matmul(a_codes, b_codes, scale, *, epilogue="requant", n_out=7, lo=0,
@@ -77,10 +87,10 @@ def quantize_to_codes(x, s, *, bits: int, b: float, inv_scale=None):
     """Float activations -> int8 codes through K1.
 
     ``inv_scale`` is e^{-s} when the caller carries it (a converted stack
-    does); otherwise it is computed here with ``torch.exp``.
+    does); otherwise it is computed here with ``core.quant.exp``.
     """
     if inv_scale is None:
-        inv_scale = torch.exp(-s)
+        inv_scale = exp(-s)
     flat = x.reshape(-1, x.shape[-1]).contiguous()
     codes = quantize_codes(flat, inv_scale, n=n_levels(bits), b=b)
     return codes.reshape(x.shape)
@@ -160,10 +170,17 @@ def maxpool2d(y, *, window: int = 2, stride: int = 2):
     """VALID max-pool, floor mode, on int8 codes or f32 activations (NHWC).
 
     On codes this is exact because the learned quantizer is monotone: max
-    commutes with requantization. Plain PyTorch (a strided window view and
-    ``amax``): the reference computes it with ``reduce_window``, outside
-    any Pallas kernel, and ``F.max_pool2d`` has no int8 CUDA kernel.
+    commutes with requantization. Plain PyTorch: the reference computes it
+    with ``reduce_window``, outside any Pallas kernel. Floats take
+    ``F.max_pool2d``, whose gradient goes to the first maximum of each
+    window, as ``reduce_window``'s does (decoded codes tie often; ``amax``
+    would split the gradient between ties). Codes take a strided window
+    view and ``amax``: ``F.max_pool2d`` has no int8 CUDA kernel, and codes
+    carry no gradient.
     """
+    if y.is_floating_point():
+        return F.max_pool2d(y.movedim(-1, 1), window, stride).movedim(
+            1, -1).contiguous()
     win = y.unfold(1, window, stride).unfold(2, window, stride)
     return win.amax(dim=(-2, -1)).contiguous()
 

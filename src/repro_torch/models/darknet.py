@@ -14,8 +14,9 @@ fused into the conv kernel's epilogue (K3b); ``int_apply`` serves a stack
 built with ``init`` -> ``to_fq`` -> ``convert_int`` or carried across from
 the reference (``repro_torch.interop``). ``noise`` + ``rng`` run the
 paper's §4.4 noise model on every conv, one key per conv, split from
-``rng`` as the reference splits it. The deployment-in-the-loop forward
-(``qat_apply``) is not ported yet.
+``rng`` as the reference splits it. ``qat_apply`` is the
+deployment-in-the-loop forward (``core.deploy_qat``): the value of
+``int_apply`` of the converted params, the gradient of the float FQ path.
 """
 from __future__ import annotations
 
@@ -23,11 +24,11 @@ import dataclasses
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
+from ..core import deploy_qat as dq
 from ..core import fq_layers as fql
 from ..core import integer_inference as ii
-from ..core import prng
+from ..core import prng, quant
 from ..core.quant import QuantConfig, RELU_BOUND, WEIGHT_BOUND
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
@@ -71,14 +72,6 @@ def init(gen: torch.Generator, cfg: DarkNetConfig, *,
     return ii.to_device(params, dev), ii.to_device(state, dev)
 
 
-def _maxpool_train(h):
-    """2x2 / 2 VALID max-pool of NHWC floats whose gradient, like the
-    reference's ``-reduce_window(-h, min)``, goes to the first maximum of
-    each window (``amax`` would split it between ties, and FQ codes tie
-    often)."""
-    return F.max_pool2d(h.movedim(-1, 1), 2, 2).movedim(1, -1)
-
-
 def _leaky_relu(h):
     """``jax.nn.leaky_relu(h, 0.1)``: gradient 1 at 0 (torch's is 0.1)."""
     return torch.where(h >= 0, h, 0.1 * h)
@@ -94,7 +87,7 @@ def apply(params, state, x, qcfg: QuantConfig, cfg: DarkNetConfig, *,
     fp = QuantConfig(fq=qcfg.fq)
     for layer in cfg.layers:
         if layer == "M":
-            h = _maxpool_train(h)
+            h = ops.maxpool2d(h)  # gradient to each window's first maximum
             continue
         lq = fp if ci == 0 else qcfg  # the first conv stays FP
         b_in = WEIGHT_BOUND if ci == 0 else RELU_BOUND
@@ -167,7 +160,7 @@ def int_extras(params, state, cfg: DarkNetConfig):
     names = int_conv_names(cfg)
     s_in = params[names[0]]["s_in"]
     return {"conv0": params["conv0"], "head": params["head"],
-            "entry": {"s_in": s_in, "inv_scale": torch.exp(-s_in)},
+            "entry": {"s_in": s_in, "inv_scale": quant.exp(-s_in)},
             "s_out_last": params[names[-1]]["s_out"]}
 
 
@@ -229,8 +222,42 @@ def int_apply(ip, x, qcfg: QuantConfig, cfg: DarkNetConfig, *, impl=None,
     codes = ii.entry_codes(h, ip["entry"], qcfg, b_in=RELU_BOUND)
     codes = int_core(ip, codes, qcfg, cfg, impl=impl, fuse_pool=fuse_pool,
                      noise=noise, rng=rng, mac_chunks=mac_chunks)
-    h = ii.decode_output(codes, ip["s_out_last"], qcfg.bits_out)
+    h = ii.decode_output(codes, ip["s_out_last"], qcfg.bits_out,
+                         scale=ip.get("decode_scale"))
     h = fql.fq_conv2d(ip["head"], h, QuantConfig(), padding="SAME",
+                      b_in=RELU_BOUND)
+    return torch.mean(h, dim=(1, 2))
+
+
+def qat_apply(params, state, x, qcfg: QuantConfig, cfg: DarkNetConfig, *,
+              impl=None, fuse_pool: bool = True, noise=None, rng=None,
+              mac_chunks: int = 1):
+    """Deployment-in-the-loop forward: value == ``int_apply`` of the
+    converted params (same codes, same noise draws), gradient == the float
+    FQ/STE path. ``params`` must be BN-folded (after ``to_fq``); ``state``
+    is unused (BN is folded) and kept for the signature's symmetry.
+    """
+    plan = layer_plan(cfg, fuse_pool)
+    rngs = prng.layer_keys(rng, sum(s[0] == "conv" for s in plan))
+    h, codes, s_prev, li = x, None, None, 0
+    for step in plan:
+        if step[0] == "fp_conv":
+            h = fql.fq_conv2d(params["conv0"], h, QuantConfig(fq=qcfg.fq),
+                              padding="SAME", b_in=WEIGHT_BOUND)
+        elif step[0] == "pool":
+            if codes is None:
+                h = ops.maxpool2d(h)  # pre-entry FP pool (differentiable)
+            else:
+                h, codes = dq.qat_maxpool2d(h, codes)
+        else:
+            _, name, ks, pooled = step
+            h, codes = dq.qat_conv2d(params[name], h, codes, qcfg, ksize=ks,
+                                     pool=2 if pooled else None, s_in=s_prev,
+                                     noise=noise, rng=rngs[li],
+                                     mac_chunks=mac_chunks, impl=impl)
+            s_prev = params[name]["s_out"]
+            li += 1
+    h = fql.fq_conv2d(params["head"], h, QuantConfig(), padding="SAME",
                       b_in=RELU_BOUND)
     return torch.mean(h, dim=(1, 2))
 

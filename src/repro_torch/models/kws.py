@@ -11,8 +11,10 @@ straight-through gradients; ``int_apply`` serves the converted stack
 integer-in / integer-out (``init`` -> ``to_fq`` -> ``convert_int``, or a
 stack carried across from the reference with ``repro_torch.interop``).
 ``noise`` + ``rng`` run the paper's §4.4 noise model on every conv, one
-key per conv split from ``rng`` as the reference splits it. The
-deployment-in-the-loop forward (``qat_apply``) is not ported yet.
+key per conv split from ``rng`` as the reference splits it.
+``qat_apply`` is the deployment-in-the-loop forward (``core.deploy_qat``):
+the value of ``int_apply`` of the converted params, the gradient of the
+float FQ path.
 """
 from __future__ import annotations
 
@@ -21,9 +23,10 @@ from typing import Tuple
 
 import torch
 
+from ..core import deploy_qat as dq
 from ..core import fq_layers as fql
 from ..core import integer_inference as ii
-from ..core import prng
+from ..core import prng, quant
 from ..core.quant import QuantConfig, RELU_BOUND
 from ..device import DeviceLike, resolve_device
 
@@ -127,7 +130,7 @@ def int_extras(params, state, cfg: KWSConfig):
         "embed": params["embed"],
         "embed_bn": (params["embed_bn"], state["embed_bn"]),
         "head": params["head"],
-        "entry": {"s_in": s_in, "inv_scale": torch.exp(-s_in)},
+        "entry": {"s_in": s_in, "inv_scale": quant.exp(-s_in)},
         "s_out_last": params[names[-1]]["s_out"],
     }
 
@@ -162,9 +165,35 @@ def int_apply(ip, x, qcfg: QuantConfig, cfg: KWSConfig, *, impl=None,
     codes = ii.entry_codes(h, ip["entry"], qcfg, b_in=RELU_BOUND)
     codes = int_core(ip, codes, qcfg, cfg, impl=impl, noise=noise, rng=rng,
                      mac_chunks=mac_chunks)
-    h = ii.decode_output(codes, ip["s_out_last"], qcfg.bits_out)
+    h = ii.decode_output(codes, ip["s_out_last"], qcfg.bits_out,
+                         scale=ip.get("decode_scale"))
     h = torch.mean(h, dim=1)  # FP global average pool (paper §3.4)
     return fql.dense(ip["head"], h)
+
+
+def qat_apply(params, state, x, qcfg: QuantConfig, cfg: KWSConfig, *,
+              impl=None, noise=None, rng=None, mac_chunks: int = 1):
+    """Deployment-in-the-loop forward: value == ``int_apply`` of the
+    converted params (same codes, same noise draws for the same key, sigma
+    and ``mac_chunks``), gradient == the float FQ/STE path.
+
+    ``params`` must be BN-folded FQ params (after ``to_fq``). Layer i reads
+    layer i-1's s_out, so the stored inner s_in go stale in training:
+    ``sync_handoff`` before converting. One plan and one key split with
+    ``int_apply``.
+    """
+    plan = layer_plan(cfg)
+    h = fql.dense(params["embed"], x)
+    h, _ = fql.batchnorm(params["embed_bn"], state["embed_bn"], h)
+    codes, s_prev = None, None
+    for (name, dil), r in zip(plan, prng.layer_keys(rng, len(plan))):
+        h, codes = dq.qat_conv1d(params[name], h, codes, qcfg,
+                                 ksize=cfg.ksize, dilation=dil, s_in=s_prev,
+                                 noise=noise, rng=r, mac_chunks=mac_chunks,
+                                 impl=impl)
+        s_prev = params[name]["s_out"]
+    h = torch.mean(h, dim=1)  # FP global average pool (paper §3.4)
+    return fql.dense(params["head"], h)
 
 
 def int_serve_fn(ip, qcfg: QuantConfig, cfg: KWSConfig, **kw):

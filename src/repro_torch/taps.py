@@ -4,7 +4,10 @@ Two runs of one float forward (the port on the card and on the CPU, or the
 port against the JAX reference) sum in other orders, so where a value sits
 on a boundary the runs part on a discrete choice:
 
-  * a quantizer's code (a *code flip*: the input rounds to another code);
+  * a quantizer's code (a *code flip*: the input rounds to another code;
+    a *rounding tie* where both runs' inputs lie within float32 rounding
+    of the half-LSB boundary between the two codes, as sums of lattice
+    values do);
   * whether the input sits on a clip bound, where the straight-through
     gradient is 0.5, against 1 inside and 0 outside (a *tie flip*: a conv
     of quantized operands sums to exactly 0 in one order and not in the
@@ -15,8 +18,9 @@ on a boundary the runs part on a discrete choice:
     gradient 1 against 0 or 0.1).
 
 Each moves one gradient term by O(1). :class:`Taps` wraps the functions
-that make those choices (``fq_layers.learned_quantize``, KWS's ReLU and
-DarkNet's pool and leaky ReLU), records their inputs, counts the positions
+that make those choices (``fq_layers.learned_quantize``, KWS's ReLU,
+DarkNet's leaky ReLU and the float max-pool ``kernels.ops.maxpool2d``;
+a pool of int8 codes passes through untapped), records their inputs, counts the positions
 where this run parts from a reference run's inputs and pins them to the
 reference's values (the value pinned, the gradient passed through), so that
 both runs differentiate the same forward. It also sums, for the leaves
@@ -35,23 +39,38 @@ import torch
 from . import tree
 from .core import fq_layers as fql
 from .core import quant
+from .kernels import ops
 from .models import darknet, kws
+
+# A code flip is a rounding tie where both inputs lie within this much of
+# the half-LSB boundary, relative to the boundary (in LSBs, at least 1):
+# 128 float32 ulps
+ROUND_TIE_EPS = 2.0 ** -16
 
 # (module, function name) of each tapped function
 _TAPPED = ((fql, "learned_quantize"), (fql, "add_lsb_noise"),
-           (fql, "batchnorm"), (darknet, "_maxpool_train"),
+           (fql, "batchnorm"), (ops, "maxpool2d"),
            (darknet, "_leaky_relu"), (kws, "_relu"))
 
 
 def category(x, e, b, n):
-    """(code, clip class) of ``x`` under the quantizer of scale ``e``,
-    lower bound ``b`` and ``n`` levels: the class is 0 below b, 1 on b, 2
-    inside, 3 on 1, 4 above 1."""
+    """(code, clip class, clipped input in LSBs) of ``x`` under the
+    quantizer of scale ``e``, lower bound ``b`` and ``n`` levels: the class
+    is 0 below b, 1 on b, 2 inside, 3 on 1, 4 above 1."""
     v = torch.div(x, e)
-    code = torch.round(torch.clamp(v, b, 1.0) * n)
+    u = torch.clamp(v, b, 1.0) * n
     cls = torch.where(v < b, 0, torch.where(v == b, 1, torch.where(
         v < 1, 2, torch.where(v == 1, 3, 4))))
-    return code, cls
+    return torch.round(u), cls, u
+
+
+def rounding_ties(code, u, code_r, u_r):
+    """Where the two codes are one apart and both inputs (in LSBs) lie
+    within ROUND_TIE_EPS of the half-LSB boundary between them."""
+    mid = (code + code_r) / 2
+    tol = ROUND_TIE_EPS * torch.clamp(mid.abs(), min=1.0)
+    return (((code - code_r).abs() == 1) & ((u - mid).abs() <= tol)
+            & ((u_r - mid).abs() <= tol))
 
 
 def _pin(x, mask, ref):
@@ -71,7 +90,8 @@ class Taps:
     ``ref``: a run's recorded inputs (a :class:`Taps`, or
     :func:`recorded`), call by call; a kind it holds None for is not
     compared. Positions whose code or class differ are counted and, with
-    ``pin``, pinned. ``paths``: {id(leaf): name} of the leaves whose M is
+    ``pin``, pinned; the code flips that are rounding ties are counted
+    again in ``round_ties``. ``paths``: {id(leaf): name} of the leaves whose M is
     summed into ``mag`` as the backward runs.
     """
 
@@ -83,6 +103,7 @@ class Taps:
         self.count = {"calls": 0, "pools": 0, "relus": 0}
         self.mag: Dict[str, float] = {}
         self.code_flips = self.tie_flips = self.positions = 0
+        self.round_ties = 0  # of the code flips
         self.pool_flips = self.windows = 0
         self.relu_flips = self.relu_positions = 0
 
@@ -134,11 +155,12 @@ class Taps:
         if ref is not None:
             sd = s.detach()
             e = quant.exp(quant._grad_scale(sd, g) if stabilize else sd)
-            (code, cls), (code_r, cls_r) = (category(v, e.to(x.dtype), b, n)
-                                            for v in (x.detach(), ref))
+            (code, cls, u), (code_r, cls_r, u_r) = (
+                category(v, e.to(x.dtype), b, n) for v in (x.detach(), ref))
             cf = code != code_r
             tf = (cls != cls_r) & ~cf
             self.code_flips += int(cf.sum())
+            self.round_ties += int(rounding_ties(code, u, code_r, u_r).sum())
             self.tie_flips += int(tf.sum())
             self.positions += x.numel()
             if self.pin:
@@ -175,7 +197,9 @@ class Taps:
             y.register_hook(hook)
         return y, new
 
-    def pool(self, h):
+    def pool(self, h, **kw):
+        if not h.is_floating_point() or kw:
+            return self._orig["maxpool2d"](h, **kw)
         ref = self._reference("pools", h)
         if ref is not None:
             idx = [torch.nn.functional.max_pool2d(
@@ -191,7 +215,7 @@ class Taps:
                     0, h.shape[1] - mask.shape[2])).movedim(1, -1)
                 h = _pin(h, mask, ref)
         self._keep("pools", h)
-        return self._orig["_maxpool_train"](h)
+        return self._orig["maxpool2d"](h)
 
     def _signs(self, h):
         ref = self._reference("relus", h)
@@ -214,7 +238,7 @@ class Taps:
         self._orig = {name: getattr(mod, name) for mod, name in _TAPPED}
         taps = {"learned_quantize": self.quantize,
                 "add_lsb_noise": self.noise, "batchnorm": self.batchnorm,
-                "_maxpool_train": self.pool, "_leaky_relu": self.leaky_relu,
+                "maxpool2d": self.pool, "_leaky_relu": self.leaky_relu,
                 "_relu": self.relu}
         for mod, name in _TAPPED:
             setattr(mod, name, taps[name])

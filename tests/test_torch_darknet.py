@@ -305,7 +305,9 @@ def test_int_apply_logits_within_tolerance(name):
 @pytest.mark.parametrize("name", list(CFGS))
 def test_port_conversion_matches_reference(name):
     """The port's own convert_int on the reference's float params: weight
-    codes bit-exact, folded rescales within 2 ulp (torch vs XLA exp)."""
+    codes, folded rescales, the entry's e^{-s_in} and the carried decode
+    scale e^{s_out_last} / n byte-equal to the reference's (quant.exp is
+    XLA's exp)."""
     fq_params, state, ip = _reference(name)
     params, st = interop.params_from_numpy(_np(fq_params), _np(state),
                                            device="cpu")
@@ -314,9 +316,12 @@ def test_port_conversion_matches_reference(name):
     for n in ip.layer_names:
         np.testing.assert_array_equal(stack[n]["w_codes"].numpy(),
                                       np.asarray(ip[n]["w_codes"]))
-        np.testing.assert_allclose(stack[n]["rescale"].numpy(),
-                                   np.asarray(ip[n]["rescale"]),
-                                   rtol=2.4e-7, atol=0)
+        assert (stack[n]["rescale"].numpy().tobytes()
+                == np.asarray(ip[n]["rescale"]).tobytes()), n
+    assert (stack["entry"]["inv_scale"].numpy().tobytes() == np.asarray(
+        jnp.exp(-ip["entry"]["s_in"])).tobytes())
+    assert (stack["decode_scale"].numpy().tobytes() == np.asarray(
+        jnp.exp(ip["s_out_last"]) / n_levels(QCFG.bits_out)).tobytes())
 
 
 @pytest.mark.parametrize("name", list(CFGS))

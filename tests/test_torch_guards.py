@@ -55,7 +55,8 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.kernels.ops, repro_torch.models.darknet, "
             "repro_torch.core.distill, repro_torch.core.gradual, "
             "repro_torch.optim.sgd, repro_torch.optim.schedules, "
-            "repro_torch.tree, repro_torch.taps\n"
+            "repro_torch.tree, repro_torch.taps, repro_torch.core.deploy_qat, "
+            "repro_torch.train.trainer, repro_torch.data.synthetic\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")

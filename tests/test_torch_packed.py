@@ -334,6 +334,7 @@ def test_convert_stack_auto_records_format_and_rederive_is_idempotent():
                         else w == v), (n, k)
         assert torch.equal(again["entry"]["inv_scale"],
                            stack["entry"]["inv_scale"])
+        assert torch.equal(again["decode_scale"], stack["decode_scale"])
     moved = {n: {**params[n], "w": params[n]["w"] * 2}
              for n in auto.layer_names}
     assert tii.stack_digest(auto.rederive(moved)) != tii.stack_digest(auto)

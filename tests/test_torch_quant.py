@@ -1,9 +1,12 @@
 """repro_torch.core.quant and the scalar folds against the JAX reference.
 
 Inputs are made with numpy from a fixed seed and handed to both packages.
-Codes must match bit for bit. Where a value goes through ``exp`` in float32
-the two frameworks may round differently by one ulp (XLA's exp is not
-torch's), so those compares allow 2 ulp of relative error.
+Codes must match bit for bit, and so must every value that goes through
+``exp``: the port's ``quant.exp`` is XLA's float32 exp, and the folds,
+``dequantize_int`` and ``decode_output`` take the reference's order of
+operations. ``init_scale`` goes through a float32 ``log``, which torch
+rounds differently from XLA by an ulp (ROADMAP C11), so it is held to 2 ulp
+of relative error.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -63,13 +66,41 @@ def test_quantize_to_int_bit_exact(bits, b, s):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
 def test_dequantize_int():
+    """Bit-exact: e^s by quant.exp (XLA's), the division tensor by tensor."""
     codes = np.arange(-7, 8, dtype=np.int8)
-    s = np.float32(0.37)
-    want = np.asarray(jq.dequantize_int(jnp.asarray(codes), jnp.float32(s),
-                                        bits=4))
-    got = tq.dequantize_int(torch.from_numpy(codes), torch.tensor(s), bits=4)
-    np.testing.assert_allclose(got.numpy(), want, rtol=EXP_RTOL, atol=0)
+    for s in np.random.default_rng(3).uniform(-6, 3, 50).astype(np.float32):
+        want = np.asarray(jq.dequantize_int(jnp.asarray(codes),
+                                            jnp.float32(s), bits=4))
+        got = tq.dequantize_int(torch.from_numpy(codes), torch.tensor(s),
+                                bits=4)
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_decode_output_bit_exact():
+    """integer_inference.decode_output, e^s / n * codes in the reference's
+    order, bit for bit at every code of 4 and 8 bits and 200 scales, both
+    computing the scale and taking it carried (``decode_scale``)."""
+    from repro.core import integer_inference as jii
+    from repro_torch.core import integer_inference as tii
+    rng = np.random.default_rng(4)
+    for bits in (4, 8):
+        n = jq.n_levels(bits)
+        codes = np.arange(-n, n + 1, dtype=np.int8)
+        for s in rng.uniform(-8, 4, 100).astype(np.float32):
+            want = np.asarray(jii.decode_output(jnp.asarray(codes),
+                                                jnp.float32(s), bits))
+            got = tii.decode_output(torch.from_numpy(codes), torch.tensor(s),
+                                    bits)
+            np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+            got = tii.decode_output(
+                torch.from_numpy(codes), None, bits,
+                scale=tii.decode_scale(torch.tensor(s), bits))
+            np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
 
 
 @pytest.mark.parametrize("scale", [1e-12, 0.3, 40.0])
@@ -84,16 +115,26 @@ def test_init_scale(scale):
 @pytest.mark.parametrize("s", [(0.2, -0.4, 0.1), (-1.3, -2.0, -2.3),
                                (0.0, 0.0, 0.0)])
 def test_fold_scalars_within_exp_ulps(s):
-    s_a, s_w, s_out = (np.float32(v) for v in s)
-    kw = dict(bits_a=4, bits_w=2)
-    want_r = np.asarray(jops.fold_rescale(*(jnp.float32(v) for v in
-                                           (s_a, s_w, s_out)), bits_out=4,
-                                          **kw))
-    got_r = tops.fold_rescale(*(torch.tensor(v) for v in (s_a, s_w, s_out)),
-                              bits_out=4, **kw)
-    np.testing.assert_allclose(got_r.numpy(), want_r, rtol=EXP_RTOL, atol=0)
-    want_a = np.asarray(jops.fold_alpha(jnp.float32(s_a), jnp.float32(s_w),
-                                        **kw))
-    got_a = tops.fold_alpha(torch.tensor(s_a), torch.tensor(s_w), **kw)
-    np.testing.assert_allclose(got_a.numpy(), want_a, rtol=EXP_RTOL, atol=0)
-    assert got_r.dtype == got_a.dtype == torch.float32
+    """The folds are the reference's bit for bit (0 ulp): e^s by quant.exp,
+    the reference's order of operations, divisions tensor by tensor; at the
+    given scales and at 300 random triples, over two bit-width configs."""
+    rng = np.random.default_rng(5)
+    triples = [s] + [tuple(v) for v in rng.uniform(-4, 2, (300, 3))]
+    for kw in (dict(bits_a=4, bits_w=2), dict(bits_a=8, bits_w=4)):
+        for t in triples:
+            s_a, s_w, s_out = (np.float32(v) for v in t)
+            want_r = np.asarray(jops.fold_rescale(
+                *(jnp.float32(v) for v in (s_a, s_w, s_out)), bits_out=4,
+                **kw))
+            got_r = tops.fold_rescale(
+                *(torch.tensor(v) for v in (s_a, s_w, s_out)), bits_out=4,
+                **kw)
+            np.testing.assert_array_equal(_bits(got_r.numpy()),
+                                          _bits(want_r))
+            want_a = np.asarray(jops.fold_alpha(jnp.float32(s_a),
+                                                jnp.float32(s_w), **kw))
+            got_a = tops.fold_alpha(torch.tensor(s_a), torch.tensor(s_w),
+                                    **kw)
+            np.testing.assert_array_equal(_bits(got_a.numpy()),
+                                          _bits(want_a))
+            assert got_r.dtype == got_a.dtype == torch.float32
