@@ -15,7 +15,23 @@ Phases, each of which must pass:
    of one call replayed from a CUDA graph;
 3. kernels_darknet: the same for K1, K2, K3 and K3b (the fused max-pool
    epilogue) at every shape DarkNet-19's integer path gives them at
-   224 x 224 (request batches 1 and 8), plus K3b at odd off-path shapes;
+   224 x 224 (request batches 1 and 8), plus K3b at odd off-path shapes.
+   K3 runs each conv under the tile policy (``kernels.fq_conv.pick_blocks``:
+   the port's autotune table, then the H100 fallback), which splits the
+   reduction of DarkNet's under-filled late convs (split-K);
+3a. kernels_k1: K1 bit-exact against its plain version at odd lengths and
+   at views on every float offset from a 16-byte boundary, and the launch
+   floor it is read against: an empty kernel's device time as a CUDA-graph
+   replay (one block, and K1's grid at KWS B=64 and DarkNet B=8);
+3b. kernels_split: every DarkNet-19 conv at 224 x 224, B 1 and 8, as an
+   unpooled K3 at the policy's split and at split 1, bit-exact against the
+   plain version clean, dequant and noisy at mac_chunks 1 and 4, with a
+   line a layer (split, blocks, stages, K3 ms at split 1 and at the chosen
+   split, the bound); the split convs of the fused path and their epilogue
+   pass alone are timed into the record (``fq_conv2d_splitk``,
+   ``splitk_epilogue``). serve_darknet then checks that the main path ran
+   as many split launches as the policy picks, and serve_batcher that the
+   replayed graphs show both split kernels;
 4. serve_kws: builds the full-width KWS integer stack with the port's own
    ``kws.init -> to_fq -> s_out = 0.1 -> sync_handoff -> convert_int`` from
    a seed and answers request batches of 1, 8 and 64 through
@@ -153,7 +169,6 @@ import json
 import math
 import os
 import re
-import subprocess
 import sys
 import time
 import traceback
@@ -191,15 +206,28 @@ REPLACES = {
     "fq_matmul": "src/repro/kernels/fq_matmul.py:115",
     "fq_conv2d": "src/repro/kernels/fq_conv.py:385",
     "fq_conv2d_pool": "src/repro/kernels/fq_conv.py:356",
+    # K3 split-K: fq_conv2d's reduction over kh * kw * Cin / bc cin blocks
+    # (its bc knob, fq_conv.py:20), cut across blocks; its epilogue pass
+    # replaces the last reduction step's epilogue (fq_conv.py:339)
+    "fq_conv2d_splitk": "src/repro/kernels/fq_conv.py:385",
+    "splitk_epilogue": "src/repro/kernels/fq_conv.py:339",
 }
 SOURCES = {
     "quantize_codes": "src/repro_torch/kernels/csrc/quantize.cu",
     "fq_matmul": "src/repro_torch/kernels/csrc/fq_matmul.cu",
     "fq_conv2d": "src/repro_torch/kernels/csrc/fq_conv.cu",
     "fq_conv2d_pool": "src/repro_torch/kernels/csrc/fq_conv.cu",
+    "fq_conv2d_splitk": "src/repro_torch/kernels/csrc/fq_conv.cu",
+    "splitk_epilogue": "src/repro_torch/kernels/csrc/fq_conv.cu",
 }
 PATH_KERNELS = {"kws": ("quantize_codes", "fq_matmul", "fq_conv2d"),
-                "darknet": tuple(REPLACES)}
+                "darknet": ("quantize_codes", "fq_matmul", "fq_conv2d",
+                            "fq_conv2d_pool")}
+# K3's split-K, where the tile policy's cin block bc is below Cin (DarkNet's
+# late convs), and its epilogue pass; their kernels as the profiler names
+# them
+SPLIT_KERNELS = ("fq_conv2d_splitk", "splitk_epilogue")
+SPLIT_GRAPH_KERNELS = ("fq_conv_splitk_kernel", "fq_splitk_reduce_kernel")
 # K5, the packed prologue, in each kernel that takes weights
 PACKED_FORMATS = ("ternary", "int4")
 PACKED_REPLACES = {"fq_matmul": "src/repro/kernels/fq_matmul.py:86",
@@ -273,12 +301,9 @@ def fail(msg: str) -> None:
 
 
 def nvidia_smi() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
-    return r.stdout.strip().splitlines()[0]
+    """The card's name and power limit, as nvidia-smi reports them."""
+    from repro_torch.kernels.autotune import nvidia_smi as smi
+    return smi()
 
 
 # ---------------------------------------------------------------------------
@@ -288,27 +313,11 @@ def nvidia_smi() -> str:
 
 def device_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
     """Device time of one ``fn()``: ``calls`` calls captured in a CUDA graph,
-    replayed ``replays`` times between two events, after a warm-up."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
+    replayed ``replays`` times between two events, after a warm-up
+    (``repro_torch.kernels.autotune.device_ms``, which the table's sweep
+    uses too)."""
+    from repro_torch.kernels.autotune import device_ms as timed
+    return timed(fn, calls, replays)
 
 
 def eager_ms(torch, fn, reps: int = 50) -> float:
@@ -718,6 +727,163 @@ def phase_kernels_darknet(torch, dev):
     if max(errs) != 0.0:
         raise AssertionError("off-path K3b checks disagree with plain")
     out.extra_err = {"fq_conv2d_pool": max(errs)}
+    return out
+
+
+def phase_kernels_k1(torch, dev):
+    """K1 at its edges against the plain version: odd lengths and views at
+    every float offset from a 16-byte boundary (the scalar head, the vector
+    body with 16- or 1-byte stores, the tail), and the launch floor: an
+    empty kernel's device time as a CUDA-graph replay, one block of 32
+    threads and K1's own grid at KWS B=64 and DarkNet B=8."""
+    import numpy as np
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.quantize import (BLOCKS_PER_SM, PER_THREAD,
+                                              THREADS, launch_floor,
+                                              quantize_codes)
+    rng = np.random.default_rng(SEED + 7)
+    inv = torch.tensor(np.float32(0.8), device=dev)
+    errs = []
+    for n, offset in ((1, 0), (17, 1), (4097, 2), (1_000_003, 3),
+                      (64 * 140 * 100 + 5, 1), (8 * 112 * 112 * 32, 2)):
+        flat = torch.from_numpy((rng.standard_normal(n + offset) * 1.5)
+                                .astype(np.float32)).to(dev)
+        x = flat[offset:]
+        errs.append(max_abs_err(torch, quantize_codes(x, inv, n=7, b=0.0),
+                                ref.ref_quantize_codes(x, inv, n=7, b=0.0)))
+    rows = torch.from_numpy((rng.standard_normal((64 * 140, 100)) * 1.5)
+                            .astype(np.float32)).to(dev)[1:]
+    errs.append(max_abs_err(torch, quantize_codes(rows, inv, n=7, b=-1.0),
+                            ref.ref_quantize_codes(rows, inv, n=7, b=-1.0)))
+    torch.cuda.synchronize()
+    print(f"  K1 edges (n 1, 17, 4097, 1000003, KWS B=64 + 5 and DarkNet "
+          f"B=8 at float offsets 0-3, and KWS B=64 rows from row 1): "
+          f"max_abs_err={max(errs):g}", flush=True)
+    if max(errs) != 0.0:
+        raise AssertionError("K1 at its edges != plain version")
+    sms = _build.sm_count(dev)
+    floor = {}
+    for label, n in (("one block of 32", 0), ("K1's grid at KWS B=64",
+                                               64 * 140 * 100),
+                     ("K1's grid at DarkNet B=8", 8 * 112 * 112 * 32)):
+        blocks = (min(-(-n // (PER_THREAD * THREADS)), BLOCKS_PER_SM * sms)
+                  if n else 1)
+        threads = THREADS if n else 32
+        floor[label] = (blocks, device_ms(
+            torch, lambda b=blocks, t=threads: launch_floor(dev, b, t)))
+    print("  launch floor, an empty kernel replayed from a CUDA graph: " +
+          "; ".join(f"{k} ({b} blocks) ms={v:.5f}" for k, (b, v)
+                    in floor.items()), flush=True)
+    return {"extra_err": max(errs), "floor": floor}
+
+
+def policy_split(torch, dev, side, cin, cout, ks, batch) -> int:
+    """The split (Cin / bc) that K3's tile policy picks for an unpooled
+    DarkNet conv at request batch ``batch``."""
+    from repro_torch.kernels import _build, fq_conv
+    bc = fq_conv.pick_blocks(ho=side, wo=side, cin=cin, cout=cout, kh=ks,
+                             kw=ks, stride=(1, 1), batch=batch,
+                             sms=_build.sm_count(dev))[2]
+    return cin // bc
+
+
+def phase_kernels_split(torch, dev):
+    """K3's split-K at every DarkNet-19 conv at 224 x 224, B 1 and 8, each
+    as the unpooled K3 (the fused path's 13 convs; the pooled 4 run so on
+    the way without pool fusion): bit-exact against the plain version at
+    the tile policy's split and at split 1, clean, dequant and noisy at
+    mac_chunks 1 and 4; a line a layer with its blocks, stages, split, K3
+    device time at split 1 and at the chosen split, and its bound. Where the
+    fused path runs a split (unpooled, split > 1) the split conv and its
+    epilogue pass alone (on the plain partials) get record rows."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.core.quant import n_levels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fq_conv import fq_conv2d, splitk_epilogue
+    from repro_torch.models.darknet import DarkNetConfig
+
+    cfg = DarkNetConfig()
+    rng = np.random.default_rng(SEED + 8)
+    n = n_levels(4)
+    out = Rows(torch, "darknet", SPLIT_KERNELS)
+    seed = torch.tensor(THREEFRY_SEED2, dtype=torch.uint32, device=dev)
+    layers, errs = [], []
+    for batch in DN_BATCHES:
+        for name, side, cin, cout, ks, pooled in darknet_int_layers(
+                cfg, DN_SIZE):
+            a = torch.from_numpy(rng.integers(0, n + 1, size=(
+                batch, side, side, cin)).astype(np.int8)).to(dev)
+            w = torch.from_numpy(rng.integers(-1, 2, size=(
+                ks * ks * cin, cout)).astype(np.int8)).to(dev)
+            s = torch.tensor(np.float32(0.02), device=dev)
+            kw = dict(kh=ks, kw=ks, padding=(ks // 2, ks // 2), n_out=n,
+                      lo=0)
+            split = policy_split(torch, dev, side, cin, cout, ks, batch)
+            bc = cin // split
+            for extra in ({}, dict(epilogue="dequant"),
+                          *(dict(noise_sigma_acc=torch.div(
+                              torch.full_like(s, 1.5), s), noise_seed=seed,
+                              mac_chunks=c) for c in CHUNKS)):
+                want = ref.ref_fq_conv2d(a, w, s, **kw, **extra)
+                for b_ in sorted({bc, cin}):
+                    errs.append(max_abs_err(
+                        torch, fq_conv2d(a, w, s, bc=b_, **kw, **extra),
+                        want))
+            if max(errs) != 0.0:
+                raise AssertionError(f"{name} B={batch}: K3 at split "
+                                     f"{split} or 1 != plain version")
+            m, k = batch * side * side, ks * ks * cin
+            tiles = -(-m // 64) * -(-cout // 64)
+            ms1 = device_ms(torch, lambda: fq_conv2d(a, w, s, bc=cin, **kw))
+            ms_s = ms1 if split == 1 else device_ms(
+                torch, lambda: fq_conv2d(a, w, s, bc=bc, **kw))
+            bytes_, ops_ = a.numel() + w.numel() + m * cout + 4, 2 * m * k * cout
+            b_ms, b_by = bound(bytes_, {"int8": ops_})
+            row = dict(layer=name, batch=batch, side=side, cin=cin, cout=cout,
+                       ks=ks, pooled=pooled, split=split, blocks=tiles * split,
+                       stages=-(-k // split // 64), stages1=-(-k // 64),
+                       ms1=ms1, ms_split=ms_s, bound_ms=b_ms)
+            layers.append(row)
+            print(f"  split darknet {name} B={batch} ({side}x{side}, {cin}->"
+                  f"{cout}, {ks}x{ks}{', pooled on the fused path' if pooled else ''}): "
+                  f"split {split} (bc {bc}), blocks {tiles} -> {tiles * split}"
+                  f", stages {row['stages1']} -> {row['stages']}; K3 ms split 1 "
+                  f"{ms1:.5f}, chosen {ms_s:.5f}; bound_ms {b_ms:.6f} ({b_by})",
+                  flush=True)
+            if split == 1 or pooled:
+                continue
+            xf = a.float().permute(0, 3, 1, 2)
+            wf = w.float().reshape(ks, ks, cin, cout).permute(3, 2, 0, 1) \
+                .contiguous()
+            shape = (batch, side, side, cin, cout, ks)
+            out.record("fq_conv2d_splitk", batch, shape,
+                       fq_conv2d(a, w, s, bc=bc, **kw),
+                       ref.ref_fq_conv2d(a, w, s, **kw),
+                       lambda: fq_conv2d(a, w, s, bc=bc, **kw),
+                       lambda: ref.ref_fq_conv2d(a, w, s, **kw),
+                       lambda: F.conv2d(xf, wf, padding=ks // 2), bytes_,
+                       ops_, "int8", layer=name)
+            parts = ref.ref_splitk_partials(a, w, kh=ks, kw=ks, bc=bc,
+                                            padding=(ks // 2, ks // 2))
+            ek = dict(n_out=n, lo=0)
+            out.record("splitk_epilogue", batch, tuple(parts.shape),
+                       splitk_epilogue(parts, s, **ek),
+                       ref.ref_splitk_epilogue(parts, s, **ek),
+                       lambda: splitk_epilogue(parts, s, **ek),
+                       lambda: ref.ref_splitk_epilogue(parts, s, **ek), None,
+                       parts.numel() * 4 + m * cout + 4, parts.numel(), "alu",
+                       layer=name)
+    torch.cuda.synchronize()
+    for batch in DN_BATCHES:
+        on = [r for r in layers if r["batch"] == batch and not r["pooled"]]
+        print(f"  split darknet B={batch}: the fused path's 13 unpooled K3, "
+              f"{sum(r['split'] > 1 for r in on)} split: K3 ms summed at split "
+              f"1 {sum(r['ms1'] for r in on):.5f}, at the chosen splits "
+              f"{sum(r['ms_split'] for r in on):.5f}", flush=True)
+    print(f"  split darknet: every conv at its split and at split 1, clean, "
+          f"dequant, noisy c1 / c4: max_abs_err={max(errs):g}", flush=True)
+    out.layers = layers
     return out
 
 
@@ -1723,9 +1889,11 @@ def phase_serve_darknet(torch, dev):
               for way, fn in serve.items()}
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    split = kernels.split_launch_counts()
     print("kernels (darknet): " + " ".join(f"{k}={v}"
                                            for k, v in counts.items())
-          + loaders(kernels, "darknet", counts), flush=True)
+          + loaders(kernels, "darknet", counts) + " (split-K " + " ".join(
+              f"{k}={v}" for k, v in split.items()) + ")", flush=True)
     plan = darknet.layer_plan(cfg)
     n_conv = sum(s[0] == "conv" for s in plan)
     n_pooled = sum(s[0] == "conv" and s[3] for s in plan)
@@ -1735,6 +1903,17 @@ def phase_serve_darknet(torch, dev):
               "fq_conv2d_pool": n_req * n_pooled}
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
+    # the tile policy's splits: fused runs the unpooled convs as K3, the way
+    # without pool fusion every conv; each split launch is one epilogue pass
+    layers = darknet_int_layers(cfg, DN_SIZE)
+    splits = {b: [policy_split(torch, dev, side, cin, cout, ks, b) > 1
+                  for _, side, cin, cout, ks, _ in layers] for b in DN_BATCHES}
+    fused_splits = {b: sum(sp for sp, l in zip(splits[b], layers)
+                           if not l[5]) for b in DN_BATCHES}
+    n_split = sum(fused_splits[b] + sum(splits[b]) for b in DN_BATCHES)
+    if split != dict.fromkeys(SPLIT_KERNELS, n_split) or not n_split:
+        raise AssertionError(f"split-K launches {split} != {n_split} each, "
+                             "as the tile policy picks")
 
     # -- checks (these launches are not counted) -------------------------
     def entry(ip, x):
@@ -1840,11 +2019,14 @@ def phase_serve_darknet(torch, dev):
         n_ops[fmt] = device_profile(torch, lambda: fn(requests[big]),
                                     launched=True)[2]
     print(f"serve darknet B={big} fused: device ops launched per request "
-          f"(profiled) int8 {n_ops['int8']:g}, ternary {n_ops['ternary']:g}",
-          flush=True)
-    if not n_ops["int8"] or n_ops["int8"] != n_ops["ternary"]:
+          f"(profiled) int8 {n_ops['int8']:g}, ternary {n_ops['ternary']:g} "
+          f"(int8 splits {fused_splits[big]} convs: one epilogue pass "
+          f"each; packed weights never split)", flush=True)
+    if not n_ops["int8"] or n_ops["int8"] != n_ops["ternary"] + \
+            fused_splits[big]:
         raise AssertionError(f"the ternary fused path runs other device ops "
-                             f"than the int8 one: {n_ops}")
+                             f"than the int8 one less its split epilogue "
+                             f"passes ({fused_splits[big]}): {n_ops}")
     check_stacks(torch, ii, "darknet", stacks,
                  {n: params[n] for n in stack.layer_names})
     serve_timing(torch, "darknet ternary", packed_serve["ternary"], requests,
@@ -1861,7 +2043,7 @@ def phase_serve_darknet(torch, dev):
     for chunks, fns in timed.items():
         serve_timing(torch, f"darknet noisy c{chunks}", fns, requests,
                      DN_BATCHES)
-    return {"int8": counts, **result, "noisy": noisy}
+    return {"int8": counts, **result, "noisy": noisy, "split": split}
 
 
 # ---------------------------------------------------------------------------
@@ -2013,6 +2195,10 @@ def serve_batcher_model(torch, dev, path, fns, ladder, sample, smi):
         (reqs, ticks, wall, _, _), counts, packed = counted(
             torch, kernels, lambda: replay(cb, b, sink, arrivals))
         loader_note = loaders(kernels, path, counts)
+        split = kernels.split_launch_counts()
+        if label == "ahead":
+            graph_kernels = GRAPH_KERNELS[path] + (
+                SPLIT_GRAPH_KERNELS if split["fq_conv2d_splitk"] else ())
         slots[label] = check_served(cb, f"{path} {label}", b, reqs,
                                     sink.flushes, fns[fmt])
         outs[label] = [r.out for r in reqs]
@@ -2028,8 +2214,9 @@ def serve_batcher_model(torch, dev, path, fns, ladder, sample, smi):
             raise AssertionError(f"{path} {label}: {packed} not all {fmt}")
         st, steps = b.stats, b.step_stats
         print(launch_line(f"batcher, {path}, {label}, at capture and "
-                          "warm-up", counts, packed) + loader_note,
-              flush=True)
+                          "warm-up", counts, packed) + loader_note
+              + " (split-K " + " ".join(f"{k}={v}" for k, v in split.items())
+              + ")", flush=True)
         print(f"serve_batcher {path} {label}: {n} requests served once in "
               f"{ticks} ticks, {st['flushes']} flushes all replayed from "
               f"graphs ({steps['graph_flushes']}), {st['padded_rows']} "
@@ -2077,8 +2264,7 @@ def serve_batcher_model(torch, dev, path, fns, ladder, sample, smi):
         torch, lambda: replay(cb, b, sink, arrivals), reps=1, top=1000)
     if b.step_stats["captures"] != captures:
         raise AssertionError(f"{path}: warm replays captured again")
-    seen = [k for k in GRAPH_KERNELS[path] if any(k in name
-                                                  for name, _ in names)]
+    seen = [k for k in graph_kernels if any(k in name for name, _ in names)]
     print(f"serve_batcher {path} ahead int8 graphs profile: wall "
           f"{wall_ms:.4f} ms for {n} requests, device busy {busy:.4f} ms, "
           f"busy share {busy / wall_ms:.4f}, {n_ops:g} device ops "
@@ -2086,10 +2272,10 @@ def serve_batcher_model(torch, dev, path, fns, ladder, sample, smi):
           f"the replayed graphs: {seen}; most device time: " + "; ".join(
               re.sub(r"^void |\(anonymous namespace\)::", "", name)[:56]
               + f" {ms:.4f} ms" for name, ms in names[:8]), flush=True)
-    if seen != list(GRAPH_KERNELS[path]):
+    if seen != list(graph_kernels):
         raise AssertionError(f"{path}: the profiled replay shows "
                              f"{[name for name, _ in names]}, not all of "
-                             f"{GRAPH_KERNELS[path]}")
+                             f"{graph_kernels}")
     staged = sum(padded_batch(cb, f, b.max_batch).nbytes
                  for f in sink.flushes)
     h2d = sum(ms for name, ms in names if "Pinned -> Device" in name)
@@ -2763,7 +2949,7 @@ QAT_LAUNCHES = {"kws": {"quantize_codes": 1, "fq_matmul": 0,
                             "fq_conv2d": 13, "fq_conv2d_pool": 4}}
 QAT_KERNEL_NAMES = ("quantize_codes_kernel", "fq_conv_kernel",
                     "fq_conv_pool2_kernel", "fq_conv_pool_kernel",
-                    "fq_matmul_kernel")
+                    "fq_matmul_kernel") + SPLIT_GRAPH_KERNELS
 
 
 def qat_model(torch, dev, path):
@@ -3208,6 +3394,11 @@ def kernels_record_all(torch, results):
     record += kernels_record(results["kernels_darknet"],
                              results["serve_darknet"]["int8"],
                              rows_batch("darknet"), per_apply)
+    # K3's split-K and its epilogue pass: the unpooled convs the policy
+    # splits at the record batch, launches from the same counted run
+    record += kernels_record(results["kernels_split"],
+                             results["serve_darknet"]["split"],
+                             rows_batch("darknet"), per_apply)
     # K5: the packed K3 / K3b the serving paths launch, each format's
     # launches from its own counted run. Packed K2 is off those paths (the
     # im2col oracle unpacks first): its sums are printed, not recorded.
@@ -3247,10 +3438,16 @@ def kernels_record_all(torch, results):
         for e in entries:
             e["path"] = f"train_qat_{path}"
         record += entries
-    # the tensor-core loop's off-path edge rows (kernels_tc) count too
+    # the tensor-core loop's off-path edge rows (kernels_tc) and K1's edges
+    # (kernels_k1) count too
     for e in record + off_path:
         e["max_abs_err"] = max(e["max_abs_err"],
                                results["kernels_tc"].get(e["name"], 0.0))
+        if e["name"] == "quantize_codes":
+            e["max_abs_err"] = max(e["max_abs_err"],
+                                   results["kernels_k1"]["extra_err"])
+            e["launch_floor_ms"] = min(
+                ms for _, ms in results["kernels_k1"]["floor"].values())
     print("packed K2 per int_apply (clean and noisy), launched by no serving "
           "path and so not in the record: " + json.dumps(off_path),
           flush=True)
@@ -3319,6 +3516,8 @@ def main() -> int:
             ("build", lambda: phase_build(torch)),
             ("kernels_kws", lambda: phase_kernels_kws(torch, dev)),
             ("kernels_darknet", lambda: phase_kernels_darknet(torch, dev)),
+            ("kernels_k1", lambda: phase_kernels_k1(torch, dev)),
+            ("kernels_split", lambda: phase_kernels_split(torch, dev)),
             ("kernels_packed", lambda: phase_kernels_packed(torch, dev)),
             ("kernels_noise", lambda: phase_kernels_noise(torch, dev)),
             ("kernels_tc", lambda: phase_kernels_tc(torch, dev)),
@@ -3360,6 +3559,9 @@ def main() -> int:
         missing += [f"train_qat {k}_noisy" for k in PATH_KERNELS[path]
                     if k in NOISE_REPLACES and k != "fq_matmul"
                     and not launches["noisy"][1][f"{k}_noisy"]]
+        if path == "darknet":
+            missing += [k for k, v in results["serve_darknet"]["split"]
+                        .items() if not v]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
     print(json.dumps({"kernels": kernels_record_all(torch, results)}))

@@ -11,13 +11,17 @@ launches with the ADC-noise epilogue (K4) in ``noisy_launches``, which
 :func:`noisy_launch_counts` reads. K2, K3 and K3b run on the tensor-core
 tile loop and count the launches whose A operand took its vector (16-byte
 ``cp.async``) loader in ``vector_launches``, which
-:func:`vector_launch_counts` reads.
+:func:`vector_launch_counts` reads. K3's split-K launches (the tile
+policy's ``bc`` below Cin) are counted in ``fq_conv2d.split_launches`` and
+their epilogue pass in ``fq_conv.splitk_epilogue.launches``, which
+:func:`split_launch_counts` reads; a split launch counts in ``launches``
+too, once.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from .fq_conv import fq_conv2d, fq_conv2d_pool
+from .fq_conv import fq_conv2d, fq_conv2d_pool, splitk_epilogue
 from .fq_matmul import fq_matmul
 from .quantize import quantize_codes
 
@@ -52,7 +56,16 @@ def vector_launch_counts() -> Dict[str, int]:
             for name in VECTOR}
 
 
+def split_launch_counts() -> Dict[str, int]:
+    """K3's split-K launches (``fq_conv2d_splitk``: the partial-sum kernel)
+    and their epilogue passes (``splitk_epilogue``)."""
+    return {"fq_conv2d_splitk": fq_conv2d.split_launches,
+            "splitk_epilogue": splitk_epilogue.launches}
+
+
 def reset_launch_counts() -> None:
+    fq_conv2d.split_launches = 0
+    splitk_epilogue.launches = splitk_epilogue.noisy_launches = 0
     for name, fn in _WRAPPERS.items():
         fn.launches = 0
         if name in PACKED:

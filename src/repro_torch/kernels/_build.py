@@ -112,3 +112,19 @@ def check(err: int, what: str, lib: ctypes.CDLL) -> None:
 def ptr(t) -> ctypes.c_void_p:
     """A tensor's device address as a ctypes pointer argument."""
     return ctypes.c_void_p(t.data_ptr())
+
+
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The CUDA device's multiprocessor count, read once per device."""
+    import torch
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n

@@ -1,9 +1,9 @@
 // K3: fused fully quantized convolution (implicit GEMM), NHWC int8, and
 // K3b: the same convolution with the fused max-pool epilogue.
 //
-// Replaces repro/kernels/fq_conv.py::fq_conv2d (Pallas _kernel, its
-// pick_blocks and fq_conv1d, which is conv2d at kw = 1) and, for K3b, the
-// pool branch of that kernel's epilogue (fq_conv.py:356-375). Output rows
+// Replaces repro/kernels/fq_conv.py::fq_conv2d (Pallas _kernel and
+// fq_conv1d, which is conv2d at kw = 1) and, for K3b, the pool branch of
+// that kernel's epilogue (fq_conv.py:356-375). Output rows
 // are (b, ho, wo) flattened, columns are output channels, and the
 // reduction runs over taps x input channels in the tap-major weight layout
 // (row t * Cin + c is tap (t / kw, t % kw), channel c). The activation at
@@ -48,8 +48,21 @@
 // each thread resolves its output rows to window origins once, in
 // registers, and its reduction column to a (tap, channel) offset once per
 // K step. What it leaves: TMA gathers, warp specialisation, a tile per
-// shape (the 16-block deep layers at B = 1), and the generic pool's
-// separate tile loop per window position.
+// shape, and the generic pool's separate tile loop per window position.
+//
+// Split-K, the reference's cin block bc (fq_conv.py:20: its grid reduces
+// kh * kw * Cin / bc steps in sequence into one VMEM accumulator). Here
+// the 64 x 64 tiles of DarkNet's late convs are fewer than the 132 SMs
+// (3 x 3, 512 -> 1024 at 7 x 7: 16 blocks of 72 serial stages at B = 1),
+// so where the tile policy (kernels/fq_conv.py::pick_blocks) picks bc < Cin
+// for an unpooled int8 conv, the reduction is cut into Cin / bc splits of
+// kh * kw * bc codes, each run by its own block (grid z) over its range of
+// the tap-major reduction, which writes raw int32 partials to a (split, M,
+// Cout) workspace; a second kernel sums them in int32 and runs the
+// epilogue (and the noise) at the same global output element. The int32
+// sum is exact in any order, so the codes equal the unsplit kernel's.
+// Packed weights (bc fixed to cin_p, the reference's rule) and K3b keep
+// one split.
 //
 // K5, packed weights (replaces fq_conv.py:330-333 and, for the channel
 // padding, :442-452): weights of factor 2 (int4) or 4 (ternary) hold
@@ -144,7 +157,8 @@ struct PassRows {
 // (tap, channel). Offsets are int32: the wrapper refuses activations of
 // 2^31 bytes or more. The reduction runs over kh * kw taps x Cin_p
 // channels, Cin_p being Cin padded to the weights' pack FACTOR; channels
-// past Cin load 0.
+// past Cin load 0, and so do columns at or past K (k_end of the tile
+// loop's range).
 template <int FACTOR>
 struct ConvA {
   const int8_t* x;
@@ -155,10 +169,10 @@ struct ConvA {
   struct Col { int dy, dx, off; bool ok; };
   template <class Rows>
   __device__ __forceinline__ ConvA(const int8_t* x_, const ConvShape& c,
-                                   const Rows& rows, int tid)
+                                   const Rows& rows, int tid, int k_end)
       : x(x_), H(c.H), W(c.W), Cin(c.Cin),
         Cin_p((c.Cin + FACTOR - 1) / FACTOR * FACTOR), kw(c.kw), dh(c.dh),
-        dw(c.dw), K(c.kh * c.kw * Cin_p) {
+        dw(c.dw), K(k_end) {
 #pragma unroll
     for (int q = 0; q < fq::tc::ROWS; ++q) {
       int b = 0, ho = 0, wo = 0;
@@ -190,10 +204,12 @@ struct ConvA {
 // The vector loader: thread tid's 16 bytes of tile row tc::vec_row(tid),
 // one tap's channels c .. c + 15 of one pixel (Cin % 16 == 0, so a chunk
 // never straddles taps and its source is 16-byte aligned), zero-filled for
-// the halo, rows past the output and k past K. The row's window origin is
-// resolved once, in registers, through the row map as in ConvA; the
-// chunk's (tap, channel) is carried from stage to stage (the stages are
-// issued in order), with no division in the loop.
+// the halo, rows past the output and k at or past K (k_end of the tile
+// loop's range, which starts at k_begin, a multiple of 16). The row's
+// window origin is resolved once, in registers, through the row map as in
+// ConvA; the chunk's (tap, channel) is resolved once from k_begin and then
+// carried from stage to stage (the stages are issued in order), with no
+// division in the loop.
 struct ConvAVec {
   const int8_t* x;
   int H, W, Cin, kw, dh, dw, K, r, kc;
@@ -201,10 +217,15 @@ struct ConvAVec {
   int k, ch, th, tw;  // the next chunk: reduction index, channel, tap
   template <class Rows>
   __device__ __forceinline__ ConvAVec(const int8_t* x_, const ConvShape& c,
-                                      const Rows& rows, int tid)
+                                      const Rows& rows, int tid, int k_begin,
+                                      int k_end)
       : x(x_), H(c.H), W(c.W), Cin(c.Cin), kw(c.kw), dh(c.dh), dw(c.dw),
-        K(c.kh * c.kw * c.Cin), r(fq::tc::vec_row(tid)),
-        kc(fq::tc::vec_chunk(tid)), k(16 * kc), ch(16 * kc), th(0), tw(0) {
+        K(k_end), r(fq::tc::vec_row(tid)), kc(fq::tc::vec_chunk(tid)),
+        k(k_begin + 16 * kc) {
+    const int t = k / Cin;
+    ch = k - t * Cin;
+    th = t / kw;
+    tw = t - th * kw;
     int b = 0, ho = 0, wo = 0;
     if (rows(r, b, ho, wo)) {
       h0 = ho * c.sh - c.ph;
@@ -215,7 +236,6 @@ struct ConvAVec {
       w0 = 0;
       off = 0;
     }
-    next_tap();
   }
   __device__ __forceinline__ void next_tap() {
     while (ch >= Cin) {
@@ -240,23 +260,32 @@ struct ConvAVec {
   }
 };
 
+// The reduction length: taps x cin_p, cin padded to the weights' pack
+// FACTOR.
+template <int FACTOR>
+__device__ __forceinline__ int conv_k(const ConvShape& c) {
+  return c.kh * c.kw * ((c.Cin + FACTOR - 1) / FACTOR * FACTOR);
+}
+
 // The conv's accumulators for the tile rows of the row map `rows` and the
-// columns n0 .., in FragMap order: the tile loop with the A loader AVEC
-// picks. The reduction runs over taps x cin_p, cin padded to the weights'
-// pack FACTOR.
+// columns n0 .., in FragMap order, summed over the reduction codes
+// [k_begin, k_end) (all of conv_k, or one split of split-K): the tile loop
+// with the A loader AVEC picks.
 template <int FACTOR, bool AVEC, class Rows>
 __device__ __forceinline__ void conv_tile(int8_t* smem, const int8_t* x,
                                           const int8_t* w, const ConvShape& c,
                                           const Rows& rows, int n0, bool bvec,
-                                          int tid, int (&acc)[16]) {
-  const int K = c.kh * c.kw * ((c.Cin + FACTOR - 1) / FACTOR * FACTOR);
+                                          int tid, int (&acc)[16],
+                                          int k_begin, int k_end) {
+  const int rows_b = conv_k<FACTOR>(c) / FACTOR;
   if constexpr (AVEC)
-    fq::tc::mainloop<FACTOR, true>(smem, ConvAVec(x, c, rows, tid), w, K,
-                                   K / FACTOR, c.Cout, n0, bvec, tid, acc);
+    fq::tc::mainloop<FACTOR, true>(
+        smem, ConvAVec(x, c, rows, tid, k_begin, k_end), w, k_begin, k_end,
+        rows_b, c.Cout, n0, bvec, tid, acc);
   else
-    fq::tc::mainloop<FACTOR, false>(smem, ConvA<FACTOR>(x, c, rows, tid), w,
-                                    K, K / FACTOR, c.Cout, n0, bvec, tid,
-                                    acc);
+    fq::tc::mainloop<FACTOR, false>(
+        smem, ConvA<FACTOR>(x, c, rows, tid, k_end), w, k_begin, k_end,
+        rows_b, c.Cout, n0, bvec, tid, acc);
 }
 
 // K4's map for a pool kernel: FragMap's columns, and for each of the
@@ -317,7 +346,7 @@ fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int m0 = blockIdx.x * fq::tc::BM, n0 = blockIdx.y * fq::tc::BN;
   int acc[16];
   conv_tile<FACTOR, AVEC>(smem, x, w, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo},
-                          n0, bvec, tid, acc);
+                          n0, bvec, tid, acc, 0, conv_k<FACTOR>(c));
   // output row m of the (b, ho, wo)-flattened conv is the field's row
   const fq::tc::FragMap map(tid);
   if constexpr (NOISE) {
@@ -326,6 +355,65 @@ fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     fq::store<DEQUANT>(out, v, *scale, lo, n_out, M, c.Cout, m0, n0, map);
   } else {
     fq::store<DEQUANT>(out, acc, *scale, lo, n_out, M, c.Cout, m0, n0, map);
+  }
+}
+
+// K3, split-K, int8 weights: split blockIdx.z sums the kspan reduction
+// codes [z kspan, (z + 1) kspan) of its tile, as many as one cin block of
+// bc channels over all kh * kw taps (kspan = kh kw bc), and writes the raw
+// int32 accumulators into its slice of the (split, M, Cout) workspace;
+// fq_splitk_reduce_kernel sums the slices and runs the epilogue.
+template <bool AVEC>
+__global__ void __launch_bounds__(fq::tc::THREADS)
+fq_conv_splitk_kernel(const int8_t* __restrict__ x,
+                      const int8_t* __restrict__ w, int* __restrict__ ws,
+                      ConvShape c, int kspan, bool bvec) {
+  extern __shared__ __align__(128) int8_t smem[];
+  const int tid = threadIdx.x;
+  const int M = c.B * c.Ho * c.Wo;
+  const int m0 = blockIdx.x * fq::tc::BM, n0 = blockIdx.y * fq::tc::BN;
+  const int k_begin = blockIdx.z * kspan;
+  const int k_end = min(conv_k<1>(c), k_begin + kspan);
+  int acc[16];
+  conv_tile<1, AVEC>(smem, x, w, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo}, n0,
+                     bvec, tid, acc, k_begin, k_end);
+  int* const part = ws + (long long)blockIdx.z * M * c.Cout;
+  const fq::tc::FragMap map(tid);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int m = m0 + map.row(e), n = n0 + map.col(e);
+    if (m < M && n < c.Cout) part[(long long)m * c.Cout + n] = acc[e];
+  }
+}
+
+// The split-K epilogue pass: output element i = m * N + n of the (M, N)
+// conv output is the int32 sum of the split slices of the workspace at i
+// (exact: int32 addition is associative and no partial sum nears 2^31),
+// then, as in fq_conv_kernel, the noise.cuh field at global index i when
+// NOISE and the shared epilogue. So the output is the unsplit kernel's,
+// bit for bit. One thread an element, a grid-stride loop: bytes-bound
+// (4 split bytes in, 1 or 4 out).
+template <bool DEQUANT, bool NOISE>
+__global__ void __launch_bounds__(256)
+fq_splitk_reduce_kernel(const int* __restrict__ ws,
+                        const float* __restrict__ scale,
+                        void* __restrict__ out, int split, int M, int N,
+                        int lo, int n_out, fq::NoiseArgs na) {
+  const float sc = *scale;
+  fq::Noise nz{};
+  if constexpr (NOISE) nz = fq::Noise::load(na);
+  const long long mn = (long long)M * N;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < mn; i += stride) {
+    int acc = ws[i];
+    for (int z = 1; z < split; ++z) acc += ws[z * mn + i];
+    if constexpr (NOISE) {
+      const int m = (int)(i / N), n = (int)(i - (long long)m * N);
+      fq::put<DEQUANT>(out, i, nz.add(acc, m, N, n), sc, lo, n_out);
+    } else {
+      fq::put<DEQUANT>(out, i, acc, sc, lo, n_out);
+    }
   }
 }
 
@@ -343,7 +431,8 @@ fq_conv_pool2_kernel(const int8_t* __restrict__ x,
   const int g0 = blockIdx.x * POOL2_WINDOWS, n0 = blockIdx.y * fq::tc::BN;
   const Pool2Rows rows{win, g0};
   int acc[16];
-  conv_tile<FACTOR, AVEC>(smem, x, w, c, rows, n0, bvec, tid, acc);
+  conv_tile<FACTOR, AVEC>(smem, x, w, c, rows, n0, bvec, tid, acc, 0,
+                          conv_k<FACTOR>(c));
   // a window's 4 positions are all inside the output or all past it, so
   // the 0 that noisy_tile gives past it meets only rows never stored
   std::conditional_t<NOISE, float, int> v[16];
@@ -390,7 +479,8 @@ fq_conv_pool_kernel(const int8_t* __restrict__ x,
       if (di + dj > 0) __syncthreads();
       const PassRows rows{win, g0, di, dj};
       int acc[16];
-      conv_tile<FACTOR, AVEC>(smem, x, w, c, rows, n0, bvec, tid, acc);
+      conv_tile<FACTOR, AVEC>(smem, x, w, c, rows, n0, bvec, tid, acc, 0,
+                              conv_k<FACTOR>(c));
       if constexpr (NOISE) {
         float v[16];
         fq::noisy_tile(v, acc, nz, c.B * c.Ho * c.Wo, c.Cout, 0, n0,
@@ -467,6 +557,63 @@ extern "C" int fq_conv2d_s8(const void* x, const void* w, const void* scale,
     if (bad != cudaSuccess) err = bad;
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// K3, split-K (int8 weights): the (split, M = B Ho Wo, Cout) int32
+// partial sums into ws, split z over the reduction codes [z kspan,
+// (z + 1) kspan); fq_splitk_epilogue_s8 finishes them. avec as
+// fq_conv2d_s8's, and kspan % 16 == 0 with it.
+extern "C" int fq_conv2d_splitk_s8(const void* x, const void* w, void* ws,
+                                   int B, int H, int W, int Cin, int Cout,
+                                   int kh, int kw, int sh, int sw, int ph,
+                                   int pw, int dh, int dw, int Ho, int Wo,
+                                   int split, int kspan, int avec, int bvec,
+                                   void* stream) {
+  const ConvShape c{B, H, W, Cin, Cout, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo};
+  const int M = B * Ho * Wo;
+  if (split < 1 || kspan < 1 || (long long)split * kspan < kh * kw * Cin ||
+      (avec && ((uintptr_t)x % 16 || Cin % 16 || kspan % 16)) ||
+      (bvec && ((uintptr_t)w % 16 || Cout % 16)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (M > 0 && Cout > 0) {
+    const dim3 grid((M + fq::tc::BM - 1) / fq::tc::BM,
+                    (Cout + fq::tc::BN - 1) / fq::tc::BN, split);
+    const int8_t *xs = (const int8_t*)x, *wt = (const int8_t*)w;
+    cudaStream_t st = (cudaStream_t)stream;
+    err = avec ? fq::tc::launch(fq_conv_splitk_kernel<true>, grid, st, xs, wt,
+                                (int*)ws, c, kspan, bvec != 0)
+               : fq::tc::launch(fq_conv_splitk_kernel<false>, grid, st, xs,
+                                wt, (int*)ws, c, kspan, bvec != 0);
+  }
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The split-K epilogue pass over a (split, M, N) int32 workspace: the
+// (M, N) output, int8 codes or f32 (dequant); sigma and seed as
+// fq_conv2d_s8's. max_blocks caps the grid (the wrapper's multiple of the
+// SM count).
+extern "C" int fq_splitk_epilogue_s8(const void* ws, const void* scale,
+                                     void* out, const void* sigma,
+                                     const void* seed, int split, int M,
+                                     int N, int dequant, int lo, int n_out,
+                                     int chunks, int max_blocks,
+                                     void* stream) {
+  if (split < 1 || (sigma && chunks < 1)) return (int)cudaErrorInvalidValue;
+  const long long mn = (long long)M * N;
+  if (mn > 0) {
+    long long blocks = (mn + 255) / 256;
+    if (blocks > max_blocks) blocks = max_blocks;
+    const fq::NoiseArgs na{(const float*)sigma, (const uint32_t*)seed, chunks};
+    fq::with_flags(dequant, sigma != nullptr, [&](auto dq, auto nz) {
+      constexpr bool DQ = decltype(dq)::value, NZ = decltype(nz)::value;
+      fq_splitk_reduce_kernel<DQ, NZ>
+          <<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+              (const int*)ws, (const float*)scale, out, split, M, N, lo,
+              n_out, na);
+    });
+  }
+  return (int)cudaGetLastError();
 }
 
 // K3b: (Ho, Wo) is the conv output; the output is (B, Ho / qh, Wo / qw,

@@ -84,10 +84,10 @@ fq_matmul_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
   int acc[16];
   const int rows = (K + FACTOR - 1) / FACTOR;
   if constexpr (AVEC)
-    fq::tc::mainloop<FACTOR, true>(smem, MatAVec(a, M, K, m0, tid), w, K,
-                                   rows, N, n0, bvec, tid, acc);
+    fq::tc::mainloop<FACTOR, true>(smem, MatAVec(a, M, K, m0, tid), w, 0,
+                                   K, rows, N, n0, bvec, tid, acc);
   else
-    fq::tc::mainloop<FACTOR, false>(smem, MatA(a, M, K, m0, tid), w, K,
+    fq::tc::mainloop<FACTOR, false>(smem, MatA(a, M, K, m0, tid), w, 0, K,
                                     rows, N, n0, bvec, tid, acc);
   const fq::tc::FragMap map(tid);
   if constexpr (NOISE) {

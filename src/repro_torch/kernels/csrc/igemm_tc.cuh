@@ -51,9 +51,12 @@
 // 64-row tiles. What this design leaves: no TMA, no warp specialisation
 // (every thread loads, transposes and waits at two barriers per stage),
 // the B transpose in shared memory, a 64-wide tile (m64n32 per warpgroup
-// reads A twice from shared memory), and a serial K loop per tile (the
+// reads A twice from shared memory), and a serial K loop per tile: the
 // deep layers at B = 1 and 8 run one block on most SMs, so each stage's
-// latency is the kernel's time).
+// latency is the kernel's time. K3 cuts that loop where the tile policy
+// (kernels/fq_conv.py::pick_blocks) picks a cin block bc < Cin: split-K,
+// each block running the range [k_begin, k_end) of one split
+// (fq_conv.cu, fq_conv_splitk_kernel).
 #pragma once
 
 #include <cstdint>
@@ -293,15 +296,17 @@ __device__ __forceinline__ int vec_row(int tid) {
 }
 __device__ __forceinline__ int vec_chunk(int tid) { return (tid % 32) / 8; }
 
-// The tile loop: d (FragMap) += A (rows m0 .., K) x B (K, columns n0 ..).
-// A vector loader (AVEC) provides  void issue(int8_t* tile, int k0),  which
-// cp.asyncs the thread's 16 bytes of the stage at code k0 (called once per
-// stage, in order); a byte Gather (!AVEC) goes through gather_a. K is
-// the reduction length (A's lanes at or past it load 0), rows is B's count
-// of byte rows; bvec picks B's cp.async. smem is SMEM_BYTES of dynamic
-// shared memory. It ends with this warpgroup's MMAs complete, not the
-// other's: a caller that runs it again on the same smem puts a barrier
-// between the calls.
+// The tile loop: d (FragMap) += A (rows m0 .., codes k_begin .. k_end) x
+// B (the same codes, columns n0 ..). A vector loader (AVEC) provides  void
+// issue(int8_t* tile, int k0),  which cp.asyncs the thread's 16 bytes of
+// the stage at code k0 (called once per stage, in order); a byte Gather
+// (!AVEC) goes through gather_a. The stages start at k_begin (0, or a split
+// of K3's split-K: a multiple of 16 with the vector loader, of FACTOR with
+// packed B) and A's lanes at or past k_end load 0, so the B rows they meet
+// add nothing; rows is B's count of byte rows; bvec picks B's cp.async.
+// smem is SMEM_BYTES of dynamic shared memory. It ends with this
+// warpgroup's MMAs complete, not the other's: a caller that runs it again
+// on the same smem puts a barrier between the calls.
 //
 // Step kt, for stage kt (slot kt % RING of the A and raw B rings, slot
 // kt % BT_RING of the transposed one):
@@ -317,10 +322,11 @@ __device__ __forceinline__ int vec_chunk(int tid) { return (tid % 32) / 8; }
 //   5. wait for all but the newest MMA group: the MMAs of step kt - 1.
 template <int FACTOR, bool AVEC, class LoadA>
 __device__ __forceinline__ void mainloop(int8_t* smem, LoadA load_a,
-                                         const int8_t* __restrict__ w, int K,
-                                         int rows, int N, int n0, bool bvec,
-                                         int tid, int (&d)[16]) {
-  const int nk = (K + BK - 1) / BK;
+                                         const int8_t* __restrict__ w,
+                                         int k_begin, int k_end, int rows,
+                                         int N, int n0, bool bvec, int tid,
+                                         int (&d)[16]) {
+  const int nk = (k_end - k_begin + BK - 1) / BK;
   const int g = tid / 128;
   const LoadB<FACTOR> lb(w, rows, N, n0, tid, bvec);
   int8_t* const a_ring = smem + A_OFF;
@@ -332,9 +338,10 @@ __device__ __forceinline__ void mainloop(int8_t* smem, LoadA load_a,
   auto load = [&](int j) {  // stage j into its ring slots, one group
     if (j < nk) {
       const int slot = j % RING;
-      if constexpr (AVEC) load_a.issue(a_ring + slot * TILE, j * BK);
-      else gather_a(load_a, a_ring + slot * TILE, j * BK, tid);
-      lb.fill(raw_ring + slot * TILE, j * BK, tid);
+      const int k0 = k_begin + j * BK;
+      if constexpr (AVEC) load_a.issue(a_ring + slot * TILE, k0);
+      else gather_a(load_a, a_ring + slot * TILE, k0, tid);
+      lb.fill(raw_ring + slot * TILE, k0, tid);
     }
     cp_async_commit();
   };

@@ -141,3 +141,41 @@ def ref_fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
         acc = acc[:, :hp * qh, :wp * qw].reshape(b, hp, qh, wp, qw, cout)
         acc = acc.amax(dim=(2, 4))
     return apply_epilogue(acc, scale, epilogue=epilogue, n_out=n_out, lo=lo)
+
+
+def ref_splitk_partials(a_codes: torch.Tensor, w_codes: torch.Tensor, *,
+                        kh: int, kw: int, bc: int,
+                        stride: Tuple[int, int] = (1, 1),
+                        padding: Tuple[int, int] = (0, 0),
+                        dilation: Tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """K3's split-K partial sums: (cin // bc, B*Ho*Wo, Cout) int32, split z
+    the sum over the codes [z kspan, (z + 1) kspan) of the tap-major
+    reduction (row t*Cin + c of the int8 weights), kspan = kh*kw*bc."""
+    b, h, w, cin = a_codes.shape
+    if cin % bc:
+        raise ValueError(f"bc={bc} must divide cin={cin}")
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    x = F.pad(a_codes.to(torch.float64), (0, 0, pw, pw, ph, ph))
+    ho = (h + 2 * ph - (kh - 1) * dh - 1) // sh + 1
+    wo = (w + 2 * pw - (kw - 1) * dw - 1) // sw + 1
+    patches = torch.cat([
+        x[:, th * dh: th * dh + (ho - 1) * sh + 1: sh,
+          tw * dw: tw * dw + (wo - 1) * sw + 1: sw, :]
+        for th in range(kh) for tw in range(kw)], -1).reshape(b * ho * wo, -1)
+    wf = w_codes.to(torch.float64)
+    kspan = kh * kw * bc
+    return torch.stack([
+        patches[:, z * kspan:(z + 1) * kspan] @ wf[z * kspan:(z + 1) * kspan]
+        for z in range(cin // bc)]).to(torch.int32)
+
+
+def ref_splitk_epilogue(partials: torch.Tensor, scale: torch.Tensor, *,
+                        epilogue: str = "requant", n_out: int = 7,
+                        lo: int = 0, noise_sigma_acc=None, noise_seed=None,
+                        mac_chunks: int = 1) -> torch.Tensor:
+    """The split-K epilogue pass: (split, M, N) int32 partials -> their
+    int32 sum, the ADC noise at the global index ``row * N + col`` when
+    ``noise_sigma_acc`` is given, then the fused epilogue; (M, N)."""
+    acc = partials.sum(dim=0, dtype=torch.int32)
+    acc = add_mac_noise(acc, noise_sigma_acc, noise_seed, mac_chunks)
+    return apply_epilogue(acc, scale, epilogue=epilogue, n_out=n_out, lo=lo)

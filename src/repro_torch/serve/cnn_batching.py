@@ -52,13 +52,15 @@ What differs is the step, which the reference jits once per
 
 ``step_stats`` records how each flush ran (``graph_flushes``,
 ``eager_flushes``), the captures and their time, and the graphs alive on
-each lane.
+each lane. As in the reference, each lane's step runs inside the conv tile
+policy's ``kernels.fq_conv.replica_scope(lane.rid)``, so autotune-table
+misses are attributed to the lane that met them: on a CUDA lane once per
+capture (the reference: once per trace), on a CPU lane once per eager
+step.
 
 Not ported: ``mesh=`` (the reference's big-batch sharding through
-``models.sharding.serving_constrain``; passing one raises), the shared
-``step_fn`` (it shares the reference's jit cache; graphs belong to a lane)
-and the kernels' autotune replica scope (``fq_conv.replica_scope``, which
-comes with the conv tile policy).
+``models.sharding.serving_constrain``; passing one raises) and the shared
+``step_fn`` (it shares the reference's jit cache; graphs belong to a lane).
 """
 from __future__ import annotations
 
@@ -74,6 +76,7 @@ import torch
 from ..core import prng
 from ..core.noise import NoiseConfig
 from ..device import resolve_device
+from ..kernels import fq_conv
 from .shape_ladder import ShapeLadder
 
 
@@ -407,10 +410,11 @@ class CNNBatcher:
         CUDA lane, the pinned batch is copied in on the lane's stream, the
         signature's graph replays (captured now if new), or the step runs
         eagerly under noise, and the output is copied back to pinned
-        memory behind an event."""
+        memory behind an event. The step runs in the lane's autotune
+        ``replica_scope``."""
         noisy = {} if key_n is None else dict(noise=self.noise_config,
                                               rng=key_n.to(lane.device))
-        with torch.no_grad():
+        with torch.no_grad(), fq_conv.replica_scope(lane.rid):
             if lane.stream is None:
                 self._steps["eager_flushes"] += 1
                 return _Result(lane.step(x, **noisy))

@@ -21,7 +21,8 @@ from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.fq_conv import a_loader as conv_a_loader
-from repro_torch.kernels.fq_conv import fq_conv2d, fq_conv2d_pool
+from repro_torch.kernels.fq_conv import (fq_conv2d, fq_conv2d_pool,
+                                        splitk_epilogue)
 from repro_torch.kernels.fq_matmul import a_loader as matmul_a_loader
 from repro_torch.kernels.fq_matmul import fq_matmul
 from repro_torch.kernels.quantize import quantize_codes
@@ -698,3 +699,117 @@ def test_noise_canary_runs_eagerly_on_the_card(cuda):
         want = _eager_rows(fn, batch, 2, noise=cond, rng=key)
         for r, row in zip(batch, want):
             assert np.array_equal(r.out, row)
+
+
+# ---------------------------------------------------------------------------
+# K1's vector kernel at its edges, and K3's split-K (the tile policy's bc)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 3, 15, 16, 17, 4095, 4097, 1_000_003])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4, 7])
+def test_quantize_codes_odd_n_and_unaligned_views(cuda, n, offset):
+    """Any length and any float offset (x[offset:], 4 bytes a step): the
+    scalar head, the vector body with 16- or 1-byte stores, the tail."""
+    rng = np.random.default_rng(n + offset)
+    flat = torch.from_numpy((rng.standard_normal(n + offset) * 2).astype(
+        np.float32)).to(cuda)
+    x = flat[offset:]
+    inv = torch.tensor(np.float32(0.9), device=cuda)
+    for b, bits in ((0.0, 4), (-1.0, 8)):
+        nl = 2 ** (bits - 1) - 1
+        got = quantize_codes(x, inv, n=nl, b=b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tref.ref_quantize_codes(x, inv, n=nl, b=b))
+
+
+@pytest.mark.parametrize("shape", [(64 * 140, 100), (8 * 112 * 112, 32)])
+def test_quantize_codes_model_shapes_and_row_views(cuda, shape):
+    """KWS B=64's and DarkNet B=8's entry shapes, and a view one row in."""
+    rng = np.random.default_rng(shape[1])
+    x = torch.from_numpy((rng.standard_normal(shape) * 1.5).astype(
+        np.float32)).to(cuda)
+    inv = torch.tensor(np.float32(0.8), device=cuda)
+    for v in (x, x[1:], x[:-1]):
+        assert torch.equal(quantize_codes(v, inv, n=7, b=0.0),
+                           tref.ref_quantize_codes(v, inv, n=7, b=0.0))
+
+
+SPLIT_CASES = [
+    # (batch, h, w, cin, cout, ksize, bc): vector loader (cin % 16 == 0),
+    # byte loader (cin 70; cin 48 at bc 24: kspan 216 % 16 != 0), a split
+    # shorter than a stage, and DarkNet's late layers at B=1
+    (2, 9, 7, 48, 37, 3, 16), (2, 9, 7, 48, 37, 3, 24),
+    (3, 5, 5, 70, 67, 3, 35), (3, 5, 5, 70, 67, 3, 7),
+    (1, 7, 7, 512, 1024, 3, 64), (1, 7, 7, 1024, 512, 1, 512),
+    (1, 14, 14, 256, 512, 3, 64), (1, 6, 6, 64, 200, 1, 16)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: "x".join(
+    map(str, c)))
+@pytest.mark.parametrize("noise", [None, 1, 4])
+@pytest.mark.parametrize("epilogue,lo", [("requant", -7), ("dequant", 0)])
+def test_fq_conv2d_split_matches_plain(cuda, case, noise, epilogue, lo):
+    b, h, w_, cin, cout, ks, bc = case
+    rng = np.random.default_rng(cin + cout + bc)
+    a = _codes(rng, (b, h, w_, cin), 0, 15, cuda)
+    w = _codes(rng, (ks * ks * cin, cout), -7, 7, cuda)
+    s = torch.tensor(np.float32(0.004), device=cuda)
+    kw = dict(kh=ks, kw=ks, padding=(ks // 2, ks // 2), epilogue=epilogue,
+              n_out=15, lo=lo,
+              **({} if noise is None else _noise(cuda, 0.004, noise)))
+    before = (fq_conv2d.launches, fq_conv2d.split_launches,
+              splitk_epilogue.launches, fq_conv2d.vector_launches)
+    got = fq_conv2d(a, w, s, bc=bc, **kw)
+    torch.cuda.synchronize()
+    want = tref.ref_fq_conv2d(a, w, s, **kw)
+    assert torch.equal(got, want)
+    split = cin // bc
+    vector = cin % 16 == 0 and (ks * ks * bc) % 16 == 0
+    assert (fq_conv2d.launches - before[0], fq_conv2d.split_launches
+            - before[1], splitk_epilogue.launches - before[2],
+            fq_conv2d.vector_launches - before[3]) == \
+        (1, int(split > 1), int(split > 1), int(vector))
+    assert torch.equal(fq_conv2d(a, w, s, bc=cin, **kw), want)
+
+
+@pytest.mark.parametrize("split,m,n", [(2, 49, 1024), (8, 49, 1024),
+                                       (3, 130, 45), (1, 7, 5)])
+@pytest.mark.parametrize("noise", [None, 1, 4])
+@pytest.mark.parametrize("epilogue", ["requant", "dequant"])
+def test_splitk_epilogue_matches_plain(cuda, split, m, n, noise, epilogue):
+    rng = np.random.default_rng(split * m + n)
+    parts = torch.from_numpy(rng.integers(-60000, 60000, size=(
+        split, m, n)).astype(np.int32)).to(cuda)
+    s = torch.tensor(np.float32(1e-4), device=cuda)
+    kw = dict(epilogue=epilogue, n_out=7, lo=-7,
+              **({} if noise is None else _noise(cuda, 1e-4, noise)))
+    got = splitk_epilogue(parts, s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.ref_splitk_epilogue(parts, s, **kw))
+
+
+def test_split_conv_is_capturable(cuda):
+    """The policy's split (DarkNet conv13 at B=1) inside a CUDA graph: the
+    workspace comes from the graph's pool, replays equal the eager call."""
+    rng = np.random.default_rng(13)
+    a = _codes(rng, (1, 7, 7, 512), 0, 15, cuda)
+    w = _codes(rng, (9 * 512, 1024), -1, 1, cuda)
+    s = torch.tensor(np.float32(0.02), device=cuda)
+    kw = dict(kh=3, kw=3, padding=(1, 1), n_out=7)
+    want = fq_conv2d(a, w, s, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fq_conv2d(a, w, s, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = fq_conv2d.split_launches
+    with torch.cuda.graph(graph):
+        y = fq_conv2d(a, w, s, **kw)
+    assert fq_conv2d.split_launches == before + 1
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+    assert torch.equal(want, tref.ref_fq_conv2d(a, w, s, **kw))
