@@ -108,22 +108,30 @@ Phases, each of which must pass:
    noisy ``int_serve_fn``;
 12. train_fq: float FQ training, which reaches no TPU-kernel counterpart
    (the K1-K5 counters must read 0 across it). Full-width KWS (B=64, 140
-   frames) and DarkNet-19 (224 x 224, B=8) from seed SEED each run a short
+   frames), DarkNet-19 (224 x 224, B=8) and the paper's CIFAR ResNets
+   (``configs.paper_nets``: ResNet-20, B=128, and ResNet-32, B=32, on 32 x
+   32 x 3 images in [-1, 1]) from seed SEED each run a short
    gradual-quantization ladder through ``gradual.run_ladder`` and the
-   port's training entry points: FP; Q (KWS W2A4, DarkNet W2A5); BN folded
-   by ``to_fq`` and ranges set by ``calibrate`` (3 iterations on the
-   batch), then FQ W2A4; FQ under Table 7's noisiest condition. Each stage
+   port's training entry points: KWS and DarkNet FP; Q (KWS W2A4, DarkNet
+   W2A5); BN folded by ``to_fq`` and ranges set by ``calibrate`` (3
+   iterations on the batch), then FQ W2A4; FQ under Table 7's noisiest
+   condition. ResNet-20 the first and last stages of Table 1's ladder
+   (``LADDERS["cifar10"]``: FP, Q W2A2; stem and head FP). ResNet-32 the
+   first, the last but one and the last of Table 6's (FP; Q W2A5, its
+   weight scales seeded at TRAIN_SW_PERCENTILE; FQ W2A5 after ``to_fq`` +
+   ``calibrate``) and FQ W2A5 under the noisiest condition. Each stage
    takes 3 steps of SGD (Nesterov 0.9, weight decay 5e-4, cosine from
-   0.05), every stage after the first distilling from the best so far.
+   TRAIN_LR: 0.05, ResNet-32 0.01), every stage after the first
+   distilling from the best so far.
    Each step is repeated on the CPU from a copy of the card's params; the
    CPU's quantizer inputs whose code or clip class differ from the card's
    are counted and pinned to the card's. It fails unless loss, logits and
    gradients are finite; logits, loss, gradients and the updated params
    agree with the CPU's within the bounds stated at TRAIN_*; the fold and
    calibration agree; every quantized layer's w, s_w, s_in and s_out get a
-   gradient in each FQ stage; and an FQ backward with
-   ``cudnn.allow_tf32 = True`` set globally gives the gradients of the run
-   with it False bit for bit. It prints each stage's step time (host
+   gradient in each FQ stage; and a backward of the ladder's last stage
+   with ``cudnn.allow_tf32 = True`` set globally gives the gradients of
+   the run with it False bit for bit. It prints each stage's step time (host
    clock, mean of 10), profiled busy share and top device ops, and peak
    memory, beside the card's name and power limit.
 
@@ -2429,10 +2437,25 @@ def phase_serve_batcher(torch, dev):
 # Float FQ training (train_fq)
 # ---------------------------------------------------------------------------
 
-TRAIN_BATCH = {"kws": 64, "darknet": 8}
+# ResNet-32 at B=32, not 64: the CPU twin repeats every step on the host's
+# 8 cores, and at B=32 the phase already takes 217-241 s of the smoke
+# run's 1,200 on an H100 host.
+TRAIN_BATCH = {"kws": 64, "darknet": 8, "resnet20": 128, "resnet32": 32}
 TRAIN_STEPS = 3            # SGD steps a ladder stage, each checked
 TRAIN_TIMED = 10           # steps timed a stage (host clock, mean)
-TRAIN_LR = 0.05            # benchmarks/common.py's BenchTask.lr
+# Steps profiled a stage (busy share, device ops): 1. The profiler's host
+# costs ~0.5 ms an event, and the 14 stages launch ~139,000 ops a step, so
+# 3 steps (PR 20's window) added 142 s to the smoke run (1,084 s of its
+# 1,200 on an H100); 1 against 3 moved device ops by -13 to +46 a stage
+# (a window's first events go unseen) and busy ms by <= 5.2% (PERF.md §5).
+TRAIN_PROFILED = 1
+# SGD's rate: benchmarks/common.py's BenchTask.lr, 0.05. ResNet-32 at 0.01:
+# at 0.05 its FQ stage's log-scale gradients reach 1e2-2e3 (the loss after
+# the FQ transition is 150-800), one update moves a log-scale by 10-223 and
+# the card's run went non-finite by its second FQ update in 2 of 4 runs, the
+# CPU from the same params alike; the reference takes a move of 26 from the
+# card's params (tools/train_fq_probe.py, tests/train_fq_reference_hold.py)
+TRAIN_LR = {"kws": 0.05, "darknet": 0.05, "resnet20": 0.05, "resnet32": 0.01}
 TRAIN_ALPHA = 0.7          # its distillation alpha
 TRAIN_CAL_ITERS = 3        # calibrate iterations at the FQ transition
 TRAIN_KEY = 9              # PRNGKey of the noisy stage (fold_in per step)
@@ -2442,8 +2465,16 @@ TRAIN_KEY = 9              # PRNGKey of the noisy stage (fold_in per step)
 # the BN-free net is dead from conv12 on after calibrate's 3 iterations
 # (the reference's own run at full width: C-ref-5,
 # tests/test_torch_darknet_fq_transition.py); at the percentile every
-# layer is live.
-TRAIN_DN_SW_PERCENTILE = 99.0
+# layer is live. TRAIN_SW_SEEDED names, per row, the transitions at which
+# the scales are so seeded: "q", the first quantized stage; "fq", after
+# to_fq. ResNet-32's are seeded at its first 2-bit stage: at max|w| whole
+# output channels of the stem and the 1x1 shortcuts have no nonzero code,
+# their BN divides by sqrt(eps), and SGD from FP goes non-finite in the
+# second Q W2A5 step on an H100 (C-ref-6,
+# tests/test_torch_resnet_q_transition.py). Its FQ transition keeps the
+# reference's recipe, which leaves it live (test_torch_train_fq_full.py).
+TRAIN_SW_PERCENTILE = 99.0
+TRAIN_SW_SEEDED = {"darknet": ("fq",), "resnet32": ("q",)}
 # card against CPU, each step
 TRAIN_RTOL_LOGITS = 1e-4   # x max|logit|: float32 sums in other orders
 TRAIN_RTOL_LOSS = 1e-5     # relative: a mean of log-softmaxes
@@ -2464,9 +2495,32 @@ TRAIN_MAX_CODE_FLIPS = 1e-4
 # order and not in the other); KWS's narrow convs over sparse codes tie
 # most. An H100 reads 2.8e-2 to 4.2e-2 (KWS) and 2.6e-3 to 5.0e-3
 # (DarkNet) from run to run, as cuDNN picks its algorithms.
-TRAIN_MAX_TIE_FLIPS = {"kws": 1e-1, "darknet": 2e-2}
+# The ResNets' limits were set before their first card run: ResNet-20's
+# narrow convs (16-64 channels) over 2-bit codes as KWS's; ResNet-32's
+# 64-256 channels between KWS's and DarkNet's (the reference against the
+# port on the CPU reads 1.1e-3 at full width, B=1: test_torch_train_fq_full).
+# An H100 reads ResNet-20 <= 1.2e-8 (Q W2A2 has no clip ties but a ReLU's)
+# and ResNet-32 2.1e-3 to 1.3e-2 (FQ W2A5).
+TRAIN_MAX_TIE_FLIPS = {"kws": 1e-1, "darknet": 2e-2, "resnet20": 1e-1,
+                       "resnet32": 5e-2}
 TRAIN_MAX_POOL_FLIPS = 1e-2    # of 2x2 windows (reads <= 3.0e-3, DarkNet Q)
 TRAIN_MAX_RELU_FLIPS = 1e-5    # of (leaky) ReLU inputs (reads <= 7.6e-7)
+
+
+def sw_seeded(path, transition):
+    """Whether ``path``'s weight scales are seeded at ``transition`` ("q" or
+    "fq"; TRAIN_SW_SEEDED), in ``train_fq`` and ``train_qat`` alike."""
+    return transition in TRAIN_SW_SEEDED.get(path, ())
+
+
+def seed_weight_scales(params, names):
+    """``params`` with e^{s_w} of every conv in ``names`` at the
+    TRAIN_SW_PERCENTILE-th percentile of its |w|."""
+    from repro_torch.core.quant import init_scale
+    return {**params, **{n: {**params[n], "s_w": init_scale(
+        params[n]["w"], percentile=TRAIN_SW_PERCENTILE)} for n in names}}
+
+
 FLIP_KINDS = (("code", "code_flips", "positions"),
               ("tie", "tie_flips", "positions"),
               ("pool", "pool_flips", "windows"),
@@ -2512,7 +2566,69 @@ def check_flips(where, path, total, rounding_ties=False):
                                  f"{positions} > {limits[kind]}")
     print(f"{where}: CPU against card, flips pinned: " + ", ".join(parts)
           + (f" (ties: {total.get('round_ties', 0)} rounding ties among "
-             "them)" if rounding_ties else ""), flush=True)
+             "them)" if rounding_ties else
+             f" (of the code flips {total.get('round_ties', 0)} rounding "
+             "ties)"), flush=True)
+
+
+def resnet_convs(cfg):
+    """A ResNet's quantized convs in call order (the stem where
+    ``quantize_first_last``; per block c1, c2 and the downsample shortcut
+    sc), and the (conv, next conv) pairs where the next conv's input is the
+    conv's own output: the stem's into the first c1, each c1's into its
+    c2. The reference's ResNet has no list of its conv names."""
+    names, pairs, cin = [], [], cfg.widths[0]
+    if cfg.quantize_first_last:
+        names.append("stem")
+        pairs.append(("stem", "s0b0_c1"))
+    for si, w in enumerate(cfg.widths):
+        for bi in range(cfg.blocks_per_stage):
+            pre = f"s{si}b{bi}"
+            names += [pre + "_c1", pre + "_c2"] + (
+                [pre + "_sc"] if cin != w else [])
+            pairs.append((pre + "_c1", pre + "_c2"))
+            cin = w
+    return names, pairs
+
+
+def train_setup(path):
+    """The model, config, input shape, ladder stages ((QuantConfig, label,
+    noisy) each), quantized conv names, (conv, next conv) pairs and the
+    conv whose weight gradient shows TF32 of one ``train_fq`` row."""
+    from repro_torch.configs.paper_nets import PAPER_NETS, ladder_for
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models import darknet, kws
+
+    batch = TRAIN_BATCH[path]
+    if path in ("kws", "darknet"):
+        model = kws if path == "kws" else darknet
+        cfg = kws.KWSConfig() if path == "kws" else darknet.DarkNetConfig()
+        shape = ((batch, cfg.seq_len, cfg.n_mfcc) if path == "kws"
+                 else (batch, DN_SIZE, DN_SIZE, cfg.in_channels))
+        fq = QuantConfig(2, 4, 4, fq=True)
+        q = QuantConfig(2, 4) if path == "kws" else QuantConfig(2, 5)
+        ladder = [QuantConfig(), q, fq, fq]
+        quantized = (kws.conv_names(cfg) if path == "kws"
+                     else darknet.int_conv_names(cfg))
+        pairs = list(zip(quantized, quantized[1:]))
+        teeth = "conv1" if path == "darknet" else "conv0"
+    else:
+        net = PAPER_NETS[{"resnet20": "resnet20-cifar10",
+                          "resnet32": "resnet32-cifar100"}[path]]
+        model, cfg = net.module, net.config
+        shape = (batch,) + net.input_shape
+        table = ladder_for(net)
+        # Table 1's ladder has no FQ stage; Table 6's ends in FQ W2A5
+        ladder = ([table[0], table[-1]] if path == "resnet20" else
+                  [table[0], table[-2], table[-1], table[-1]])
+        quantized, pairs = resnet_convs(cfg)
+        teeth = "s0b0_c1"
+    stages = [(q, "FP" if q.is_fp else q.label(), False) for q in ladder]
+    if len(stages) == 4:  # the last stage again, noisy
+        q, label, _ = stages[-1]
+        stages[-1] = (q, label + " noisy", True)
+    return dict(model=model, cfg=cfg, shape=shape, stages=stages,
+                quantized=quantized, pairs=pairs, teeth=teeth)
 
 
 def train_model(torch, dev, path, smi):
@@ -2526,26 +2642,23 @@ def train_model(torch, dev, path, smi):
     from repro_torch.core import fq_layers as fql
     from repro_torch.core import integer_inference as ii
     from repro_torch.core.noise import NoiseConfig, TABLE7_CONDITIONS
-    from repro_torch.core.quant import QuantConfig, init_scale
-    from repro_torch.models import darknet, kws
+    from repro_torch.core.quant import QuantConfig
     from repro_torch.optim import schedules, sgd
 
-    model = kws if path == "kws" else darknet
-    cfg = kws.KWSConfig() if path == "kws" else darknet.DarkNetConfig()
-    batch = TRAIN_BATCH[path]
-    shape = ((batch, cfg.seq_len, cfg.n_mfcc) if path == "kws"
-             else (batch, DN_SIZE, DN_SIZE, cfg.in_channels))
+    setup = train_setup(path)
+    model, cfg, shape = setup["model"], setup["cfg"], setup["shape"]
+    quantized, stages = setup["quantized"], setup["stages"]
+    ladder = [q for q, _, _ in stages]
+    batch = shape[0]
     rng = np.random.default_rng(SEED + 7)
-    x_np = rng.standard_normal(shape).astype(np.float32)
+    if path.startswith("resnet"):
+        # the ResNets' images in [-1, 1], as ``resnet.apply`` takes them
+        x_np = rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+    else:
+        x_np = rng.standard_normal(shape).astype(np.float32)
     y_np = rng.integers(0, cfg.num_classes, batch)
-    fq = QuantConfig(2, 4, 4, fq=True)
-    ladder = [QuantConfig(), QuantConfig(2, 4) if path == "kws"
-              else QuantConfig(2, 5), fq, fq]
-    labels = ["FP", ladder[1].label(), fq.label(), fq.label() + " noisy"]
     cond = TABLE7_CONDITIONS[-1]
     noise = NoiseConfig(cond.sigma_w, cond.sigma_a, cond.sigma_mac)
-    quantized = (kws.conv_names(cfg) if path == "kws"
-                 else darknet.int_conv_names(cfg))
     devs = {"card": dev, "cpu": torch.device("cpu")}
     data = {d: (torch.from_numpy(x_np).to(v), torch.from_numpy(y_np).to(v))
             for d, v in devs.items()}
@@ -2572,9 +2685,11 @@ def train_model(torch, dev, path, smi):
         return fn
 
     def train_stage(bundle, qcfg, teacher, idx):
-        label = labels[idx]
-        nz = noise if idx == len(ladder) - 1 else None
+        _, label, noisy = stages[idx]
+        nz = noise if noisy else None
         p, st, prev = bundle
+        if sw_seeded(path, "q") and prev.is_fp and not qcfg.is_fp:
+            p = seed_weight_scales(p, quantized)
         if qcfg.fq and not prev.fq:
             # paper §3.4: fold BN, calibrate the ranges on the batch; the
             # CPU does the same from the same params, then takes the card's
@@ -2583,10 +2698,8 @@ def train_model(torch, dev, path, smi):
             for d, v in devs.items():
                 pd, sd = ii.to_device(p, v), ii.to_device(st, v)
                 pd = model.to_fq(pd, sd, cfg)
-                if path == "darknet":
-                    for n in quantized:
-                        pd[n] = {**pd[n], "s_w": init_scale(
-                            pd[n]["w"], percentile=TRAIN_DN_SW_PERCENTILE)}
+                if sw_seeded(path, "fq"):
+                    pd = seed_weight_scales(pd, quantized)
                 refs = iter(list(card_taps))
 
                 def forward(pp, sd=sd, d=d, refs=refs):
@@ -2617,7 +2730,7 @@ def train_model(torch, dev, path, smi):
                 tp, ts, tq = ii.to_device(teacher, v)
                 with torch.no_grad():
                     t_logits[d], _ = model.apply(tp, ts, data[d][0], tq, cfg)
-        sched = schedules.cosine(TRAIN_LR, TRAIN_STEPS)
+        sched = schedules.cosine(TRAIN_LR[path], TRAIN_STEPS)
         opt = sgd.make(sched, weight_decay=5e-4)
         ost = opt.init(p)
         # A conv whose s_in equals the previous conv's s_out (calibrate
@@ -2627,7 +2740,7 @@ def train_model(torch, dev, path, smi):
         # step (KWS conv1.s_in: the CPU reads 3e-12 = 4e-9 M, the card 0 in
         # some steps). The liveness check passes over it; the card-against-
         # CPU check of every s leaf holds it all the same.
-        on_grid = ({f"{n}.s_in" for m, n in zip(quantized, quantized[1:])
+        on_grid = ({f"{n}.s_in" for m, n in setup["pairs"]
                     if torch.equal(p[n]["s_in"], p[m]["s_out"])}
                    if qcfg.fq and nz is None else set())
         flips, live = {}, set()
@@ -2689,7 +2802,7 @@ def train_model(torch, dev, path, smi):
           f"the card's params: worst |diff| / bound {last[0][0]:.3g} "
           f"({last[0][1]})", flush=True)
     check_tf32_pinned(torch, tree, path, model, cfg, result.final.params,
-                      data["card"], fq)
+                      data["card"], ladder[-1], setup["teeth"])
     print(f"train_fq {path}: ladder {result.summary()} (accuracy on the "
           "batch, card)", flush=True)
     return rows
@@ -2834,8 +2947,8 @@ def time_step(torch, step, reps):
 def time_train_step(torch, tree, path, label, opt, out, ost, qcfg, nz,
                     loss_fn, smi):
     """One training step on the card (value_and_grad + SGD update) from the
-    stage's end, timed by :func:`time_step` over 3 profiled steps. The
-    steps' results are dropped."""
+    stage's end, timed by :func:`time_step` over TRAIN_PROFILED profiled
+    steps. The steps' results are dropped."""
     from repro_torch.core import prng
     p, st, t_logits = out
     key = (prng.fold_in(prng.PRNGKey(TRAIN_KEY), 99).to(
@@ -2847,18 +2960,19 @@ def time_train_step(torch, tree, path, label, opt, out, ost, qcfg, nz,
         (loss, _), g = vg(p)
         return opt.update(p, g, ost, 0)
 
-    t = time_step(torch, step, reps=3)
+    t = time_step(torch, step, reps=TRAIN_PROFILED)
     print(f"train_fq {path} {label}: {t.pop('line')}; {smi}", flush=True)
     del t["names"]
     return {"path": path, "stage": label, **t}
 
 
-def check_tf32_pinned(torch, tree, path, model, cfg, bundle, data, qcfg):
-    """One FQ backward with ``cudnn.allow_tf32`` set True globally gives
-    the gradients of the run with it False, bit for bit (the convs pin it
-    off in both directions); both runs with cuDNN's deterministic
-    algorithms. Then the same conv through plain autograd, to show TF32
-    would have moved it."""
+def check_tf32_pinned(torch, tree, path, model, cfg, bundle, data, qcfg,
+                      name):
+    """One backward (of stage ``qcfg``, training mode) with
+    ``cudnn.allow_tf32`` set True globally gives the gradients of the run
+    with it False, bit for bit (the convs pin it off in both directions);
+    both runs with cuDNN's deterministic algorithms. Then conv ``name``
+    through plain autograd, to show TF32 would have moved it."""
     p, st, _ = bundle
     x, y = data
 
@@ -2881,7 +2995,6 @@ def check_tf32_pinned(torch, tree, path, model, cfg, bundle, data, qcfg):
         torch.backends.cudnn.deterministic = det
     same = all(torch.equal(a, b) for a, b in zip(grads[False], grads[True]))
     # the teeth: a conv of the net through plain autograd, TF32 on and off
-    name = "conv1" if path == "darknet" else "conv0"
     w = p[name]["w"]
     nd = w.dim() - 2
     xin = torch.randn((x.shape[0], w.shape[-2]) + (32,) * nd,
@@ -2900,7 +3013,8 @@ def check_tf32_pinned(torch, tree, path, model, cfg, bundle, data, qcfg):
     finally:
         torch.backends.cudnn.allow_tf32 = False
     teeth = float((plain[True] - plain[False]).abs().max())
-    print(f"train_fq {path}: FQ gradients with cudnn.allow_tf32 = True "
+    print(f"train_fq {path}: {qcfg.label()} gradients with "
+          "cudnn.allow_tf32 = True "
           f"globally {'==' if same else '!='} with False, bit for bit, over "
           f"{len(grads[False])} leaves; the unpinned {name} weight gradient "
           f"moves by {teeth:.3g} under TF32", flush=True)
@@ -2910,14 +3024,15 @@ def check_tf32_pinned(torch, tree, path, model, cfg, bundle, data, qcfg):
 
 def phase_train_fq(torch, dev):
     """Float FQ training: a short gradual-quantization ladder of full-width
-    KWS and DarkNet-19 through the port's training entry points, card
-    against its CPU twin step by step; no TPU-kernel counterpart runs."""
+    KWS, DarkNet-19, ResNet-20 and ResNet-32 through the port's training
+    entry points, card against its CPU twin step by step; no TPU-kernel
+    counterpart runs."""
     from repro_torch import kernels
     smi = nvidia_smi()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     rows = []
-    for path in ("kws", "darknet"):
+    for path in ("kws", "darknet", "resnet20", "resnet32"):
         rows += train_model(torch, dev, path, smi)
     torch.cuda.synchronize()
     counts = {**kernels.launch_counts(), **kernels.packed_launch_counts(),
@@ -2955,11 +3070,11 @@ QAT_KERNEL_NAMES = ("quantize_codes_kernel", "fq_conv_kernel",
 def qat_model(torch, dev, path):
     """(module, cfg, data, BN-folded FQ params, state, integer conv names)
     of one model on the card: the synthetic training set, init from seed
-    SEED, to_fq (DarkNet: e^{s_w} at the 99th percentile of |w|, C-ref-5)
-    and calibrate (3 iterations) on the set's first batch."""
+    SEED, to_fq (e^{s_w} seeded where TRAIN_SW_SEEDED says "fq": DarkNet,
+    C-ref-5) and calibrate (3 iterations) on the set's first batch."""
     from repro_torch.core import fq_layers as fql
     from repro_torch.core import prng
-    from repro_torch.core.quant import QuantConfig, init_scale
+    from repro_torch.core.quant import QuantConfig
     from repro_torch.data import synthetic
     from repro_torch.models import darknet, kws
 
@@ -2980,10 +3095,8 @@ def qat_model(torch, dev, path):
         names = darknet.int_conv_names(cfg)
     p, st = model.init(torch.Generator().manual_seed(SEED), cfg, device=dev)
     p = model.to_fq(p, st, cfg)
-    if path == "darknet":
-        for n in names:
-            p[n] = {**p[n], "s_w": init_scale(
-                p[n]["w"], percentile=TRAIN_DN_SW_PERCENTILE)}
+    if sw_seeded(path, "fq"):
+        p = seed_weight_scales(p, names)
     x0 = data[0][:TRAIN_BATCH[path]]
     p = fql.calibrate(lambda pp: model.apply(pp, st, x0, fq, cfg), p,
                       iters=TRAIN_CAL_ITERS)

@@ -210,6 +210,13 @@ def _conv(x, w, *, stride: int, padding: str, dilation: int):
     nd = x.dim() - 2
     xc = x.movedim(-1, 1)                      # an NC* view, channels last
     wc = w.to(x.dtype).permute(nd + 1, nd, *range(nd))   # -> OI*
+    if stride > 1 and all(k == 1 for k in w.shape[:nd]):
+        # A 1-tap conv at stride s (no padding, "SAME" or "VALID") reads
+        # every s-th position: take them and run it at stride 1, the same
+        # sums. The CPU's (mkldnn) weight gradient of a strided 1x1 conv on
+        # a channels-last input writes out of bounds of its heap buffers.
+        xc = xc[(slice(None),) * 2 + (slice(None, None, stride),) * nd]
+        stride = 1
     if padding == "SAME":
         pads = [_same_padding(x.shape[1 + i], (w.shape[i] - 1) * dilation + 1,
                               stride) for i in range(nd)]

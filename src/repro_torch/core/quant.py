@@ -26,7 +26,7 @@ gradients:
 
 Beside them, the packed weight formats (``int4``, ``ternary``): storage of
 several weight codes per byte, the layout the kernels' packed prologue
-(K5) reads.
+(K5) reads; and ``LADDERS``, the paper's gradual-quantization ladders.
 """
 from __future__ import annotations
 
@@ -371,3 +371,50 @@ def host_log(v: torch.Tensor) -> torch.Tensor:
     device: a log-scale set at initialisation, BN folding or calibration
     then has the same bits on every device."""
     return torch.log(v.detach().to("cpu", torch.float32)).to(v.device)
+
+
+# The paper's ladders (Tables 1, 3, 4, 6), selectable by name: the
+# reference's dict, entry for entry.
+LADDERS = {
+    # Table 1 — ResNet-20 / CIFAR-10: FP0 -> Q88 -> ... -> Q22
+    "cifar10": [
+        QuantConfig(),
+        QuantConfig(8, 8),
+        QuantConfig(6, 6),
+        QuantConfig(5, 5),
+        QuantConfig(4, 4),
+        QuantConfig(3, 3),
+        QuantConfig(2, 2),
+    ],
+    # Table 4 — KWS: FP -> Q66 -> Q45 -> Q35 -> Q24 -> FQ24
+    "kws": [
+        QuantConfig(),
+        QuantConfig(6, 6),
+        QuantConfig(4, 5),
+        QuantConfig(3, 5),
+        QuantConfig(2, 4),
+        QuantConfig(2, 4, 4, fq=True),
+    ],
+    # Table 6 — ResNet-32 / CIFAR-100: FP0 -> Q88 -> Q66 -> ... -> Q25 -> FQ25
+    "cifar100": [
+        QuantConfig(),
+        QuantConfig(8, 8),
+        QuantConfig(6, 6),
+        QuantConfig(5, 5),
+        QuantConfig(4, 5),
+        QuantConfig(3, 5),
+        QuantConfig(2, 5),
+        QuantConfig(2, 5, 5, fq=True),
+    ],
+    # Table 3 — DarkNet-19 / ImageNet
+    "imagenet": [
+        QuantConfig(),
+        QuantConfig(8, 8),
+        QuantConfig(7, 7),
+        QuantConfig(6, 6),
+        QuantConfig(5, 5),
+        QuantConfig(4, 5),
+        QuantConfig(3, 5),
+        QuantConfig(2, 5),
+    ],
+}

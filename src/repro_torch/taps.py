@@ -18,8 +18,9 @@ on a boundary the runs part on a discrete choice:
     gradient 1 against 0 or 0.1).
 
 Each moves one gradient term by O(1). :class:`Taps` wraps the functions
-that make those choices (``fq_layers.learned_quantize``, KWS's ReLU,
-DarkNet's leaky ReLU and the float max-pool ``kernels.ops.maxpool2d``;
+that make those choices (``fq_layers.learned_quantize``, KWS's and the
+ResNets' ReLU, DarkNet's leaky ReLU and the float max-pool
+``kernels.ops.maxpool2d``;
 a pool of int8 codes passes through untapped), records their inputs, counts the positions
 where this run parts from a reference run's inputs and pins them to the
 reference's values (the value pinned, the gradient passed through), so that
@@ -40,7 +41,7 @@ from . import tree
 from .core import fq_layers as fql
 from .core import quant
 from .kernels import ops
-from .models import darknet, kws
+from .models import darknet, kws, resnet
 
 # A code flip is a rounding tie where both inputs lie within this much of
 # the half-LSB boundary, relative to the boundary (in LSBs, at least 1):
@@ -50,7 +51,9 @@ ROUND_TIE_EPS = 2.0 ** -16
 # (module, function name) of each tapped function
 _TAPPED = ((fql, "learned_quantize"), (fql, "add_lsb_noise"),
            (fql, "batchnorm"), (ops, "maxpool2d"),
-           (darknet, "_leaky_relu"), (kws, "_relu"))
+           (darknet, "_leaky_relu"), (kws, "_relu"), (resnet, "_relu"))
+# of them, the models' (leaky) ReLUs, tapped by the sign of their input
+_SIGNED = ("_relu", "_leaky_relu")
 
 
 def category(x, e, b, n):
@@ -91,13 +94,19 @@ class Taps:
     :func:`recorded`), call by call; a kind it holds None for is not
     compared. Positions whose code or class differ are counted and, with
     ``pin``, pinned; the code flips that are rounding ties are counted
-    again in ``round_ties``. ``paths``: {id(leaf): name} of the leaves whose M is
+    again in ``round_ties``. With ``relu_ulps``, a ReLU flip is pinned only
+    where both inputs lie within that many float32 ulps of the reference
+    input's largest magnitude in the call (an input 0 in exact arithmetic,
+    signed by rounding); the others are counted in ``relu_far`` and left
+    as they are. ``paths``: {id(leaf): name} of the leaves whose M is
     summed into ``mag`` as the backward runs.
     """
 
     def __init__(self, ref=None, *, pin: bool = True, record: bool = False,
+                 relu_ulps: Optional[float] = None,
                  paths: Optional[Dict[int, str]] = None):
         self.ref, self.pin, self.record = ref, pin, record
+        self.relu_ulps = relu_ulps
         self.paths = paths or {}
         self.calls, self.pools, self.relus = [], [], []
         self.count = {"calls": 0, "pools": 0, "relus": 0}
@@ -105,7 +114,7 @@ class Taps:
         self.code_flips = self.tie_flips = self.positions = 0
         self.round_ties = 0  # of the code flips
         self.pool_flips = self.windows = 0
-        self.relu_flips = self.relu_positions = 0
+        self.relu_flips = self.relu_positions = self.relu_far = 0
 
     # -- bookkeeping -------------------------------------------------------
 
@@ -223,30 +232,37 @@ class Taps:
             mask = torch.sign(h.detach()) != torch.sign(ref)
             self.relu_flips += int(mask.sum())
             self.relu_positions += h.numel()
+            if self.relu_ulps is not None and bool(mask.any()):
+                tol = (self.relu_ulps * torch.finfo(ref.dtype).eps
+                       * ref.abs().max())
+                near = torch.maximum(h.detach().abs(), ref.abs()) <= tol
+                self.relu_far += int((mask & ~near).sum())
+                mask = mask & near
             if self.pin:
                 h = _pin(h, mask, ref)
         self._keep("relus", h)
         return h
 
-    def relu(self, h):
-        return self._orig["_relu"](self._signs(h))
-
-    def leaky_relu(self, h):
-        return self._orig["_leaky_relu"](self._signs(h))
+    def _signed(self, fn):
+        """A model's (leaky) ReLU ``fn`` through :meth:`_signs`."""
+        return lambda h: fn(self._signs(h))
 
     def __enter__(self):
-        self._orig = {name: getattr(mod, name) for mod, name in _TAPPED}
+        self._saved = [(mod, name, getattr(mod, name))
+                       for mod, name in _TAPPED]
+        self._orig = {name: fn for _, name, fn in self._saved
+                      if name not in _SIGNED}
         taps = {"learned_quantize": self.quantize,
                 "add_lsb_noise": self.noise, "batchnorm": self.batchnorm,
-                "maxpool2d": self.pool, "_leaky_relu": self.leaky_relu,
-                "_relu": self.relu}
-        for mod, name in _TAPPED:
-            setattr(mod, name, taps[name])
+                "maxpool2d": self.pool}
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._signed(fn) if name in _SIGNED
+                    else taps[name])
         return self
 
     def __exit__(self, *exc):
-        for mod, name in _TAPPED:
-            setattr(mod, name, self._orig[name])
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
 
 
 class recorded:

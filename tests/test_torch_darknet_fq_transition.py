@@ -30,7 +30,7 @@ from repro_torch.core.quant import QuantConfig, init_scale
 from repro_torch.models import darknet as tdn
 
 CAL_ITERS = 3          # the reference's default, and train_fq's
-PERCENTILE = 99.0      # train_fq's TRAIN_DN_SW_PERCENTILE
+PERCENTILE = 99.0      # train_fq's TRAIN_SW_PERCENTILE
 N_CONVS = 18           # conv0..conv17; the head is the 19th fq_conv2d
 
 

@@ -12,16 +12,25 @@ Where the two frameworks sum in another order (a conv, a BN statistic), a
 quantizer's input can land on the other side of a rounding boundary (a
 *code flip*) or on a clip bound in one framework and not in the other (a
 *tie flip*: the straight-through gradient is 0.5 at a bound, 1 inside and
-0 outside; discrete codes times weights make exact ties common).
-``hold_against_reference`` counts both at every quantizer with
-``repro_torch.taps`` (the taps ``chip_smoke.py`` holds the card against
-the CPU with), then runs the port again with those inputs pinned to the
-reference's values (the value pinned, the gradient passed through), so
-that the gradients are held against the reference's on the same forward.
+0 outside; discrete codes times weights make exact ties common), and a
+(leaky) ReLU's input on the other side of 0 (a *ReLU flip*: gradient 1 on
+one side, 0 or 0.1 on the other; a BN output 0 in exact arithmetic, as
+every output of a channel whose conv outputs are all equal is, a common
+case under 2-bit weights and activations, takes its sign from rounding).
+``hold_against_reference`` counts them at every quantizer and
+ReLU with ``repro_torch.taps`` (the taps ``chip_smoke.py`` holds the card
+against the CPU with), then runs the port again with those inputs pinned
+to the reference's values (the value pinned, the gradient passed through;
+a ReLU flip only where both inputs lie within rounding of 0), so that the
+gradients are held against the reference's on the same forward.
 Tolerances, stated beside each assert:
 
   * codes: bit-exact given the same operands; code flips <= 1e-4 of the
     positions (the expectation is 0); tie flips are counted and reported;
+  * ReLU flips: <= 1e-3 of the ReLU inputs (full-width ResNet-20, Q W2A2,
+    reads 3.1e-4), each within 8 float32 ulps of the call's largest
+    reference input on both sides (reads <= 2.3): only those are pinned,
+    a flip farther from 0 fails;
   * float outputs: 1e-5 x max|y| (float32 sums over <= 1,152 terms in
     another order, ~1e-7 relative);
   * gradients of weights (every leaf but the log-scales): 1e-4 relative L2;
@@ -55,6 +64,8 @@ from repro_torch.taps import Taps, recorded
 from repro_torch.taps import value_and_grad as taps_value_and_grad
 
 MAX_CODE_FLIPS = 1e-4   # of the quantized positions
+MAX_RELU_FLIPS = 1e-3   # of the (leaky) ReLU inputs
+RELU_PIN_ULPS = 8.0     # x eps x max|ReLU input|: "0 in exact arithmetic"
 RTOL_FLOAT = 1e-5       # x max|y|, float32 sums in another order
 RTOL_W = 1e-4           # relative L2 of a weight leaf's gradient
 C_S = 1e-5              # x M, the magnitude of a log-scale's terms
@@ -85,17 +96,30 @@ def key_pair(seed):
 
 
 @contextlib.contextmanager
-def reference_taps():
+def reference_taps(relus=None):
     """The input of every learned quantizer the reference runs, in call
     order; under ``jax.value_and_grad`` too (a debug callback sees the
-    primal values), so the reference's forward runs once."""
+    primal values), so the reference's forward runs once. With a list
+    ``relus``, the input of every ``jax.nn.relu`` and ``leaky_relu`` (the
+    models' nonlinearities outside FQ) is appended to it likewise."""
     taps, orig = [], jfql.learned_quantize
 
     def tap(x, s, *, bits, b, stabilize=True):
         if bits is not None and bits < 32:
             jax.debug.callback(lambda v: taps.append(np.array(v)), x)
         return orig(x, s, bits=bits, b=b, stabilize=stabilize)
-    with mock.patch.object(jfql, "learned_quantize", tap):
+
+    def signed(fn):
+        def tapped(x, *args, **kw):
+            jax.debug.callback(lambda v: relus.append(np.array(v)), x)
+            return fn(x, *args, **kw)
+        return tapped
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(jfql, "learned_quantize", tap))
+        if relus is not None:
+            for name in ("relu", "leaky_relu"):
+                stack.enter_context(mock.patch.object(
+                    jax.nn, name, signed(getattr(jax.nn, name))))
         yield taps
 
 
@@ -108,28 +132,38 @@ def hold_against_reference(ref_fn, port_fn, jparams, tparams, *,
     (a bias before a training-mode BN), held at zero. ``loss_scale(out)``:
     the magnitude of the loss's terms where they cancel. Returns a
     report."""
-    with reference_taps() as rtaps:
+    rrelus = []
+    with reference_taps(relus=rrelus) as rtaps:
         (jloss, jout), jgrad = jax.value_and_grad(ref_fn, has_aux=True)(
             jparams)
         jax.block_until_ready(jgrad)
-    ref = recorded(calls=[np.array(a, copy=True) for a in rtaps])
+    ref = recorded(calls=[np.array(a, copy=True) for a in rtaps],
+                   relus=rrelus)
     # the port's own forward, its flips against the reference counted
-    counted = Taps(ref, pin=False)
+    counted = Taps(ref, pin=False, relu_ulps=RELU_PIN_ULPS)
     with counted, torch.no_grad():
         _, tout0 = port_fn(tparams)
     counted.matched()
-    # again, each flipped quantizer input pinned to the reference's
-    pinned = Taps(ref)
+    # again, each flipped quantizer input and each ReLU input flipped
+    # within rounding of 0 pinned to the reference's
+    pinned = Taps(ref, relu_ulps=RELU_PIN_ULPS)
     (tloss, tout), tgrad = taps_value_and_grad(port_fn, tparams, pinned)
     pinned.matched()
     code_flips, tie_flips, total = (counted.code_flips, counted.tie_flips,
                                     counted.positions)
     report = dict(code_flips=code_flips, tie_flips=tie_flips,
-                  positions=total,
-                  pinned=pinned.code_flips + pinned.tie_flips)
+                  positions=total, relu_flips=counted.relu_flips,
+                  relu_positions=counted.relu_positions,
+                  relu_far=counted.relu_far,
+                  pinned=pinned.code_flips + pinned.tie_flips
+                  + pinned.relu_flips - pinned.relu_far)
     print(f"\n{label}: {report}")
     # code flips: <= 1e-4 of the positions (the expectation is 0)
     assert code_flips <= MAX_CODE_FLIPS * max(total, 1), report
+    # ReLU flips: <= 1e-3 of the inputs, every one within rounding of 0
+    assert counted.relu_flips <= MAX_RELU_FLIPS * max(
+        counted.relu_positions, 1), report
+    assert counted.relu_far == 0, report
     for name, jo, to in (("unpinned", jout, tout0), ("pinned", jout, tout)):
         for a, b in zip(jax.tree_util.tree_leaves(jo),
                         tree.leaves(to)):
@@ -189,6 +223,12 @@ LAYERS = {
     "conv2d_s2": ((2, 9, 9, 8), (3, 3, 8, 12), dict(stride=2,
                                                     padding="SAME")),
     "conv2d_valid": ((2, 9, 9, 8), (1, 1, 8, 12), dict(padding="VALID")),
+    # strided "SAME" on an even side, as the ResNets' downsample blocks:
+    # 3x3 pads (0, 1), 1x1 pads nothing
+    "conv2d_s2even": ((2, 8, 8, 8), (3, 3, 8, 12), dict(stride=2,
+                                                        padding="SAME")),
+    "conv2d_1x1s2": ((2, 8, 8, 8), (1, 1, 8, 12), dict(stride=2,
+                                                       padding="SAME")),
 }
 
 
@@ -219,8 +259,11 @@ def _layer_case(name, relu_in, seed=3):
 
 
 # every layer in Q and FQ mode; FP, noise and 3-bit weights / 5-bit
-# activations on some
+# activations on some; the strided even-side convs in every mode
 CASES = ([(name, mode, False) for mode in ("q", "fq") for name in LAYERS]
+         + [(name, mode, False) for mode in ("fp", "fq_w3a5")
+            for name in ("conv2d_s2even", "conv2d_1x1s2")]
+         + [("conv2d_s2even", "fq", True)]
          + [("linear", "fp", False), ("conv2d", "fp", False),
             ("linear", "fq", True), ("conv1d", "fq", True),
             ("conv2d_s2", "fq", True), ("conv2d", "q", True),
@@ -369,3 +412,27 @@ def test_calibration_records_by_param_dict():
     # outside the context nothing is recorded
     tfql.fq_linear(p, x, QuantConfig(4, 4, 4, fq=True))
     assert len(rec) == 1
+
+
+def test_taps_pin_relu_flips_only_near_zero():
+    """With ``relu_ulps``, a ReLU input on the other side of 0 from the
+    reference's is pinned only where both lie within that many float32
+    ulps of the call's largest reference input (a 0 signed by rounding);
+    a flip farther off is counted in ``relu_far`` and keeps its own value
+    and gradient. Counted by ``Taps`` on the ResNets' ReLU."""
+    from repro_torch.models import resnet as tres
+    h = torch.tensor([3.0, 1e-7, -2e-7, -0.5, 2.0], requires_grad=True)
+    ref = torch.tensor([3.0, -1e-7, 1e-7, 0.5, 2.0])
+    # 8 ulps of max|ref| = 3: 8 x 2^-23 x 3 = 2.9e-6
+    with Taps(recorded(relus=[ref]), relu_ulps=8.0) as t:
+        y = tres._relu(h)
+    assert (t.relu_flips, t.relu_far, t.relu_positions) == (3, 1, 5)
+    np.testing.assert_array_equal(y.detach().numpy(),
+                                  np.float32([3.0, 0.0, 1e-7, 0.0, 2.0]))
+    y.sum().backward()
+    np.testing.assert_array_equal(h.grad.numpy(), [1, 0, 1, 0, 1])
+    # without the bound every flip is pinned, the far one too
+    with Taps(recorded(relus=[ref])) as t:
+        y = tres._relu(h)
+    assert (t.relu_flips, t.relu_far) == (3, 0)
+    assert float(y[3].detach()) == 0.5

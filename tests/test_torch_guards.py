@@ -24,6 +24,7 @@ from repro_torch.core import integer_inference as tii
 from repro_torch.core.quant import QuantConfig
 from repro_torch.models import darknet as tdn
 from repro_torch.models import kws as tkws
+from repro_torch.models import resnet as tres
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -56,7 +57,8 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.core.distill, repro_torch.core.gradual, "
             "repro_torch.optim.sgd, repro_torch.optim.schedules, "
             "repro_torch.tree, repro_torch.taps, repro_torch.core.deploy_qat, "
-            "repro_torch.train.trainer, repro_torch.data.synthetic\n"
+            "repro_torch.train.trainer, repro_torch.data.synthetic, "
+            "repro_torch.models.resnet, repro_torch.configs.paper_nets\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
@@ -116,6 +118,20 @@ def test_darknet_entry_points_raise_without_cuda(no_cuda):
     logits = tdn.int_serve_fn(stack, QuantConfig(2, 4, 4, True), cfg)(
         np.zeros((1, 16, 16, 3), np.float32))
     assert logits.device.type == "cpu" and logits.shape == (1, 16)
+
+
+def test_resnet_entry_points_raise_without_cuda(no_cuda):
+    cfg = tres.ResNetConfig.reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tres.init(torch.Generator().manual_seed(0), cfg)
+    params, state = tres.init(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    leaves = [t for tree_ in (params, state) for d in tree_.values()
+              for t in d.values()]
+    assert len(leaves) > 0 and all(t.device.type == "cpu" for t in leaves)
+    logits, _ = tres.apply(params, state, torch.zeros(1, 16, 16, 3),
+                           QuantConfig(), cfg)
+    assert logits.device.type == "cpu" and logits.shape == (1, 10)
 
 
 def _run_smoke(cwd, script, env_extra=None):

@@ -1,18 +1,21 @@
 """Float FQ training of the port against the JAX reference, at ``reduced()``:
-``kws.apply`` and ``darknet.apply`` with ``train=True`` over the ladder's
-configurations (FP; Q; FQ after ``to_fq`` + ``calibrate``; FQ under Table
-7's noisiest condition), SGD with Nesterov momentum on a cosine schedule,
-the schedules, ``distill`` and ``gradual``.
+``kws.apply``, ``darknet.apply`` and ``resnet.apply`` with ``train=True``
+over the ladder's configurations (FP; Q; FQ after ``to_fq`` +
+``calibrate``; FQ under Table 7's noisiest condition), SGD with Nesterov
+momentum on a cosine schedule, the schedules, ``distill`` and ``gradual``.
 
 Params are made by the port from a seed (``init``, and ``to_fq`` and
 ``calibrate`` for FQ), handed to both as numpy and carried with
 ``interop``; keys with ``key_from_numpy``. The reference runs eagerly. Values, BN state and
 gradients are held as ``test_torch_fq_layers.hold_against_reference``
 holds them (code and tie flips counted, then pinned; tolerances there).
-DarkNet's stages are in ``test_torch_train_fq_darknet.py`` and the
-full-width nets in ``test_torch_train_fq_full.py`` (each file keeps to a
-minute: the reference compiles every eager op once per shape).
+DarkNet's stages are in ``test_torch_train_fq_darknet.py``, the ResNets'
+in ``test_torch_resnet.py`` and the full-width nets in
+``test_torch_train_fq_full.py`` (each file keeps to a minute: the
+reference compiles every eager op once per shape).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +27,7 @@ from repro.core import gradual as jgradual
 from repro.core.quant import QuantConfig as JQuantConfig
 from repro.models import darknet as jdn
 from repro.models import kws as jkws
+from repro.models import resnet as jres
 from repro.optim import schedules as jsched
 from repro.optim import sgd as jsgd
 from repro_torch import interop, tree
@@ -32,6 +36,7 @@ from repro_torch.core import fq_layers as tfql
 from repro_torch.core import gradual as tgradual
 from repro_torch.models import darknet as tdn
 from repro_torch.models import kws as tkws
+from repro_torch.models import resnet as tres
 from repro_torch.optim import schedules as tsched
 from repro_torch.optim import sgd as tsgd
 from test_torch_fq_layers import (COND, hold_against_reference, key_pair,
@@ -45,6 +50,19 @@ MODELS = {
     "darknet": (jdn, tdn, jdn.DarkNetConfig.reduced(),
                 tdn.DarkNetConfig.reduced(), (2, 16, 16, 3),
                 JQuantConfig(2, 5)),
+    # the reference's own ResNet test's input and Q stage
+    # (tests/test_models_cnn.py); reduced() has one downsample block
+    "resnet": (jres, tres, jres.ResNetConfig.reduced(),
+               tres.ResNetConfig.reduced(), (2, 16, 16, 3),
+               JQuantConfig(8, 8)),
+    # the same with the stem and head in FP (ResNet-20's §4.1 protocol)
+    "resnet_fp_edges": (
+        jres, tres,
+        dataclasses.replace(jres.ResNetConfig.reduced(),
+                            quantize_first_last=False),
+        dataclasses.replace(tres.ResNetConfig.reduced(),
+                            quantize_first_last=False),
+        (2, 16, 16, 3), JQuantConfig(8, 8)),
 }
 FQ = JQuantConfig(2, 4, 4, fq=True)
 STAGES = ("fp", "q", "fq", "fq_noisy")
