@@ -132,7 +132,7 @@ Phases, each of which must pass:
    gradient in each FQ stage; and a backward of the ladder's last stage
    with ``cudnn.allow_tf32 = True`` set globally gives the gradients of
    the run with it False bit for bit. It prints each stage's step time (host
-   clock, mean of 10), profiled busy share and top device ops, and peak
+   clock, mean of 5), profiled busy share and top device ops, and peak
    memory, beside the card's name and power limit.
 
 13. train_qat: deploy-QAT, whose training forward is the deployed integer
@@ -160,10 +160,32 @@ Phases, each of which must pass:
    of 3 bit for bit under ``cudnn.deterministic``; (e) the trained params,
    synced and rederived into the deployed stack, serve the logits of
    ``qat_apply`` with the same key. It prints each model and condition's
-   step time (host clock, mean of 10), profiled busy share and device ops,
+   step time (host clock, mean of 5), profiled busy share and device ops,
    peak memory and the kernels' device time in one QAT forward against
    ``int_apply``'s, beside the card's name and power limit; its launches
    join the record as ``train_qat_<model>`` entries.
+
+14. fleet: the fleet control plane (``repro_torch.serve.fleet``) runs the
+   reference's fleet demo incident (``benchmarks/fleet_demo.py``: its
+   fault plan, SLOs, batcher settings and schedule, 8 clean ticks, Table 7's
+   noisiest condition on KWS, 40 more ticks, 2 KWS requests a tick and one
+   DarkNet request every 3rd) over full-width KWS (140 frames, 45 filters;
+   built as serve_kws builds it, then pretrained clean with
+   ``QATFinetuneJob`` as the demo pretrains it; served on 2 replica lanes
+   of the card, each its own device copy) and DarkNet-19 at 224 x 224
+   (``darknet_live_stack``). The KWS canary breaches, a background
+   ``QATFinetuneJob`` retrains (4 noise draws a step) and the retrained
+   stack hot-swaps in. It fails unless both audits hold exactly once and
+   within the SLO with none lost, the breach comes after the drift and a
+   swap after the breach, flush faults fired, ``trace.replay`` of the
+   incident on the card is bit-exact, the first swapped stack's digest is
+   the CPU's ``rederive`` of the same synced params, every clean flush
+   replayed a CUDA graph, K1, K3, K3b and K4 launched (K2 not), and the
+   phase took at most 120 s. It prints the breach, retrain and swap ticks,
+   the generations (the reference's demo flaps), the canary medians per
+   era, requests/s, the mean ms of a tick, canary, retrain step and swap,
+   and the busy share over the profiled replay, beside the card's name and
+   power limit; its launches join the record as ``fleet`` entries.
 
 It imports nothing of JAX or of the JAX package ``repro``. The second-to-
 last lines are the ``{"kernels": [...]}`` record (one entry per kernel and
@@ -1590,7 +1612,8 @@ def phase_serve_kws(torch, dev):
         lambda x: entry(stack, x.to(dev)), qcfg, cfg, lambda *_: True)
     for chunks, fns in timed.items():
         serve_timing(torch, f"kws noisy c{chunks}", fns, requests,
-                     (BATCHES[0], BATCHES[-1]))
+                     (BATCHES[0], BATCHES[-1]),
+                     profile_reps=NOISY_PROFILE_REPS)
     return {"int8": counts, **result, "noisy": noisy}
 
 
@@ -1753,9 +1776,16 @@ def check_stacks(torch, ii, path, stacks, layer_params):
         raise AssertionError(f"{path}: rederive changed the digest")
 
 
-def serve_timing(torch, path, serve, requests, profiled):
+# Requests profiled a noisy serve_timing run: 2, not device_profile's 10. A
+# noisy request launches ~5,900 (KWS) / ~14,700 (DarkNet) device ops and the
+# profiler's host costs ~0.5 ms an event, so 10 took ~4 minutes of the
+# smoke run's 1,200 s once the fleet phase joined it.
+NOISY_PROFILE_REPS = 2
+
+
+def serve_timing(torch, path, serve, requests, profiled, profile_reps=10):
     """Request latency on the host clock, and the profiled device busy
-    share (a measurement, not a check)."""
+    share over ``profile_reps`` requests (a measurement, not a check)."""
     for b in requests:
         for impl, fn in serve.items():
             ms = eager_ms(torch, lambda: fn(requests[b]), reps=20)
@@ -1766,7 +1796,7 @@ def serve_timing(torch, path, serve, requests, profiled):
         for impl, fn in serve.items():
             try:
                 wall, busy, n_ops, names = device_profile(
-                    torch, lambda: fn(requests[b]))
+                    torch, lambda: fn(requests[b]), reps=profile_reps)
             except RuntimeError as e:
                 print(f"serve {path} profile B={b} {impl}: not measured ({e})")
                 continue
@@ -2050,7 +2080,7 @@ def phase_serve_darknet(torch, dev):
             (fmt, chunks, b) == ("ternary", 1, DN_BATCHES[-1])))
     for chunks, fns in timed.items():
         serve_timing(torch, f"darknet noisy c{chunks}", fns, requests,
-                     DN_BATCHES)
+                     DN_BATCHES, profile_reps=NOISY_PROFILE_REPS)
     return {"int8": counts, **result, "noisy": noisy, "split": split}
 
 
@@ -2442,7 +2472,9 @@ def phase_serve_batcher(torch, dev):
 # run's 1,200 on an H100 host.
 TRAIN_BATCH = {"kws": 64, "darknet": 8, "resnet20": 128, "resnet32": 32}
 TRAIN_STEPS = 3            # SGD steps a ladder stage, each checked
-TRAIN_TIMED = 10           # steps timed a stage (host clock, mean)
+# steps timed a stage (host clock, mean): 5, not 10, since the fleet phase
+# joined the run's 1,200 s
+TRAIN_TIMED = 5
 # Steps profiled a stage (busy share, device ops): 1. The profiler's host
 # costs ~0.5 ms an event, and the 14 stages launch ~139,000 ops a step, so
 # 3 steps (PR 20's window) added 142 s to the smoke run (1,084 s of its
@@ -3444,6 +3476,482 @@ def phase_train_qat(torch, dev):
     return {"rows": rows, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# The fleet: the reference demo's incident on the card
+# ---------------------------------------------------------------------------
+
+# The schedule, fault plan and SLOs of the reference's fleet demo
+# (benchmarks/fleet_demo.py): 8 clean ticks, Table 7's noisiest condition on
+# KWS, 40 more ticks; 2 KWS requests a tick, 1 DarkNet request every 3rd
+FLEET_PRE_TICKS = 8
+FLEET_POST_TICKS = 40
+FLEET_KWS_PER_TICK = 2
+FLEET_DN_EVERY = 3
+FLEET_PLAN = dict(seed=SEED + 13, p_flush_fail=0.15, p_stuck=0.2,
+                  max_stuck_ticks=2, p_canary_corrupt=0.08, max_retries=3,
+                  backoff_ticks=1)
+FLEET_KWS_SLO = dict(deadline_ticks=8, max_agreement_drop=0.25,
+                     canary_every=1, canary_window=4, baseline_obs=3,
+                     retrain_steps_per_tick=10)
+FLEET_DN_SLO = dict(deadline_ticks=8, max_agreement_drop=0.5,
+                    canary_every=2, canary_window=4, baseline_obs=2)
+FLEET_KWS_BATCHER = dict(max_batch=8, max_wait_ticks=1, dispatch_ahead=True,
+                         max_inflight=2)
+FLEET_DN_BATCHER = dict(FLEET_KWS_BATCHER, max_batch=4)
+FLEET_KWS_LANES = 2
+# the demo's sizes: "dry" pretrains 60 steps on 128 clips and retrains 30
+# steps at batch 32; "full" 300 on 512 and 200 at 64. The phase's 120 s
+# (the replay runs every retrain again) take the full set and 200 of its
+# pretrain steps (~180 ms each on an H100), and the dry retrain (~490 ms a
+# step: 4 noisy QAT forwards and backwards)
+FLEET_SIZE = dict(pre_steps=200, ft_steps=30, n_train=512, ft_batch=32)
+FLEET_PRE_LR = 0.02        # the retrain benchmark's pretrain rate
+FLEET_PRE_BATCH = 64
+FLEET_FT_LR = 0.01
+FLEET_DRAWS = 4            # noise draws a retrain step averages
+FLEET_FT_SEED = 7
+FLEET_DATA_NOISE = 2.0     # make_mfcc_dataset's noise, the benchmark's
+FLEET_PROBE = 64           # held-out KWS clips of the canary
+FLEET_DN_PROBE = 8         # DarkNet canary images
+FLEET_BUDGET_S = 120.0
+# ticks of the replay profiled (the steady state after the swap)
+FLEET_PROFILED_TICKS = range(40, 48)
+
+
+def fleet_models(torch, dev):
+    """The deployed stacks: KWS as serve_kws builds it, pretrained clean as
+    the demo's ``_pretrained_kws`` does (QATFinetune to the end on a
+    synthetic MFCC set, then sync_handoff + convert_int), and DarkNet-19
+    from :func:`darknet_live_stack`; with the KWS finetune set, its float
+    params and state, and both canary probes."""
+    import numpy as np
+    from repro_torch.core import integer_inference as ii
+    from repro_torch.core import prng
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.data import synthetic
+    from repro_torch.models import darknet, kws
+    from repro_torch.serve.fleet import QATFinetuneJob
+
+    qcfg = QuantConfig(2, 4, 4, fq=True)
+    cfg = kws.KWSConfig()
+    names = kws.conv_names(cfg)
+    params, state = kws.init(torch.Generator().manual_seed(SEED), cfg,
+                             device=dev)
+    params = kws.to_fq(params, state, cfg)
+    for name in names:
+        params[name] = {**params[name],
+                        "s_out": torch.tensor(S_OUT, device=dev)}
+    params = ii.sync_handoff(params, names)
+    kd1, kd2 = prng.split(prng.PRNGKey(SEED + 5, device=dev))
+
+    def clips(key, n):
+        return synthetic.make_mfcc_dataset(
+            key, n=n, seq_len=cfg.seq_len, n_mfcc=cfg.n_mfcc,
+            num_classes=cfg.num_classes, noise=FLEET_DATA_NOISE)
+    data = clips(kd1, FLEET_SIZE["n_train"])
+    probe = clips(kd2, FLEET_PROBE)[0].cpu().numpy()
+    t0 = time.perf_counter()
+    pre = QATFinetuneJob(kws, params, state, cfg, qcfg, None, data=data,
+                         steps=FLEET_SIZE["pre_steps"], lr=FLEET_PRE_LR,
+                         batch=FLEET_PRE_BATCH, seed=0)
+    loss = pre.step(FLEET_SIZE["pre_steps"])["loss"]
+    kws_pre = pre.params
+    kws_stack = kws.convert_int(ii.sync_handoff(kws_pre, names), state,
+                                qcfg, cfg)
+    sync(torch, dev)
+    pre_s = time.perf_counter() - t0
+    dcfg = darknet.DarkNetConfig()
+    rng = np.random.default_rng(SEED + 3)
+    calib = torch.from_numpy(rng.standard_normal(
+        (DN_CALIB, DN_SIZE, DN_SIZE, dcfg.in_channels)).astype(np.float32))
+    dn_stack, _ = darknet_live_stack(torch, dcfg, qcfg, calib, dev)
+    dn_probe = np.random.default_rng(SEED).standard_normal(
+        (FLEET_DN_PROBE, DN_SIZE, DN_SIZE, dcfg.in_channels)).astype(
+            np.float32)
+    print(f"fleet: KWS pretrained {FLEET_SIZE['pre_steps']} clean "
+          f"QATFinetune steps (batch {FLEET_PRE_BATCH}, lr {FLEET_PRE_LR}, "
+          f"{FLEET_SIZE['n_train']} clips) in {pre_s:.1f} s, last loss "
+          f"{loss:.6f}", flush=True)
+    return dict(qcfg=qcfg, kws=(cfg, kws_pre, state, data, probe, kws_stack),
+                darknet=(dcfg, dn_probe, dn_stack))
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fleet_build(torch, dev, models, config, trace, sink=None, clock=None):
+    """The demo's ``build_fleet`` on the card: the registry rebuilt as
+    recorded (the live run and ``trace.replay`` share it). ``sink``
+    receives the synced params of each retrain; ``clock`` collects host
+    times of the retrain steps."""
+    from repro_torch.models import darknet, kws
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.fleet import (FleetRuntime, ModelSLO,
+                                         QATFinetuneJob)
+    trace.emit("config", **{k: v for k, v in config.items() if k != "e"})
+    qcfg = models["qcfg"]
+    cfg, kws_pre, state, data, probe, kws_stack = models["kws"]
+    dcfg, dn_probe, dn_stack = models["darknet"]
+
+    def factory(stack, condition):
+        job = QATFinetuneJob(
+            kws, kws_pre, state, cfg, qcfg, condition, data=data,
+            steps=FLEET_SIZE["ft_steps"], lr=FLEET_FT_LR,
+            batch=FLEET_SIZE["ft_batch"], draws=FLEET_DRAWS,
+            seed=FLEET_FT_SEED, on_result=sink)
+        if clock is not None:
+            step, done = job.step, [0]
+
+            def timed(n=1):
+                t0 = time.perf_counter()
+                out = step(n)
+                sync(torch, dev)
+                clock.setdefault("retrain", []).append(
+                    (out["steps_done"] - done[0], time.perf_counter() - t0))
+                done[0] = out["steps_done"]
+                return out
+            job.step = timed
+        return job
+
+    fleet = FleetRuntime(fault_plan=FaultPlan(**FLEET_PLAN), trace=trace)
+    fleet.register("kws", kws_stack, lambda s: kws.int_serve_fn(s, qcfg, cfg),
+                   slo=ModelSLO(**FLEET_KWS_SLO), probe=probe,
+                   canary_seed=SEED + 31, finetune_factory=factory,
+                   batcher_kw=FLEET_KWS_BATCHER, n_replicas=FLEET_KWS_LANES)
+    fleet.register("darknet", dn_stack,
+                   lambda s: darknet.int_serve_fn(s, qcfg, dcfg),
+                   slo=ModelSLO(**FLEET_DN_SLO), probe=dn_probe,
+                   canary_seed=SEED + 47, batcher_kw=FLEET_DN_BATCHER)
+    fleet.shapes = {"kws": (cfg.seq_len, cfg.n_mfcc),
+                    "darknet": (DN_SIZE, DN_SIZE, dcfg.in_channels)}
+    return fleet
+
+
+def fleet_drive(fleet, tick):
+    """The demo's recorded schedule: steady traffic, the drift at a fixed
+    tick; ``tick()`` runs (and times) one ``fleet.tick``."""
+    from repro_torch.core.noise import TABLE7_CONDITIONS
+    from repro_torch.serve.fleet import RequestSpec
+    rid = {"kws": 0, "darknet": 10_000}
+
+    def arrive(model, n):
+        fleet.submit(model, [RequestSpec(rid=rid[model] + i, seed=SEED + 3,
+                                         shape=fleet.shapes[model])
+                             for i in range(n)])
+        rid[model] += n
+
+    for t in range(FLEET_PRE_TICKS):
+        arrive("kws", FLEET_KWS_PER_TICK)
+        if t % FLEET_DN_EVERY == 0:
+            arrive("darknet", 1)
+        tick()
+    cond = TABLE7_CONDITIONS[-1]
+    fleet.set_condition("kws", (cond.sigma_w, cond.sigma_a, cond.sigma_mac))
+    for t in range(FLEET_POST_TICKS):
+        arrive("kws", FLEET_KWS_PER_TICK)
+        if t % FLEET_DN_EVERY == 0:
+            arrive("darknet", 1)
+        tick()
+    fleet.drain()
+
+
+def canary_medians(trace):
+    """The demo's ``_canary_medians``: pre-drift / pre-swap / post-swap KWS
+    canary medians, corrupted observations excluded."""
+    import numpy as np
+    drift_tick = trace.of_type("set-condition")[0]["tick"]
+    swaps = trace.of_type("swap")
+    swap_tick = swaps[0]["tick"] if swaps else None
+    eras = {"pre_drift": [], "drifted": [], "post_swap": []}
+    for c in trace.of_type("canary"):
+        if c["model"] != "kws" or c["corrupted"]:
+            continue
+        if c["tick"] < drift_tick:
+            eras["pre_drift"].append(c["agreement"])
+        elif swap_tick is None or c["tick"] < swap_tick:
+            eras["drifted"].append(c["agreement"])
+        else:
+            eras["post_swap"].append(c["agreement"])
+    return {k: (round(float(np.median(v)), 4) if v else None)
+            for k, v in eras.items()}
+
+
+def fleet_timers(torch, dev, fleet, clock):
+    """Host times (with a device sync) of each canary, noisy or clean, of
+    each install (rederive, swap_apply_fn, canary rebuild) and of the KWS
+    batcher's captures, tick-stamped."""
+    canary, install = fleet._canary, fleet._install
+
+    def timed_canary(m):
+        kind = "noisy" if m.noisy_fn is not None else "clean"
+        t0 = time.perf_counter()
+        canary(m)
+        sync(torch, dev)
+        clock.setdefault(f"canary {m.name} {kind}", []).append(
+            time.perf_counter() - t0)
+
+    def timed_install(m):
+        t0 = time.perf_counter()
+        install(m)
+        sync(torch, dev)
+        clock.setdefault("install", []).append(
+            (fleet._tick, time.perf_counter() - t0))
+
+    fleet._canary, fleet._install = timed_canary, timed_install
+    batcher = fleet._model("kws").batcher
+    capture = batcher._capture
+
+    def timed_capture(lane, x):
+        t0 = time.perf_counter()
+        g = capture(lane, x)
+        sync(torch, dev)
+        clock.setdefault("capture", []).append(
+            (fleet._tick, time.perf_counter() - t0))
+        return g
+    batcher._capture = timed_capture
+
+
+def phase_fleet(torch, dev):
+    """The fleet control plane on the card: the reference demo's incident
+    (canary breach -> background deploy-QAT retrain -> hot-swap, under
+    injected faults) over full-width KWS (2 lanes) and DarkNet-19 at
+    224 x 224, then ``trace.replay`` of it; see the module docstring."""
+    from repro_torch import kernels
+    from repro_torch.serve import trace as trace_mod
+
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # the retrain must replay
+    try:
+        models = fleet_models(torch, dev)
+        config = dict(seed=SEED, plan=FLEET_PLAN, size=FLEET_SIZE)
+        trace, synced, clock = trace_mod.Trace(), [], {}
+        fleet = fleet_build(torch, dev, models, config, trace, synced.append,
+                            clock)
+        fleet_timers(torch, dev, fleet, clock)
+        ticks = []
+
+        def tick():
+            t0 = time.perf_counter()
+            fleet.tick()
+            ticks.append(time.perf_counter() - t0)
+            if len(ticks) % 8 == 0:
+                print(f"fleet: tick {len(ticks)}, "
+                      f"{time.perf_counter() - t_phase:.1f} s into the "
+                      "phase", flush=True)
+        sync(torch, dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fleet_drive(fleet, tick)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        noisy = kernels.noisy_launch_counts()
+        problems = fleet_report(torch, dev, fleet, trace, models, synced,
+                                clock, ticks, wall, counts, noisy, smi)
+        t_live = time.perf_counter() - t_phase
+        report, replay_s, samples = fleet_replay(torch, dev, trace, models)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    print(f"fleet replay: {report.summary()} in {replay_s:.2f} s, two "
+          "samples profiled", flush=True)
+    # the busy share over the incident, from the two profiled samples: a
+    # tick's serving and canaries at the steady state's busy seconds, and
+    # each retrain step at the sampled step's, over the live incident's
+    # wall time
+    t_busy, t_wall, n_ticks = samples.get("ticks", (0.0, 0.0, 0))
+    s_busy, s_wall, _ = samples.get("retrain step", (0.0, 0.0, 0))
+    steps_run = sum(n for n, _ in clock.get("retrain", []))
+    print(f"fleet busy ({smi}): steady-state ticks {t_busy / t_wall:.4f} "
+          f"({1e3 * t_busy / n_ticks:.3f} of {1e3 * t_wall / n_ticks:.3f} "
+          f"ms a tick over {n_ticks}), a retrain step {s_busy / s_wall:.4f} "
+          f"({1e3 * s_busy:.3f} of {1e3 * s_wall:.3f} ms); over the "
+          f"incident, weighting those by its {len(ticks)} ticks and "
+          f"{steps_run} retrain steps: "
+          f"{(t_busy / n_ticks * len(ticks) + s_busy * steps_run) / wall:.4f}"
+          " (profiled in the replay)", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"fleet: phase {phase_s:.1f} s (set-up and live incident "
+          f"{t_live:.1f} s, replay {replay_s:.1f} s)", flush=True)
+    if not report.bit_exact:
+        problems.append(report.summary())
+    if phase_s > FLEET_BUDGET_S:
+        problems.append(f"the phase took {phase_s:.1f} s > {FLEET_BUDGET_S}")
+    if problems:
+        raise AssertionError("fleet: " + "; ".join(problems))
+    return {"counts": counts, "noisy": noisy}
+
+
+def fleet_replay(torch, dev, trace, models):
+    """``trace.replay`` of the incident on the card, with two samples
+    profiled (device events only; a whole incident is ~10^5 of them, too
+    many to profile in the phase's budget): FLEET_PROFILED_TICKS of the
+    steady state after the swap, and the first retrain step (a job's first
+    ``step(n)`` runs as ``step(1)`` profiled, then ``step(n - 1)``: the
+    finetune's schedule is a pure function of the step index, so the
+    replay stays bit-exact). Returns (report, seconds, {sample: (device
+    busy s, wall s, ticks or steps)})."""
+    from repro_torch.serve import trace as trace_mod
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    samples = {}
+
+    def profiled(key, fn, n):
+        sync(torch, dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+        busy = sum(e.time_range.end - e.time_range.start
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        b, w, k = samples.get(key, (0.0, 0.0, 0))
+        samples[key] = (b + busy, w + wall, k + n)
+        return out
+
+    def build(cfg, fresh):
+        fleet = fleet_build(torch, dev, models, cfg, fresh)
+        tick, factory = fleet.tick, fleet._model("kws").finetune_factory
+
+        def sampled_tick():
+            if fleet._tick in FLEET_PROFILED_TICKS:
+                return profiled("ticks", tick, 1)
+            return tick()
+
+        def sampled_factory(stack, condition):
+            job = factory(stack, condition)
+            step = job.step
+
+            def first_step_profiled(n=1):
+                if "retrain step" in samples or n < 1:
+                    return step(n)
+                out = profiled("retrain step", lambda: step(1), 1)
+                return step(n - 1) if n > 1 else out
+            job.step = first_step_profiled
+            return job
+        fleet.tick = sampled_tick
+        fleet._model("kws").finetune_factory = sampled_factory
+        return fleet
+
+    t0 = time.perf_counter()
+    report = trace_mod.replay(trace, build)
+    sync(torch, dev)
+    return report, time.perf_counter() - t0, samples
+
+
+def fleet_report(torch, dev, fleet, trace, models, synced, clock, ticks,
+                 wall, counts, noisy, smi):
+    """Print the live incident's lines; return the checks that failed."""
+    from repro_torch.core import integer_inference as ii
+    from repro_torch.models import kws
+    audits = {name: fleet.audit(name) for name in fleet.models}
+    stats = fleet.stats()
+    breaches = trace.of_type("breach")
+    swaps = trace.of_type("swap")
+    retrains = trace.of_type("retrain")
+    for name, a in audits.items():
+        print(f"fleet {name}: {a['served']} of {a['n']} served, {a['shed']} "
+              f"shed {a['shed_codes']}, lost {a['lost']}, exactly once "
+              f"{a['exactly_once']}, within SLO {a['within_slo']}; flush "
+              f"faults {stats[name]['flush_faults']}, retries "
+              f"{stats[name]['retries']}, stuck {stats[name]['stuck_flushes']}"
+              f", generation {stats[name]['generation']}", flush=True)
+    print(f"fleet: {len(trace)} events; breach ticks "
+          f"{[(e['model'], e['tick']) for e in breaches]}; retrain ticks "
+          f"{[e['tick'] for e in retrains]} (last loss "
+          f"{retrains[-1]['loss'] if retrains else None}); swap ticks "
+          f"{[e['tick'] for e in swaps]}; KWS generations "
+          f"{stats['kws']['generation']}; KWS canary medians "
+          f"{canary_medians(trace)}", flush=True)
+    faults = sum(stats[name]["flush_faults"] for name in fleet.models)
+
+    # -- the first swapped stack against the CPU's rederive ----------------
+    cfg, _, state, _, _, kws_stack = models["kws"]
+    digest_ok = None
+    if swaps and synced:
+        cpu = ii.to_device(synced[0], "cpu")
+        names = kws.conv_names(cfg)
+        again = kws_stack.to("cpu").rederive(
+            {n: cpu[n] for n in names},
+            extras=kws.int_extras(cpu, ii.to_device(state, "cpu"), cfg))
+        digest_ok = ii.stack_digest(again) == swaps[0]["stack"]
+        print(f"fleet: first swapped stack digest {swaps[0]['stack']}, the "
+              f"CPU's rederive of the same synced params "
+              f"{ii.stack_digest(again)}: "
+              f"{'equal' if digest_ok else 'DIFFERENT'}", flush=True)
+
+    # -- graph replays, launches -------------------------------------------
+    steps = {name: fleet._model(name).batcher.step_stats
+             for name in fleet.models}
+    for name, st in steps.items():
+        print(f"fleet {name} flushes: {stats[name]['flushes']} "
+              f"({st['graph_flushes']} graph replays, {st['eager_flushes']} "
+              f"eager), {st['captures']} captures in {st['capture_s']:.2f} s, "
+              f"graphs alive per lane {st['graphs']}", flush=True)
+    print("kernels (fleet): " + " ".join(f"{k}={v}" for k, v in counts.items())
+          + " noisy " + " ".join(f"{k}={v}" for k, v in noisy.items()),
+          flush=True)
+
+    # -- times -------------------------------------------------------------
+    served = sum(a["served"] for a in audits.values())
+
+    def mean_ms(xs):
+        return f"{1e3 * sum(xs) / len(xs):.4f}" if xs else "none"
+    retrain = clock.get("retrain", [])
+    n_run = sum(n for n, _ in retrain)
+    step_ms = (f"{1e3 * sum(t for _, t in retrain) / n_run:.4f}" if n_run
+               else "none")
+    captures = clock.get("capture", [])
+    swap_ms = []
+    for tick_no, s in clock.get("install", []):
+        after = [c for t, c in captures if t >= tick_no]
+        swap_ms.append(s + (after[0] if after else 0.0))
+    print(f"fleet times ({smi}): {served} requests in {wall:.3f} s, "
+          f"{served / wall:.2f} requests/s over the incident; mean ms of a "
+          f"tick {mean_ms(ticks)} (of {len(ticks)}), a noisy KWS canary "
+          f"{mean_ms(clock.get('canary kws noisy', []))}, a clean KWS canary "
+          f"{mean_ms(clock.get('canary kws clean', []))}, a DarkNet canary "
+          f"{mean_ms(clock.get('canary darknet clean', []))}, a retrain step "
+          f"{step_ms} (batch "
+          f"{FLEET_SIZE['ft_batch']}, {FLEET_DRAWS} draws), a swap (rederive "
+          f"+ first capture) {mean_ms(swap_ms)}; host clock, each timed part "
+          "ends in a device sync", flush=True)
+
+    # -- checks ------------------------------------------------------------
+    problems = []
+    for name, a in audits.items():
+        if not (a["exactly_once"] and a["within_slo"] and a["lost"] == 0):
+            problems.append(f"{name} audit {a}")
+    if not (breaches and breaches[0]["model"] == "kws"
+            and breaches[0]["tick"] >= FLEET_PRE_TICKS):
+        problems.append(f"no KWS breach after the drift: {breaches}")
+    if not (trace.of_type("retrain-start") and retrains):
+        problems.append("no QATFinetuneJob ran")
+    if not (swaps and breaches and swaps[0]["tick"] > breaches[0]["tick"]):
+        problems.append(f"no swap after the breach: {swaps}")
+    if faults == 0:
+        problems.append("no flush fault fired")
+    if digest_ok is not True:
+        problems.append("the swapped stack's digest is not the CPU "
+                        "rederive's")
+    if torch.device(dev).type == "cuda":
+        for name, st in steps.items():
+            if st["eager_flushes"] or \
+                    st["graph_flushes"] != stats[name]["flushes"]:
+                problems.append(f"{name}: not every clean flush replayed a "
+                                f"graph {st}")
+        if not (counts["quantize_codes"] and counts["fq_conv2d"]
+                and counts["fq_conv2d_pool"] and noisy["fq_conv2d_noisy"]) \
+                or counts["fq_matmul"]:
+            problems.append(f"fleet launches {counts} noisy {noisy}: K1, "
+                            "K3, K3b and K4 must launch and K2 not")
+    return problems
+
+
 def kernels_record(rows, counts, batch, per_apply, names=None):
     """One entry per kernel of one path (or per kernel in ``names``): the
     work of one int_apply at request batch ``batch`` (``per_apply`` picks
@@ -3551,6 +4059,26 @@ def kernels_record_all(torch, results):
         for e in entries:
             e["path"] = f"train_qat_{path}"
         record += entries
+    # the fleet: the kernels its incident launched (K1, K3 and, in the noisy
+    # canaries and retrain steps, K4 on KWS; K1, K3 and K3b on DarkNet), with
+    # the launches of the live incident, times per int_apply from the serve
+    # paths' rows (K3b: DarkNet's)
+    fl = results["fleet"]
+    entries = kernels_record(
+        results["kernels_kws"], fl["counts"], rows_batch("kws"),
+        lambda name, r: True,
+        [k for k in ("quantize_codes", "fq_conv2d") if fl["counts"][k]])
+    entries += kernels_record(
+        results["kernels_darknet"], fl["counts"], rows_batch("darknet"),
+        per_apply, [k for k in ("fq_conv2d_pool",) if fl["counts"][k]])
+    launched = {noisy_name(k[:-len("_noisy")], "int8", 1): v
+                for k, v in fl["noisy"].items() if v}
+    entries += kernels_record(results["kernels_noise"]["kws"], launched,
+                              rows_batch("kws"), lambda name, r: True,
+                              list(launched))
+    for e in entries:
+        e["path"] = "fleet"
+    record += entries
     # the tensor-core loop's off-path edge rows (kernels_tc) and K1's edges
     # (kernels_k1) count too
     for e in record + off_path:
@@ -3588,8 +4116,9 @@ def kernels_record_all(torch, results):
                   + " ".join(sums), flush=True)
     print(f"kernels record: launches from each path's counted serve run "
           f"(packed kernels: that format's run; train_qat_<model>: one "
-          f"training step, clean or noisy); times per int_apply, KWS at "
-          f"request batch {max(BATCHES)}, DarkNet at {max(DN_BATCHES)} "
+          f"training step, clean or noisy; fleet: the live incident); "
+          f"times per int_apply, KWS at request batch {max(BATCHES)}, "
+          f"DarkNet at {max(DN_BATCHES)} "
           f"(quantize_codes once, fq_matmul once per conv, fq_conv2d once per "
           f"unpooled conv and fq_conv2d_pool once per pooled conv, summed)")
     return record
@@ -3638,7 +4167,8 @@ def main() -> int:
             ("serve_darknet", lambda: phase_serve_darknet(torch, dev)),
             ("serve_batcher", lambda: phase_serve_batcher(torch, dev)),
             ("train_fq", lambda: phase_train_fq(torch, dev)),
-            ("train_qat", lambda: phase_train_qat(torch, dev))):
+            ("train_qat", lambda: phase_train_qat(torch, dev)),
+            ("fleet", lambda: phase_fleet(torch, dev))):
         print(f"== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -3677,6 +4207,12 @@ def main() -> int:
                         .items() if not v]
         if missing:
             fail(f"kernels never launched on the {path} path: {missing}")
+    fl = results["fleet"]
+    missing = [k for k in PATH_KERNELS["darknet"]
+               if k != "fq_matmul" and not fl["counts"][k]]
+    missing += [k for k in ("fq_conv2d_noisy",) if not fl["noisy"][k]]
+    if missing:
+        fail(f"kernels never launched on the fleet path: {missing}")
     print(json.dumps({"kernels": kernels_record_all(torch, results)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,8 @@ The deployment artifact is a :class:`ConvertedStack`: per-layer codes and
 folded scalars plus the float-side extras (FP edge layers, entry quantizer,
 final decode scale). It is mapping-compatible (``stack["conv0"]``), carries
 its conversion recipe (:meth:`ConvertedStack.rederive`) and a content
-digest (:func:`stack_digest`), and ``.to(device)`` takes the place of the
-reference's ``place_stack``.
+digest (:func:`stack_digest`); :func:`place_stack` / :func:`replicate_stack`
+(``ConvertedStack.to``) put copies of it on devices.
 
 The paper's §4.4 noise model runs at every integer layer boundary when the
 caller passes a :class:`~.noise.NoiseConfig` and a key
@@ -129,14 +129,15 @@ class LayerSpec:
     weight_format: str = "int8"
 
 
-def to_device(x, device):
-    """Tensors in nested dicts / tuples / lists -> copies on ``device``."""
+def to_device(x, device, *, copy: bool = False):
+    """Tensors in nested dicts / tuples / lists -> tensors on ``device``;
+    a tensor already there is shared unless ``copy``."""
     if isinstance(x, torch.Tensor):
-        return x.to(device)
+        return x.to(device, copy=copy)
     if isinstance(x, dict):
-        return {k: to_device(v, device) for k, v in x.items()}
+        return {k: to_device(v, device, copy=copy) for k, v in x.items()}
     if isinstance(x, (tuple, list)):
-        return type(x)(to_device(v, device) for v in x)
+        return type(x)(to_device(v, device, copy=copy) for v in x)
     return x
 
 
@@ -199,11 +200,12 @@ class ConvertedStack:
     def device(self) -> torch.device:
         return self.layers[self.specs[0].name]["w_codes"].device
 
-    def to(self, device) -> "ConvertedStack":
-        """A copy with every tensor on ``device`` (statics unchanged)."""
+    def to(self, device, *, copy: bool = False) -> "ConvertedStack":
+        """A stack with every tensor on ``device`` (statics unchanged); a
+        tensor already on ``device`` is shared unless ``copy``."""
         return ConvertedStack(self.qcfg, self.specs,
-                              to_device(self.layers, device),
-                              to_device(self.extras, device))
+                              to_device(self.layers, device, copy=copy),
+                              to_device(self.extras, device, copy=copy))
 
     def rederive(self, layer_params: Dict[str, dict], *, extras=None,
                  check_handoff: bool = True) -> "ConvertedStack":
@@ -235,6 +237,24 @@ class ConvertedStack:
         if "s_out_last" in extras:
             extras["s_out_last"] = layer_params[self.specs[-1].name]["s_out"]
         return ConvertedStack(self.qcfg, self.specs, layers, extras)
+
+
+def place_stack(stack: ConvertedStack, device) -> ConvertedStack:
+    """``stack`` with its tensors on ``device``.
+
+    The kernel statics (n_out / lo / n_w / n_a / weight_format) are Python
+    values that ride along unchanged, so the placed stack serves the same
+    codes and :func:`stack_digest` is placement-invariant."""
+    return stack.to(device)
+
+
+def replicate_stack(stack: ConvertedStack, devices) -> list:
+    """One placed copy of ``stack`` per device (the fleet's replica lanes).
+
+    Each copy owns its buffers, also where two lanes share a device (one
+    card, several lanes): the reference's CPU simulation shares one backing
+    store among its replicas, the port makes real device copies."""
+    return [stack.to(d, copy=True) for d in devices]
 
 
 def _check_handoff(layer_params: Dict[str, dict], specs: Sequence[LayerSpec],

@@ -4,9 +4,9 @@
   * :mod:`.cnn_batching` buckets and batches requests, with the reference's
     scheduler over steps replayed as CUDA graphs from pinned staging;
   * :mod:`.faults` injects seeded faults at the dispatch boundary;
-  * :mod:`.trace` records and compares the batcher's event streams.
+  * :mod:`.trace` records, compares and replays event streams;
+  * :mod:`.fleet` is the control plane over named stacks: noise canary,
+    background deploy-QAT retrain and hot-swap, each decision traced.
 
-The fleet control plane (``serve/fleet.py``) and trace replay wait for the
-training slice (the fleet retrains); the LM batcher and decode loop wait
-for the integer LM.
+The LM batcher and decode loop wait for the integer LM.
 """

@@ -1,12 +1,23 @@
-"""JSONL event traces of the serving layer.
+"""Replayable JSONL incident traces of the serving layer and the fleet.
 
-Counterpart of ``repro.serve.trace`` without ``replay``: the reference's
-replay re-drives its fleet runtime (``serve/fleet.py``), which the port
-does not have yet. Every decision the batcher makes -- flush, fault, retry,
-shed, resolve, swap -- can be appended as one JSON-stable event to a
-:class:`Trace` (its ``on_event`` hook); :func:`compare` holds two traces
-event for event, e.g. the port's against the reference's on one seeded
-schedule, with every served output reduced to its :func:`digest`.
+Counterpart of ``repro.serve.trace``. Every decision the batcher and the
+fleet control plane make -- submit, flush, fault, retry, shed, resolve,
+canary observation, breach, retrain progress, hot-swap, degrade -- appends
+one JSON-stable event to a :class:`Trace` (the batcher's ``on_event`` hook
+feeds it; ``serve.fleet.FleetRuntime`` writes its own). :func:`compare`
+holds two traces event for event, e.g. the port's against the reference's
+on one seeded schedule, with every served output reduced to its
+:func:`digest`; :func:`replay` re-drives a freshly built fleet through the
+recorded *input* events (submit / set-condition / tick / drain) and
+requires every re-emitted event to match the recording bit for bit.
+
+Replay is cheap because every source of nondeterminism is seed-threaded:
+canary noise keys fold ``(canary_seed, trial)``, deploy-QAT steps fold
+``(base_key, step)`` (``core.deploy_qat.train_step_key``), fault decisions
+are pure functions of ``(plan_seed, draw)`` (:mod:`.faults`), and request
+payloads derive from recorded ``RequestSpec`` seeds. On the card the
+retrain's backward must also be deterministic (cuDNN's deterministic
+algorithms, ``torch.backends.cudnn.deterministic``).
 
 Events are normalized (:func:`jsonable`) at emit time, so the in-memory
 comparison equals the comparison after a JSONL round-trip.
@@ -16,9 +27,13 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
-from typing import Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+
+#: Event types that are *inputs* to the runtime (the recorded schedule).
+#: Everything else is a decision/output the replay must reproduce.
+DRIVER_EVENTS = ("submit", "set-condition", "tick", "drain")
 
 
 def jsonable(x):
@@ -125,3 +140,41 @@ def compare(recorded: Trace, fresh: Trace) -> ReplayReport:
         if a != b:
             return ReplayReport(False, n, i, a, b)
     return ReplayReport(True, n)
+
+
+def replay(trace: Trace,
+           build_fleet: Callable[[Dict, Trace], object]) -> ReplayReport:
+    """Reproduce a recorded fleet incident bit for bit.
+
+    ``build_fleet(config_event, fresh_trace)`` must rebuild the runtime the
+    way the original run did: same model factories, same SLOs, same fault
+    plan, registered in the same order, emitting into ``fresh_trace``. The
+    replay then walks the recorded input events (``DRIVER_EVENTS``) in
+    order, re-running each against the rebuilt runtime, and compares the
+    fresh trace against the recording.
+
+    The trace pins every seed and the digests of every stack, probe and
+    output, but not the model *weights* themselves: a drifted factory is
+    caught at the first ``register`` event (stack digest mismatch), not
+    silently accepted.
+    """
+    from .fleet import RequestSpec  # local import: fleet imports trace
+    fresh = Trace()
+    fleet = build_fleet(trace.config, fresh)
+    for evt in trace.events:
+        et = evt["e"]
+        if et == "submit":
+            fleet.submit(evt["model"],
+                         [RequestSpec(rid=s["rid"], seed=s["seed"],
+                                      shape=tuple(s["shape"]),
+                                      dtype=s["dtype"])
+                          for s in evt["specs"]])
+        elif et == "set-condition":
+            nc = evt["nc"]
+            fleet.set_condition(evt["model"],
+                                None if nc is None else tuple(nc))
+        elif et == "tick":
+            fleet.tick()
+        elif et == "drain":
+            fleet.drain()
+    return compare(trace, fresh)

@@ -58,7 +58,9 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.optim.sgd, repro_torch.optim.schedules, "
             "repro_torch.tree, repro_torch.taps, repro_torch.core.deploy_qat, "
             "repro_torch.train.trainer, repro_torch.data.synthetic, "
-            "repro_torch.models.resnet, repro_torch.configs.paper_nets\n"
+            "repro_torch.models.resnet, repro_torch.configs.paper_nets, "
+            "repro_torch.serve.fleet, repro_torch.analysis.planlint, "
+            "repro_torch.launch.mesh\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
