@@ -106,6 +106,27 @@ Phases, each of which must pass:
    eager call on the same batch, the pinned copies, and runs a KWS noise
    canary (eager noisy flushes, one ``fold_in`` key each) against the eager
    noisy ``int_serve_fn``;
+11a. serve_lm: the integer LM (``repro_torch.models.fq_lm``) at the
+   reference's full width ``FQLMConfig()`` (vocab 256, d_model 64, 4 heads /
+   2 KV heads, 4 layers, d_ff 128, max_len 128), its seeded stand-in built
+   with the port's ``init_params -> standin_params -> convert_int``. It
+   checks that no projection's output codes are all zero; holds K1, K2
+   (clean and K4 at mac_chunks 1 and 4; signed codes, lo = -127) at every
+   LM shape (M = 1, 4, 8, 16, 64) and the port-only attention island
+   kernel (``csrc/lm_island.cu``) at decode and prefill shapes bit-exact
+   against their plain versions; checks prefill(T) + decode == prefill(T +
+   1, full) bit for bit on the card (caches and logits); serves 12
+   staggered requests (prompts of 1-24 tokens, one EOS taken from a
+   trajectory) through ``serve.batching.ContinuousBatcher`` at slots 1, 4
+   and 8, each run counted (K1 once a forward, K2 24, the island 4, noisy
+   0, nothing else), tokens identical to ``int_generate`` on the card and
+   on the CPU; and ``int_core`` on the card equal to the CPU's (clean: bit
+   for bit; noisy c1 / c4: at most MAX_FLIP_FRACTION of codes apart). It
+   prints ms a decode step and tokens/s at each slot count, prefill ms at
+   T = 16 and 64, the profiled busy share and device ops of a decode step,
+   each K2 shape's and the island's ms beside bound, plain version and
+   library call (``torch._int_mm`` where it takes the shape; SDPA on the
+   dequantized floats), the KV bytes a slot, and fails past 60 s;
 12. train_fq: float FQ training, which reaches no TPU-kernel counterpart
    (the K1-K5 counters must read 0 across it). Full-width KWS (B=64, 140
    frames), DarkNet-19 (224 x 224, B=8) and the paper's CIFAR ResNets
@@ -125,9 +146,12 @@ Phases, each of which must pass:
    distilling from the best so far.
    Each step is repeated on the CPU from a copy of the card's params; the
    CPU's quantizer inputs whose code or clip class differ from the card's
-   are counted and pinned to the card's. It fails unless loss, logits and
+   are counted and pinned to the card's, and the CPU's backward below the
+   head starts from the card's head gradient (the head gradient is held on
+   its own, within its Lipschitz bound). It fails unless loss, logits and
    gradients are finite; logits, loss, gradients and the updated params
-   agree with the CPU's within the bounds stated at TRAIN_*; the fold and
+   agree with the CPU's within the bounds stated at TRAIN_* (a log-scale's
+   with its terms' forward difference at the card's inputs); the fold and
    calibration agree; every quantized layer's w, s_w, s_in and s_out get a
    gradient in each FQ stage; and a backward of the ladder's last stage
    with ``cudnn.allow_tf32 = True`` set globally gives the gradients of
@@ -1539,7 +1563,8 @@ def phase_serve_kws(torch, dev):
           + loaders(kernels, "kws", counts), flush=True)
     n_req, n_conv = len(BATCHES), len(names)
     expect = {"quantize_codes": 2 * n_req, "fq_matmul": n_req * n_conv,
-              "fq_conv2d": n_req * n_conv, "fq_conv2d_pool": 0}
+              "fq_conv2d": n_req * n_conv, "fq_conv2d_pool": 0,
+              "lm_island": 0}
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
 
@@ -1938,7 +1963,7 @@ def phase_serve_darknet(torch, dev):
     n_req = len(DN_BATCHES)
     expect = {"quantize_codes": 3 * n_req, "fq_matmul": n_req * n_conv,
               "fq_conv2d": n_req * ((n_conv - n_pooled) + n_conv),
-              "fq_conv2d_pool": n_req * n_pooled}
+              "fq_conv2d_pool": n_req * n_pooled, "lm_island": 0}
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
     # the tile policy's splits: fused runs the unpooled convs as K3, the way
@@ -2464,6 +2489,445 @@ def phase_serve_batcher(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# The integer LM served (serve_lm)
+# ---------------------------------------------------------------------------
+
+LM_SLOTS = (1, 4, 8)       # ContinuousBatcher decode slots
+LM_RECORD_SLOTS = 8        # the record's forward: one decode step of 8 slots
+LM_PREFILLS = (16, 64)     # prefill lengths timed (B=1); K2's M there
+LM_MAX_LEN = 128           # the cache: FQLMConfig().max_seq
+LM_REQUESTS = 12           # more requests than slots
+LM_PROMPT_LENS = (1, 24)   # staggered prompt lengths, inclusive
+LM_MAX_NEW = 16
+LM_STEPS_TIMED = 20        # decode steps on the host clock, mean
+LM_BUDGET_S = 60.0
+# (K, N) of the projections: wq / wo, wk / wv, up, down; launches a layer
+LM_KN = {(64, 64): 2, (64, 32): 2, (64, 128): 1, (128, 64): 1}
+LM_REPLACES = "src/repro/models/fq_lm.py:202"
+LM_SOURCE = "src/repro_torch/kernels/csrc/lm_island.cu"
+
+
+def lm_island_work(b, tq, length, kv, g, dh):
+    """(bytes, float32 operations) of one island call: the int8 codes and
+    caches read once, the float32 context written once; per query row the
+    scores and the context (2 L dh each), the scale, max, sum and divide
+    (L each), the exp (~18 float32-equivalent steps a key), and the
+    dequantizing of q and the caches (2 each)."""
+    rows = b * kv * g * tq
+    bytes_ = (b * tq * kv * g * dh + 2 * b * length * kv * dh + 12
+              + 4 * b * tq + 4 * b * tq * kv * g * dh)
+    ops = rows * (4 * length * dh + 4 * length + 18 * length) + 2 * (
+        b * tq * kv * g * dh + 2 * b * length * kv * dh)
+    return bytes_, ops
+
+
+def lm_requests(rng, vocab):
+    lo, hi = LM_PROMPT_LENS
+    return [[int(t) for t in rng.integers(0, vocab, int(rng.integers(
+        lo, hi + 1)))] for _ in range(LM_REQUESTS)]
+
+
+def lm_margin(torch, logits):
+    """The top-2 logit margin of the last position."""
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_serve_lm(torch, dev):
+    """The integer LM (``models.fq_lm``, full width) served on the card:
+    K1 / K2 / K4 and the island kernel held against their plain versions
+    at its shapes, prefill + decode against a longer prefill, the batcher
+    at slots 1, 4 and 8 against ``int_generate`` on the card and the CPU,
+    the integer core against the CPU's, launches counted, times."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.core import integer_inference as ii
+    from repro_torch.core import prng, quant
+    from repro_torch.core.noise import NoiseConfig, TABLE7_CONDITIONS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fq_matmul import fq_matmul
+    from repro_torch.kernels.lm_island import (lm_island, lm_island_plain,
+                                               sqrt_head)
+    from repro_torch.kernels.quantize import quantize_codes
+    from repro_torch.models import fq_lm
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    cfg, qcfg = fq_lm.FQLMConfig(), fq_lm.LM_QCFG
+    kv, dh, g = cfg.n_kv_heads, cfg.d_head, cfg.n_heads // cfg.n_kv_heads
+    n = 127
+    params = fq_lm.standin_params(torch.Generator().manual_seed(SEED), cfg,
+                                  device=dev)
+    stack = fq_lm.convert_int(params, cfg, qcfg)
+    cpu_stack = stack.to("cpu")
+    if ii.stack_digest(stack) != ii.stack_digest(cpu_stack):
+        raise AssertionError("serve_lm: the stack's digest moved with it")
+    rng = np.random.default_rng(SEED + 11)
+
+    # every projection's output codes live (not all zero) on a prompt
+    outs = {}
+
+    def spy(ip, codes, **kw):
+        y = ii.int_linear(ip, codes, **kw)
+        outs.setdefault(id(ip), []).append(bool(y.any()))
+        return y
+
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 24)).astype(
+        np.int32)).to(dev)
+    fq_lm.int_prefill(stack, toks, qcfg, cfg, max_len=LM_MAX_LEN, linear=spy)
+    dead = [name for name in fq_lm.proj_names(cfg)
+            if not any(outs.get(id(stack[name]), [False]))]
+    if dead or len(outs) != 6 * cfg.n_layers:
+        raise AssertionError(f"serve_lm: projections with all-zero output "
+                             f"codes: {dead}")
+    print(f"serve_lm: full-width FQ LM stand-in (seed {SEED}; vocab "
+          f"{cfg.vocab}, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{kv} KV heads, {cfg.n_layers} layers, d_ff {cfg.d_ff}, "
+          f"max_len {LM_MAX_LEN}), {len(stack.handoff_edges)} hand-off "
+          f"edges, digest {ii.stack_digest(stack)}; all "
+          f"{6 * cfg.n_layers} projections' output codes live", flush=True)
+
+    # -- kernels against their plain versions at the LM's shapes ----------
+    rows = Rows(torch, "lm", names=["quantize_codes", "fq_matmul",
+                                    "lm_island"] + [
+        noisy_name("fq_matmul", "int8", c) for c in CHUNKS])
+    cond = TABLE7_CONDITIONS[-1]
+
+    def codes(shape, lo=-n, hi=n):
+        return torch.from_numpy(rng.integers(lo, hi + 1, size=shape).astype(
+            np.int8)).to(dev)
+
+    ms = sorted({1, 4, LM_RECORD_SLOTS, *LM_SLOTS, *LM_PREFILLS})
+    timed_m = (LM_RECORD_SLOTS, max(LM_PREFILLS))
+    for m in ms:
+        x = torch.from_numpy(rng.standard_normal((m, cfg.d_model)).astype(
+            np.float32)).to(dev)
+        inv = quant.exp(-stack["entry"]["s_in"])
+        kq = dict(n=n, b=-1.0)
+        got = quantize_codes(x, inv, **kq)
+        want = ref.ref_quantize_codes(x, inv, **kq)
+        if m in timed_m:
+            rows.record("quantize_codes", m, tuple(x.shape), got, want,
+                        lambda: quantize_codes(x, inv, **kq),
+                        lambda: ref.ref_quantize_codes(x, inv, **kq), None,
+                        x.numel() * 5 + 4, x.numel() * 5, "fp32")
+        elif max_abs_err(torch, got, want):
+            raise AssertionError(f"quantize_codes ({m}, 64) != plain")
+        for (k, nn), per_layer in LM_KN.items():
+            name = {(64, 64): "wq0", (64, 32): "wk0", (64, 128): "up0",
+                    (128, 64): "down0"}[(k, nn)]
+            ip = stack[name]
+            a = codes((m, k), 0 if name == "down0" else -n, n)
+            w, s = ip["w_codes"], ip["rescale"]
+            kw = dict(n_out=n, lo=ip["lo"])
+            for chunks in (None,) + CHUNKS:
+                nz = {}
+                if chunks:
+                    nz = dict(noise_sigma_acc=torch.div(torch.full_like(
+                        s, cond.sigma_mac), s), noise_seed=torch.tensor(
+                        1000 * m + k + nn, dtype=torch.uint32, device=dev),
+                        mac_chunks=chunks)
+                fn = (lambda a=a, w=w, s=s, nz=nz:
+                      fq_matmul(a, w, s, **kw, **nz))
+                plain = (lambda a=a, w=w, s=s, nz=nz:
+                         ref.ref_fq_matmul(a, w, s, **kw, **nz))
+                got = fn()
+                name_k = ("fq_matmul" if chunks is None
+                          else noisy_name("fq_matmul", "int8", chunks))
+                if m in timed_m and (chunks is None or m == LM_RECORD_SLOTS):
+                    rows.record(
+                        name_k, m, (m, k, nn), got, plain(), fn, plain,
+                        int_mm(torch, a, w) if chunks is None else None,
+                        m * k + k * nn + m * nn + 4 + (8 if chunks else 0),
+                        2 * m * k * nn, "int8",
+                        twin=(lambda a=a, w=w, s=s: fq_matmul(a, w, s, **kw))
+                        if chunks else None,
+                        extra_work=field_work(m * nn, chunks)
+                        if chunks else None,
+                        plain_calls=2 if chunks else 20)
+                else:
+                    err = max_abs_err(torch, got, plain())
+                    rows.extra_err[name_k] = max(
+                        rows.extra_err.get(name_k, 0.0), err)
+                    if err:
+                        raise AssertionError(f"{name_k} {(m, k, nn)} != "
+                                             f"plain (max abs err {err})")
+    island_shapes = [(b, 1) for b in LM_SLOTS] + [(1, t)
+                                                   for t in LM_PREFILLS]
+    kw_isl = dict(n=n, n_heads=cfg.n_heads, sqrt_dh=sqrt_head(dh))
+    for b, tq in island_shapes:
+        q = codes((b, tq, cfg.d_model))
+        kc, vc = codes((b, LM_MAX_LEN, kv, dh)), codes((b, LM_MAX_LEN, kv, dh))
+        sc = fq_lm.island_consts(stack)[0][0]
+        qpos = torch.from_numpy(rng.integers(tq - 1, LM_MAX_LEN, (b, tq))
+                                .astype(np.int32)).to(dev)
+        if tq > 1:
+            qpos = (torch.arange(tq, dtype=torch.int32, device=dev)[None]
+                    .expand(b, tq).contiguous())
+        fn = (lambda q=q, kc=kc, vc=vc, sc=sc, qpos=qpos:
+              lm_island(q, kc, vc, sc, qpos, **kw_isl))
+        plain = (lambda q=q, kc=kc, vc=vc, sc=sc, qpos=qpos:
+                 lm_island_plain(q, kc, vc, sc, qpos, **kw_isl))
+        got = fn()
+        # the library yardstick: SDPA on the dequantized floats, K / V
+        # repeated per query head, the same mask
+        e = sc.cpu()
+        qf = (e[0] * torch.div(q.float(), float(n))).reshape(
+            b, tq, cfg.n_heads, dh).transpose(1, 2).contiguous()
+        kf, vf = ((e[i] * torch.div(c.float(), float(n))).permute(0, 2, 1, 3)
+                  .repeat_interleave(g, 1).contiguous()
+                  for i, c in ((1, kc), (2, vc)))
+        mask = (torch.arange(LM_MAX_LEN, device=dev)[None, None, :]
+                <= qpos[:, :, None])[:, None]
+        lib = (lambda qf=qf, kf=kf, vf=vf, mask=mask:
+               F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask))
+        bytes_, ops = lm_island_work(b, tq, LM_MAX_LEN, kv, g, dh)
+        if (b, tq) in ((LM_RECORD_SLOTS, 1), (1, max(LM_PREFILLS))):
+            rows.record("lm_island", b if tq == 1 else tq, (b, tq, LM_MAX_LEN),
+                        got, plain(), fn, plain, lib, bytes_, ops, "fp32",
+                        plain_calls=2)
+        else:
+            err = max_abs_err(torch, got, plain())
+            rows.extra_err["lm_island"] = max(
+                rows.extra_err.get("lm_island", 0.0), err)
+            if err:
+                raise AssertionError(f"lm_island {(b, tq)} != plain")
+    print(f"serve_lm kernels: K1, K2 (clean, noisy c1 / c4) and the island "
+          f"bit-exact against their plain versions at M in {ms} and island "
+          f"shapes {island_shapes} (timed rows above)", flush=True)
+
+    # -- prefill(T) + decode == prefill(T + 1), on the card ---------------
+    pre = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20)).astype(
+        np.int32)).to(dev)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1)).astype(
+        np.int32)).to(dev)
+    _, caches = fq_lm.int_prefill(stack, pre, qcfg, cfg, max_len=LM_MAX_LEN)
+    l_step, c_step = fq_lm.int_decode_step(stack, caches, nxt, qcfg, cfg)
+    l_full, c_full = fq_lm.int_prefill(stack, torch.cat([pre, nxt], 1), qcfg,
+                                       cfg, max_len=LM_MAX_LEN, full=True)
+    if not (torch.equal(l_step, l_full[:, -1:]) and all(
+            torch.equal(a[x], b[x]) for a, b in zip(c_step, c_full)
+            for x in ("k", "v", "pos"))):
+        raise AssertionError("serve_lm: prefill(T) + decode != prefill(T+1)")
+    print("serve_lm: prefill(20) + decode == prefill(21, full=True) bit for "
+          "bit on the card (caches and logits, B=2)", flush=True)
+
+    # -- the batcher at every slot count, against int_generate ------------
+    prompts = lm_requests(rng, cfg.vocab)
+    probe = fq_lm.int_generate(stack, prompts[0], qcfg, cfg,
+                               max_new=LM_MAX_NEW, max_len=LM_MAX_LEN)
+    eos = probe[2]
+    t_cpu = time.perf_counter()
+    want_cpu = [fq_lm.int_generate(cpu_stack, p, qcfg, cfg,
+                                   max_new=LM_MAX_NEW, max_len=LM_MAX_LEN,
+                                   eos_id=eos) for p in prompts]
+    t_cpu = time.perf_counter() - t_cpu
+    want = [fq_lm.int_generate(stack, p, qcfg, cfg, max_new=LM_MAX_NEW,
+                               max_len=LM_MAX_LEN, eos_id=eos)
+            for p in prompts]
+    bad = [i for i, (a, b) in enumerate(zip(want, want_cpu)) if a != b]
+    for i in bad:
+        toks = torch.tensor([prompts[i]], dtype=torch.int32, device=dev)
+        lg, _ = fq_lm.int_prefill(stack, toks, qcfg, cfg, max_len=LM_MAX_LEN)
+        print(f"serve_lm: request {i} card {want[i]} CPU {want_cpu[i]}; "
+              f"prefill top-2 margin {lm_margin(torch, lg):.3g}", flush=True)
+    if bad:
+        raise AssertionError(f"serve_lm: int_generate card != CPU at {bad}")
+    counts = {}
+    for slots in LM_SLOTS:
+        pf, sf, icf = fq_lm.serve_fns(cfg, qcfg, max_len=LM_MAX_LEN,
+                                      device=dev)
+        calls = {"prefill": 0, "step": 0}
+
+        def prefill_fn(st, t, pf=pf, calls=calls):
+            calls["prefill"] += 1
+            return pf(st, t)
+
+        def step_fn(st, c, t, sf=sf, calls=calls):
+            calls["step"] += 1
+            return sf(st, c, t)
+
+        b = ContinuousBatcher(stack, cfg, qcfg, slots=slots,
+                              max_len=LM_MAX_LEN, eos_id=eos,
+                              prefill_fn=prefill_fn, step_fn=step_fn,
+                              init_caches_fn=icf)
+        reqs = [Request(rid=i, prompt=p, max_new=LM_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        out, c, _ = counted(torch, kernels, lambda: b.run(reqs))
+        wall = time.perf_counter() - t0
+        noisy = kernels.noisy_launch_counts()
+        fwd = calls["prefill"] + calls["step"]
+        expect = {"quantize_codes": fwd, "fq_matmul": 6 * cfg.n_layers * fwd,
+                  "fq_conv2d": 0, "fq_conv2d_pool": 0,
+                  "lm_island": cfg.n_layers * fwd}
+        if c != expect or any(noisy.values()):
+            raise AssertionError(f"serve_lm slots {slots}: launches {c} "
+                                 f"(noisy {noisy}) != {expect}")
+        mism = [i for i in range(len(prompts)) if out[i] != want[i]]
+        for i in mism:
+            toks = torch.tensor([prompts[i]], dtype=torch.int32, device=dev)
+            lg, _ = fq_lm.int_prefill(stack, toks, qcfg, cfg,
+                                      max_len=LM_MAX_LEN)
+            print(f"serve_lm slots {slots}: request {i} batched {out[i]} "
+                  f"!= int_generate {want[i]}; prefill top-2 margin "
+                  f"{lm_margin(torch, lg):.3g}", flush=True)
+        if mism:
+            raise AssertionError(f"serve_lm slots {slots}: tokens differ at "
+                                 f"{mism}")
+        n_tok = sum(len(o) for o in out.values())
+        print(f"serve_lm batcher slots {slots}: {len(prompts)} requests "
+              f"(prompts {LM_PROMPT_LENS[0]}-{LM_PROMPT_LENS[1]} tokens, "
+              f"max_new {LM_MAX_NEW}, eos {eos}: "
+              f"{sum(o[-1] == eos for o in out.values())} stopped by it), "
+              f"{calls['prefill']} prefills + {calls['step']} decode steps, "
+              f"{n_tok} tokens == int_generate on the card == the CPU's, in "
+              f"{wall:.3f} s; kernels (lm, slots {slots}): "
+              + " ".join(f"{k}={v}" for k, v in c.items())
+              + f" (K1 1, K2 {6 * cfg.n_layers}, island {cfg.n_layers} a "
+              "forward; noisy 0)", flush=True)
+        counts = c
+    print(f"serve_lm: the CPU's int_generate of the {len(prompts)} requests "
+          f"took {t_cpu:.2f} s", flush=True)
+
+    # -- the integer core, card against CPU -------------------------------
+    ent = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)).astype(
+        np.int32)).to(dev)
+    x = stack["embed"]["w"][ent] + stack["pos"]["w"][:24][None]
+    h = ii.entry_codes(x, stack["entry"], qcfg, b_in=-1.0)
+    attn = codes((cfg.n_layers, 2, 24, cfg.d_model))
+    noise = NoiseConfig(cond.sigma_w, cond.sigma_a, cond.sigma_mac)
+    noisy_counts = {}
+    for chunks in (None,) + CHUNKS:
+        kw = {} if chunks is None else dict(
+            noise=noise, rng=prng.PRNGKey(NOISE_KEY).to(dev),
+            mac_chunks=chunks)
+        got, c, _ = counted(torch, kernels, lambda: fq_lm.int_core(
+            stack, h, attn, qcfg, cfg, **kw))
+        nc = kernels.noisy_launch_counts()["fq_matmul_noisy"]
+        if chunks:
+            noisy_counts[noisy_name("fq_matmul", "int8", chunks)] = nc
+            kw["rng"] = kw["rng"].cpu()
+        cpu = fq_lm.int_core(cpu_stack, h.cpu(), attn.cpu(), qcfg, cfg, **kw)
+        diff = sum(int((a.cpu() != b).sum()) for a, b in zip(got, cpu))
+        total = sum(b.numel() for b in cpu)
+        label = "clean" if chunks is None else f"noisy c{chunks}"
+        print(f"serve_lm GPU int_core vs CPU int_core ({label}): {diff} of "
+              f"{total} codes differ; K2 {c['fq_matmul']} launches, "
+              f"{nc} noisy", flush=True)
+        if (c["fq_matmul"] != 6 * cfg.n_layers
+                or nc != (0 if chunks is None else 6 * cfg.n_layers)):
+            raise AssertionError(f"serve_lm int_core {label}: {c}, noisy "
+                                 f"{nc}")
+        if diff > (0 if chunks is None else MAX_FLIP_FRACTION * total):
+            raise AssertionError(f"serve_lm int_core {label}: {diff} codes "
+                                 "differ from the CPU's")
+
+    # -- times ------------------------------------------------------------
+    step_ms, lines = {}, []
+    for slots in LM_SLOTS:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (slots, 8)).astype(
+            np.int32)).to(dev)
+        _, cc = fq_lm.int_prefill(stack, toks, qcfg, cfg, max_len=LM_MAX_LEN)
+        tok = toks[:, -1:].contiguous()
+
+        def step(cc=cc, tok=tok):
+            return fq_lm.int_decode_step(stack, cc, tok, qcfg, cfg,
+                                         inplace=True)
+        step_ms[slots] = eager_ms(torch, step, reps=LM_STEPS_TIMED)
+        lines.append(f"slots {slots}: {step_ms[slots]:.4f} ms a decode step, "
+                     f"{slots * 1e3 / step_ms[slots]:.1f} tokens/s")
+        if slots == LM_RECORD_SLOTS:
+            wall, busy, ops, top = device_profile(torch, step, reps=5,
+                                                  launched=True)
+    prefill_ms = {}
+    for t in LM_PREFILLS:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, t)).astype(
+            np.int32)).to(dev)
+        prefill_ms[t] = eager_ms(torch, lambda toks=toks: fq_lm.int_prefill(
+            stack, toks, qcfg, cfg, max_len=LM_MAX_LEN), reps=10)
+    kv_bytes = sum(c["k"][0].numel() + c["v"][0].numel()
+                   for c in fq_lm.init_caches(cfg, 1, LM_MAX_LEN, device=dev))
+    print(f"serve_lm times ({smi}; host clock, eager): " + "; ".join(lines)
+          + "; prefill " + ", ".join(f"T={t} {v:.4f} ms"
+                                      for t, v in prefill_ms.items())
+          + f"; KV cache {kv_bytes} int8 bytes a slot", flush=True)
+    print(f"serve_lm profile (decode step, slots {LM_RECORD_SLOTS}): wall "
+          f"{wall:.4f} ms, device busy {busy:.4f} ms (share "
+          f"{busy / wall:.4f}), {ops:.1f} device ops launched; most device "
+          "time: " + ", ".join(f"{k.split('(')[0][-48:]} {v:.4f}"
+                               for k, v in top), flush=True)
+    for name in ("fq_matmul", "lm_island"):
+        for r in rows.rows[name]:
+            print(f"serve_lm {name} {r['shape']}: ms {r['ms']:.5f}, bound "
+                  f"{r['bound_ms']:.6f} ({r['bound_by']}), plain "
+                  f"{r['plain_ms']:.5f}, library "
+                  + ("-" if r["library_ms"] is None
+                     else f"{r['library_ms']:.5f}"), flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"serve_lm: phase {secs:.1f} s (budget {LM_BUDGET_S:.0f} s)",
+          flush=True)
+    if secs > LM_BUDGET_S:
+        raise AssertionError(f"serve_lm took {secs:.1f} s > {LM_BUDGET_S}")
+    return {"rows": rows, "counts": counts, "noisy": noisy_counts,
+            "step_ms": step_ms, "prefill_ms": prefill_ms}
+
+
+def lm_record(results):
+    """The LM path's record entries: one decode step of LM_RECORD_SLOTS
+    slots (K1 once, K2 6 a layer at its (K, N) mix, the island once a
+    layer), the launches of the counted batcher run at those slots; the
+    noisy K2 of the noisy integer cores."""
+    from repro_torch.models.fq_lm import FQLMConfig
+    lm = results["serve_lm"]
+    rows = lm["rows"]
+    layers = FQLMConfig().n_layers
+    out = []
+    for name in rows.rows:
+        base, _, chunks = variant(name)
+        top = [r for r in rows.rows[name] if r["batch"] == LM_RECORD_SLOTS]
+        if name == "quantize_codes" or name == "lm_island":
+            weights = [1 if name == "quantize_codes" else layers for _ in top]
+        else:
+            weights = [layers * LM_KN[r["shape"][1:]] for r in top]
+        work = {}
+        for r, w in zip(top, weights):
+            for kind, v in r["work"].items():
+                work[kind] = work.get(kind, 0) + w * v
+        bound_ms, bound_by = bound(sum(w * r["bytes"]
+                                       for r, w in zip(top, weights)), work)
+        libs = [r["library_ms"] for r in top]
+        launches = (lm["noisy"][name] if chunks else lm["counts"][base])
+        entry = {
+            "name": name, "path": "lm", "route": "cuda",
+            "source": LM_SOURCE if base == "lm_island" else SOURCES[base],
+            "replaces": (LM_REPLACES if base == "lm_island" else
+                         NOISE_REPLACES[base] if chunks else REPLACES[base]),
+            "launches": launches,
+            "max_abs_err": max([r["err"] for r in rows.rows[name]]
+                               + [rows.extra_err.get(name, 0.0)]),
+            "ms": sum(w * r["ms"] for r, w in zip(top, weights)),
+            "plain_ms": sum(w * r["plain_ms"] for r, w in zip(top, weights)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": (None if any(v is None for v in libs) else
+                           sum(w * v for v, w in zip(libs, weights))),
+            "eager_ms": sum(w * r["eager_ms"] for r, w in zip(top, weights)),
+            "batch": LM_RECORD_SLOTS, "calls": sum(weights),
+        }
+        if base in TC_KERNELS:
+            entry.update(loop=TC_LOOP, loaders=sorted(
+                {r["loader"] for r in top}))
+        if chunks:
+            entry.update(epilogue=NOISE_EPILOGUE, mac_chunks=chunks,
+                         clean_ms=sum(w * r["clean_ms"]
+                                      for r, w in zip(top, weights)))
+        out.append(entry)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Float FQ training (train_fq)
 # ---------------------------------------------------------------------------
 
@@ -2517,8 +2981,22 @@ TRAIN_RTOL_W = 1e-3
 # BN's gamma's and beta's one per position: the terms cancel, so the bound
 # scales with M = the sum of their magnitudes (repro_torch.taps), not with
 # the result. Card and CPU sum in other orders from activations apart by
-# float32 rounding: 1e-4 M (an H100 reads <= 2.4e-6 M, bn17.gamma).
+# float32 rounding: 1e-4 M (an H100 reads <= 2.4e-6 M, bn17.gamma). A
+# log-scale's bound adds twice D, its terms' forward difference at the
+# card's inputs (repro_torch.taps: g x sum |dL/dQ| x |x_card - x_cpu|): a
+# log-scale whose every term is 0 in exact arithmetic has M = 0 on the CPU
+# and the card's float32 residue of ~1e-10, which D bounds (twice: the
+# residue of each run's own terms).
 TRAIN_C_S = 1e-4
+# The head (dL/dlogits) is held on its own: the loss's gradient by the
+# logits is 1/(2B)-Lipschitz in the logits and alpha/(2B) in the teacher's
+# (softmax Jacobians have norm <= 1/2), so card and CPU differ by at most
+# (|dz| + alpha |dt|) / (2B) in L2, plus the float32 rounding of the
+# softmaxes, TRAIN_RTOL_HEAD of the gradient's norm. The network below it
+# is held from one head gradient, the card's (logits ~1e3 apart by float32
+# rounding would otherwise carry the head's difference into every
+# gradient: ResNet-32's FQ stage at lr 0.05, 5.8e-5 M).
+TRAIN_RTOL_HEAD = 1e-5
 # Where the CPU parts from the card on a discrete choice (repro_torch.taps;
 # each pinned to the card's), per stage and per calibration, as a share:
 # of quantizer inputs, as the CPU tests (an H100 reads <= 1.2e-5)
@@ -2785,24 +3263,29 @@ def train_model(torch, dev, path, smi):
                 pd, sd, od = start[d]
                 fn = loss_fn(d, qcfg, sd, t_logits[d],
                              None if key is None else key.to(v), nz)
-                # the CPU pinned to the card's discrete choices
-                t = taps.Taps(res["card"][2] if d == "cpu" else None,
+                # the CPU pinned to the card's discrete choices, its
+                # backward below the head from the card's head gradient
+                t = taps.Taps(res["card"][3] if d == "cpu" else None,
                               record=d == "card")
-                res[d] = taps.value_and_grad(fn, pd, t) + (t,)
+                res[d] = taps.head_value_and_grad(
+                    fn, pd, t, head=res["card"][2] if d == "cpu" else None
+                ) + (t,)
                 grads = res[d][1]
                 g_tree = tree.unflatten(pd, [grads[k] for k, _ in
                                              tree.named_leaves(pd)])
                 new[d] = opt.update(pd, g_tree, od, i) + (res[d][0][1][1],)
             live |= check_train_step(torch, path, label, i, res, quantized,
-                                     qcfg, on_grid)
-            res["cpu"][2].matched()
-            add_flips(flips, res["cpu"][2])
+                                     qcfg, on_grid, teacher=t_logits)
+            res["cpu"][3].matched()
+            add_flips(flips, res["cpu"][3])
             # the update: lr (1 + 0.9) times each gradient's bound (Nesterov
             # from the same momentum)
             lr = float(sched(i))
+            cpu_taps = res["cpu"][3]
             bounds = {name: lr * 1.9 * (
-                TRAIN_C_S * res["cpu"][2].mag[name]
-                if name in res["cpu"][2].mag else
+                TRAIN_C_S * cpu_taps.mag[name]
+                + 2.0 * cpu_taps.fwd.get(name, 0.0)
+                if name in cpu_taps.mag else
                 TRAIN_RTOL_W * float(g.norm()))
                 for name, g in res["cpu"][1].items()}
             last[0] = compare_params(
@@ -2858,8 +3341,20 @@ def compare_params(torch, where, card, cpu, bounds):
     return worst
 
 
+def head_bound(torch, lg_card, lg_cpu, t_card, t_cpu, g_cpu,
+               alpha=TRAIN_ALPHA):
+    """The L2 bound of the head gradient, card against CPU (TRAIN_RTOL_HEAD):
+    (|dz| + alpha |dt|) / (2B) + TRAIN_RTOL_HEAD |g|, dz the logits' and dt
+    the teacher logits' difference (alpha 0 without a teacher)."""
+    dz = float((lg_card.detach().cpu() - lg_cpu.detach()).norm())
+    dt = (0.0 if t_card is None
+          else alpha * float((t_card.cpu() - t_cpu).norm()))
+    return ((dz + dt) / (2 * lg_cpu.shape[0])
+            + TRAIN_RTOL_HEAD * float(g_cpu.norm()))
+
+
 def compare_step(torch, where, card, cpu, mag, *, exact_zero=(),
-                 near_zero=()):
+                 near_zero=(), fwd=None, head=None):
     """One value and gradient, card against the CPU run from the same
     params; ``card`` and ``cpu`` are (loss, logits, {leaf: gradient}).
     Fails unless the card's are finite, the logits within TRAIN_RTOL_LOGITS
@@ -2867,11 +3362,16 @@ def compare_step(torch, where, card, cpu, mag, *, exact_zero=(),
     every leaf's gradient agrees: ``exact_zero`` leaves exactly 0 on both,
     ``near_zero`` ones (0 in exact arithmetic) within 1e-5 of the largest
     gradient's norm on both, a leaf with a magnitude M in ``mag`` (taps:
-    the log-scales, BN's gamma and beta) within TRAIN_C_S x M, every other
-    within TRAIN_RTOL_W relative L2. Returns (max |logit diff|, (worst
-    |diff| / M, leaf), (worst relative L2, leaf))."""
+    the log-scales, BN's gamma and beta) within TRAIN_C_S x M plus twice its
+    forward difference D in ``fwd`` (taps), every other within
+    TRAIN_RTOL_W relative L2. ``head`` = (card's dL/dlogits, CPU's, bound):
+    the head gradient held on its own (:func:`head_bound`; the CPU's leaf
+    gradients are then its backward from the card's head gradient).
+    Returns (max |logit diff|, (worst |diff| / bound, leaf), (worst
+    relative L2, leaf))."""
     (l_card, lg_card, g_card), (l_cpu, lg_cpu, g_cpu) = card, cpu
     lg_card, lg_cpu = lg_card.detach(), lg_cpu.detach()
+    fwd = fwd or {}
     if not (torch.isfinite(l_card) and torch.isfinite(lg_card).all()
             and all(torch.isfinite(g).all() for g in g_card.values())):
         raise AssertionError(f"{where}: loss, logits or gradients not "
@@ -2883,6 +3383,12 @@ def compare_step(torch, where, card, cpu, mag, *, exact_zero=(),
             float(l_cpu)):
         raise AssertionError(f"{where}: loss {float(l_card)} vs CPU "
                              f"{float(l_cpu)}")
+    if head is not None:
+        h_card, h_cpu, h_bound = head
+        err = float((h_card.cpu() - h_cpu).norm())
+        if err > h_bound:
+            raise AssertionError(f"{where}: head gradient off the CPU's by "
+                                 f"{err} > {h_bound}")
     worst_w, worst_s = (0.0, ""), (0.0, "")
     gmax = max(float(g.norm()) for g in g_cpu.values())
     for name, gc in g_cpu.items():
@@ -2900,12 +3406,13 @@ def compare_step(torch, where, card, cpu, mag, *, exact_zero=(),
             continue
         err = float((g - gc).norm())
         if name in mag:
-            m = mag[name]
-            if err > TRAIN_C_S * m:
+            m, d = mag[name], fwd.get(name, 0.0)
+            lim = TRAIN_C_S * m + 2.0 * d
+            if err > lim:
                 raise AssertionError(f"{where}: {name} gradient off the "
-                                     f"CPU's by {err} > {TRAIN_C_S} x M = "
-                                     f"{TRAIN_C_S * m}")
-            worst_s = max(worst_s, (err / m if m else 0.0, name))
+                                     f"CPU's by {err} > {TRAIN_C_S} x M + "
+                                     f"2 D = {lim} (M {m}, D {d})")
+            worst_s = max(worst_s, (err / lim if lim else 0.0, name))
         else:
             rel = err / float(gc.norm()) if gc.norm() > 0 else err
             if rel > TRAIN_RTOL_W:
@@ -2916,21 +3423,30 @@ def compare_step(torch, where, card, cpu, mag, *, exact_zero=(),
 
 
 def check_train_step(torch, path, label, i, res, quantized, qcfg,
-                     on_grid=()):
-    """Card against CPU for one step (:func:`compare_step`); in the FQ
-    stages every quantized layer live."""
-    (l_card, (lg_card, _)), g_card, _ = res["card"]
-    (l_cpu, (lg_cpu, _)), g_cpu, cpu_taps = res["cpu"]
+                     on_grid=(), teacher=None):
+    """Card against CPU for one step (:func:`compare_step`): the head
+    gradient on its own, the network below it from the card's head
+    gradient, the log-scales with their forward difference; in the FQ
+    stages every quantized layer live. ``teacher``: {device: teacher
+    logits or None}."""
+    (l_card, (lg_card, _)), g_card, h_card, _ = res["card"]
+    (l_cpu, (lg_cpu, _)), g_cpu, h_cpu, cpu_taps = res["cpu"]
     where = f"train_fq {path} {label} step {i}"
+    teacher = teacher or {"card": None, "cpu": None}
+    h_lim = head_bound(torch, lg_card, lg_cpu, teacher["card"],
+                       teacher["cpu"], h_cpu)
     d_logit, worst_s, worst_w = compare_step(
         torch, where, (l_card, lg_card, g_card), (l_cpu, lg_cpu, g_cpu),
-        cpu_taps.mag, near_zero=zero_by_construction(path, qcfg))
+        cpu_taps.mag, near_zero=zero_by_construction(path, qcfg),
+        fwd=cpu_taps.fwd, head=(h_card, h_cpu, h_lim))
     leaves = [f"{n}.{k}" for n in quantized
               for k in ("w", "s_w", "s_in", "s_out")]
     live = {k for k in leaves if bool((g_card[k] != 0).any())}
     zero = [k for k in leaves if k not in live]
     print(f"{where}: loss {float(l_card):.6f} (CPU {float(l_cpu):.6f}); "
-          f"max |logit diff| {d_logit:.3g}; worst |diff| / M "
+          f"max |logit diff| {d_logit:.3g}; head gradient |diff| "
+          f"{float((h_card.cpu() - h_cpu).norm()):.3g} (bound {h_lim:.3g}); "
+          f"worst |diff| / (C_S M + 2 D) "
           f"{worst_s[0]:.3g} ({worst_s[1]}); worst weight / bias gradient "
           f"rel L2 {worst_w[0]:.3g} ({worst_w[1]})"
           + (f"; quantized layers' w, s_w, s_in, s_out: {len(zero)} zero "
@@ -3091,9 +3607,10 @@ QAT_DATA_KEY = 21          # PRNGKey of the datasets
 QAT_FWD_CHUNKS = {"kws": (1, 4), "darknet": (2,)}
 # launches of K1, K3 and K3b inside one training step of each model
 QAT_LAUNCHES = {"kws": {"quantize_codes": 1, "fq_matmul": 0,
-                        "fq_conv2d": 7, "fq_conv2d_pool": 0},
+                        "fq_conv2d": 7, "fq_conv2d_pool": 0, "lm_island": 0},
                 "darknet": {"quantize_codes": 1, "fq_matmul": 0,
-                            "fq_conv2d": 13, "fq_conv2d_pool": 4}}
+                            "fq_conv2d": 13, "fq_conv2d_pool": 4,
+                            "lm_island": 0}}
 QAT_KERNEL_NAMES = ("quantize_codes_kernel", "fq_conv_kernel",
                     "fq_conv_pool2_kernel", "fq_conv_pool_kernel",
                     "fq_matmul_kernel") + SPLIT_GRAPH_KERNELS
@@ -4079,6 +4596,8 @@ def kernels_record_all(torch, results):
     for e in entries:
         e["path"] = "fleet"
     record += entries
+    # the integer LM: one decode step of the batcher's slots
+    record += lm_record(results)
     # the tensor-core loop's off-path edge rows (kernels_tc) and K1's edges
     # (kernels_k1) count too
     for e in record + off_path:
@@ -4166,6 +4685,7 @@ def main() -> int:
             ("serve_kws", lambda: phase_serve_kws(torch, dev)),
             ("serve_darknet", lambda: phase_serve_darknet(torch, dev)),
             ("serve_batcher", lambda: phase_serve_batcher(torch, dev)),
+            ("serve_lm", lambda: phase_serve_lm(torch, dev)),
             ("train_fq", lambda: phase_train_fq(torch, dev)),
             ("train_qat", lambda: phase_train_qat(torch, dev)),
             ("fleet", lambda: phase_fleet(torch, dev))):
@@ -4213,6 +4733,13 @@ def main() -> int:
     missing += [k for k in ("fq_conv2d_noisy",) if not fl["noisy"][k]]
     if missing:
         fail(f"kernels never launched on the fleet path: {missing}")
+    lm = results["serve_lm"]
+    missing = [k for k in ("quantize_codes", "fq_matmul", "lm_island")
+               if not lm["counts"][k]]
+    missing += [noisy_name("fq_matmul", "int8", c) for c in CHUNKS
+                if not lm["noisy"].get(noisy_name("fq_matmul", "int8", c))]
+    if missing:
+        fail(f"kernels never launched on the lm path: {missing}")
     print(json.dumps({"kernels": kernels_record_all(torch, results)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

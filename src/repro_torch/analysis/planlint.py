@@ -22,10 +22,9 @@ recipe*:
   placement round-trip (:func:`~..core.integer_inference.place_stack`, which
   takes the place of the reference's pytree flatten / unflatten) keeps them
   Python values of the same type;
-* **the fleet registry** (:func:`lint_fleet`): names, SLOs, canary seeds.
-
-The reference's ``lint_handoff_edges`` (residual-DAG hand-off) waits for
-the port's DAG stacks.
+* **the fleet registry** (:func:`lint_fleet`): names, SLOs, canary seeds;
+* **the residual-DAG hand-off** (:func:`lint_handoff_edges`): every scale
+  tie of a DAG stack's edge list (the integer LM's stream) holds.
 """
 from __future__ import annotations
 
@@ -72,6 +71,31 @@ def lint_handoff(layer_params: Dict[str, dict], names: Sequence[str],
         report.prove("planlint/handoff", subject,
                      f"s_in[i+1] == s_out[i] holds across {len(names)} "
                      "layers", layers=len(names))
+
+
+def lint_handoff_edges(layer_params: Dict[str, dict], edges,
+                       report: Report, subject: str):
+    """FQ hand-off contract over an explicit scale-tie edge list, the chain
+    contract generalized to residual-add DAGs (every branch rejoining the
+    stream must requantize onto the stream's scale)."""
+    ok = True
+    for src, sf, dst, df in edges:
+        s_src = _num(layer_params[src][sf])
+        s_dst = _num(layer_params[dst][df])
+        if not math.isclose(s_dst, s_src, abs_tol=_HANDOFF_ATOL):
+            ok = False
+            report.error(
+                "planlint/handoff", f"{subject}/{dst}",
+                f"{dst}.{df}={s_dst:.6f} != {src}.{sf}={s_src:.6f} on a "
+                "DAG scale-tie edge — codes hand over on mismatched bin "
+                "edges (run integer_inference.sync_handoff_edges)",
+                src=src, src_field=sf, dst_field=df,
+                s_src=s_src, s_dst=s_dst)
+    edges = list(edges)
+    if ok and edges:
+        report.prove("planlint/handoff", subject,
+                     f"scale ties hold across all {len(edges)} DAG "
+                     "hand-off edges", edges=len(edges))
 
 
 def lint_stack(stack, report: Report, subject: str,

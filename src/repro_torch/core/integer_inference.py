@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -119,6 +119,10 @@ def convert_layer(p, qcfg: QuantConfig, *, relu_out: bool = True,
     return out
 
 
+# a scale tie of a residual-add DAG: (src, src_field, dst, dst_field)
+Edge = Tuple[str, str, str, str]
+
+
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """Static per-layer conversion recipe. ``weight_format`` is part of it:
@@ -154,17 +158,23 @@ class ConvertedStack:
     * ``specs``/``qcfg``: the static conversion recipe, so the stack can
       re-derive itself from updated float weights (:meth:`rederive`).
 
-    ``stack["conv0"]`` resolves layers first, then extras. The reference's
-    residual-DAG hand-off edges have no counterpart yet: the ported stacks
-    are chains.
+    * ``handoff_edges``: None for a chain (the hand-off checked pairwise
+      over the specs), or ``(src, src_field, dst, dst_field)`` scale ties
+      of a residual-add DAG (the integer LM's stream), checked by
+      :meth:`rederive` and kept by :meth:`to`.
+
+    ``stack["conv0"]`` resolves layers first, then extras.
     """
 
     def __init__(self, qcfg: QuantConfig, specs: Sequence[LayerSpec],
-                 layers: Dict[str, dict], extras: Dict[str, Any]):
+                 layers: Dict[str, dict], extras: Dict[str, Any],
+                 handoff_edges: Optional[Sequence[Edge]] = None):
         self.qcfg = qcfg
         self.specs = tuple(specs)
         self.layers = dict(layers)
         self.extras = dict(extras)
+        self.handoff_edges = (None if handoff_edges is None
+                              else tuple(tuple(e) for e in handoff_edges))
         if "s_out_last" in self.extras and qcfg.bits_out is not None:
             self.extras["decode_scale"] = decode_scale(
                 self.extras["s_out_last"], qcfg.bits_out)
@@ -205,7 +215,8 @@ class ConvertedStack:
         tensor already on ``device`` is shared unless ``copy``."""
         return ConvertedStack(self.qcfg, self.specs,
                               to_device(self.layers, device, copy=copy),
-                              to_device(self.extras, device, copy=copy))
+                              to_device(self.extras, device, copy=copy),
+                              handoff_edges=self.handoff_edges)
 
     def rederive(self, layer_params: Dict[str, dict], *, extras=None,
                  check_handoff: bool = True) -> "ConvertedStack":
@@ -217,10 +228,14 @@ class ConvertedStack:
         layer params are re-derived too: the ``entry`` scale (first layer's
         s_in, with the port's ``inv_scale`` = e^{-s_in} where the stack
         carries one) and the ``s_out_last`` decode scale. ``extras=None``
-        keeps the other extras (FP edge layers).
+        keeps the other extras (FP edge layers). A DAG stack re-checks and
+        keeps its ``handoff_edges``.
         """
         if check_handoff:
-            _check_handoff(layer_params, self.specs)
+            if self.handoff_edges is not None:
+                _check_handoff_edges(layer_params, self.handoff_edges)
+            else:
+                _check_handoff(layer_params, self.specs)
         layers = {
             s.name: convert_layer(layer_params[s.name], self.qcfg,
                                   relu_out=s.relu_out, final=s.final,
@@ -236,7 +251,8 @@ class ConvertedStack:
             extras["entry"] = entry
         if "s_out_last" in extras:
             extras["s_out_last"] = layer_params[self.specs[-1].name]["s_out"]
-        return ConvertedStack(self.qcfg, self.specs, layers, extras)
+        return ConvertedStack(self.qcfg, self.specs, layers, extras,
+                              handoff_edges=self.handoff_edges)
 
 
 def place_stack(stack: ConvertedStack, device) -> ConvertedStack:
@@ -271,6 +287,32 @@ def _check_handoff(layer_params: Dict[str, dict], specs: Sequence[LayerSpec],
                 "integer_inference.sync_handoff(params, names) first.")
 
 
+def _check_handoff_edges(layer_params: Dict[str, dict],
+                         edges: Sequence[Edge], *, atol: float = 1e-6):
+    """Validate the hand-off contract over a scale-tie edge list, the chain
+    contract extended to residual-add DAGs: each edge's two scales are
+    equal (for a residual add, every branch rejoining the stream
+    requantizes onto the stream's scale)."""
+    for src, sf, dst, df in edges:
+        s_src = torch.as_tensor(layer_params[src][sf]).cpu()
+        s_dst = torch.as_tensor(layer_params[dst][df]).cpu()
+        if not torch.allclose(s_dst, s_src, atol=atol):
+            raise ValueError(
+                f"FQ hand-off contract violated on edge {src}.{sf} -> "
+                f"{dst}.{df}: {float(s_dst):.6f} != {float(s_src):.6f}. Run "
+                "integer_inference.sync_handoff_edges(params, edges) first.")
+
+
+def sync_handoff_edges(params: Dict[str, dict], edges: Sequence[Edge]):
+    """Copy ``src.src_field -> dst.dst_field`` for every edge, in order;
+    returns a new dict (the input is not changed). Edges listed in
+    topological order propagate ties from one root in one pass."""
+    new = dict(params)
+    for src, sf, dst, df in edges:
+        new[dst] = {**new[dst], df: new[src][sf]}
+    return new
+
+
 def sync_handoff(params: Dict[str, dict], names: Sequence[str]):
     """Enforce s_in[i+1] = s_out[i] along a layer chain; returns a new dict."""
     new = dict(params)
@@ -281,9 +323,12 @@ def sync_handoff(params: Dict[str, dict], names: Sequence[str]):
 
 def convert_stack(layer_params: Dict[str, dict], qcfg: QuantConfig, *,
                   specs: Sequence[LayerSpec], extras: Dict[str, Any],
-                  weight_format: Optional[str] = None) -> ConvertedStack:
-    """Convert an ordered chain of trained FQ layers into a ConvertedStack,
-    after checking the hand-off contract along the chain.
+                  weight_format: Optional[str] = None,
+                  handoff_edges: Optional[Sequence[Edge]] = None
+                  ) -> ConvertedStack:
+    """Convert an ordered chain (or DAG) of trained FQ layers into a
+    ConvertedStack, after checking the hand-off contract: along the chain,
+    or over ``handoff_edges`` (recorded on the stack) for a residual DAG.
 
     ``weight_format`` overrides every spec's storage format: a format name,
     or "auto" for the densest one that holds bits_w codes (ternary for
@@ -297,14 +342,18 @@ def convert_stack(layer_params: Dict[str, dict], qcfg: QuantConfig, *,
                if weight_format == "auto" else weight_format)
         specs = tuple(dataclasses.replace(s, weight_format=fmt)
                       for s in specs)
-    _check_handoff(layer_params, specs)
+    if handoff_edges is not None:
+        _check_handoff_edges(layer_params, handoff_edges)
+    else:
+        _check_handoff(layer_params, specs)
     layers = {
         s.name: convert_layer(layer_params[s.name], qcfg,
                               relu_out=s.relu_out, final=s.final, name=s.name,
                               weight_format=s.weight_format)
         for s in specs
     }
-    return ConvertedStack(qcfg, specs, layers, extras)
+    return ConvertedStack(qcfg, specs, layers, extras,
+                          handoff_edges=handoff_edges)
 
 
 def stack_digest(stack: ConvertedStack) -> str:
@@ -321,13 +370,16 @@ def stack_digest(stack: ConvertedStack) -> str:
     reference leaf: it is a function of the hashed ``s_in`` and is left
     out, as is ``decode_scale``, a function of ``s_out_last``. A packed
     stack digests apart from its int8 twin: the format is in
-    the specs and the bytes differ.
+    the specs and the bytes differ. A DAG stack folds its edges in after
+    the specs; a chain (edges None) hashes as it did before edges existed.
     """
     h = hashlib.blake2s(digest_size=10)
     h.update(stack.qcfg.label().encode())
     for s in stack.specs:
         h.update(f"{s.name}:{int(s.relu_out)}:{int(s.final)}"
                  f":{s.weight_format}".encode())
+    for e in stack.handoff_edges or ():
+        h.update(":".join(e).encode())
 
     def leaf(x):
         if isinstance(x, (int, float, bool)):
@@ -417,6 +469,17 @@ def int_linear(ip, codes, *, noise: Optional[NoiseConfig] = None, rng=None,
                           noise_sigma_acc=sig, noise_seed=seed,
                           mac_chunks=mac_chunks,
                           weight_format=ip.get("weight_format", "int8"))
+
+
+def int_residual_add(a_codes, b_codes, *, n_out: int,
+                     lo: Optional[int] = None):
+    """Code-domain residual add at a common scale: both operands are codes
+    of the same output quantizer (what a DAG's requant-to-common-scale
+    edges guarantee), so the add is a saturating integer add: widen to
+    int32, clip to [lo, n_out] (lo = -n_out by default), narrow to int8."""
+    lo = -n_out if lo is None else lo
+    acc = a_codes.to(torch.int32) + b_codes.to(torch.int32)
+    return torch.clamp(acc, lo, n_out).to(torch.int8)
 
 
 def int_linear_final(ip, codes):

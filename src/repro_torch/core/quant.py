@@ -135,6 +135,58 @@ def exp(s: torch.Tensor) -> torch.Tensor:
     return _ExpXLA.apply(s)
 
 
+# XLA's float32 log on the CPU (the reference's): Cephes' logf as XLA's CPU
+# backend emits it, the mantissa m in [0.5, 1) shifted to [sqrt(1/2) - 1,
+# sqrt(2) - 1), the degree-8 polynomial in three Horner chains joined by
+# x^3, every multiply-add fused (in float64, where the product of two
+# float32 values is exact, then rounded to float32), the y * x^3 product
+# fused with the add of -2.12194440e-4 * e. Inputs below FLT_MIN are 0
+# (XLA runs with denormals off): log gives -inf there, NaN below -0, +inf
+# at +inf. Checked against ``jnp.log`` bit for bit over every float32 of
+# bands across [FLT_MIN, 1] and [e^-12, e^8] (tests/test_torch_decode.py).
+_SQRTHF = 0.707106781186547524
+_LOG_POLY = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+             -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+             2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def log(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log bit for bit as the reference computes it (XLA on
+    the CPU; ``torch.log`` is an ulp off in ~4% of inputs, C11), on any
+    device. For the Gumbel draws of sampled decoding, whose tokens must be
+    the reference's. No gradient."""
+    x = x.float()
+    t = torch.maximum(x, torch.full_like(x, _FLT_MIN))
+    bits = t.view(torch.int32)
+    t = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    e = ((bits >> 23) - 0x7F).float() + 1.0
+    small = t < _f32(_SQRTHF)
+    e = e - small.float()
+    t = (t - 1.0) + torch.where(small, t, torch.zeros_like(t))
+    x2 = t * t
+    x3 = x2 * t
+    p = [_f32(c) for c in _LOG_POLY]
+    td = t.double()
+    y = _fma32(td, p[0], p[1])
+    y1 = _fma32(td, p[3], p[4])
+    y2 = _fma32(td, p[6], p[7])
+    y = _fma32(y, td, p[2])
+    y1 = _fma32(y1, td, p[5])
+    y2 = _fma32(y2, td, p[8])
+    x3d = x3.double()
+    y = _fma32(y, x3d, y1.double())
+    y = _fma32(y, x3d, y2.double())
+    y = _fma32(y, x3d, (e * _f32(_LOG_Q1)).double())
+    t = _fma32(x2, -0.5, t.double())
+    t = t + y
+    t = _fma32(e, _f32(_LOG_Q2), t.double())
+    zero = x.abs() < _FLT_MIN
+    t = torch.where(x > 0, t, torch.full_like(t, float("nan")))
+    t = torch.where(zero, torch.full_like(t, float("-inf")), t)
+    return torch.where(x == float("inf"), x, t)
+
+
 def ste_round(v: torch.Tensor) -> torch.Tensor:
     """round() in the forward pass, identity in the backward pass."""
     return v + (torch.round(v) - v).detach()

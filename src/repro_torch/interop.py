@@ -7,8 +7,9 @@ boundaries. These loaders take the reference's arrays, as numpy, and copy
 them bit for bit: int8 weight codes or packed (int4 / ternary) uint8
 bytes, the folded float32 ``rescale`` / ``alpha`` / ``s_out`` scalars, the
 float edge layers (KWS's embedding, BN and head; DarkNet's conv0 and head),
-the entry scale and the decode scale, and ``jax.random`` keys (their two
-uint32 words) for the noise model. Nothing here imports the reference;
+the entry scale and the decode scale, a residual DAG's hand-off edges and
+list-valued extras (the integer LM's ``island_s_in``), and ``jax.random``
+keys (their two uint32 words) for the noise model. Nothing here imports the reference;
 callers hand over numpy arrays and plain objects.
 """
 from __future__ import annotations
@@ -46,12 +47,14 @@ def _spec(s) -> LayerSpec:
 def stack_from_numpy(layers: Dict[str, dict], extras: Dict[str, Any], qcfg,
                      specs: Sequence, *,
                      entry_inv_scale: Optional[np.ndarray] = None,
+                     handoff_edges: Optional[Sequence] = None,
                      device: DeviceLike = None) -> ConvertedStack:
     """The reference ConvertedStack's leaves (numpy) -> the port's stack.
 
     ``qcfg`` and ``specs`` may be the reference's objects (read by field).
     ``entry_inv_scale`` is the reference's own e^{-s_in}; when given, the
     entry quantizer uses it instead of recomputing it with torch.exp.
+    ``handoff_edges`` is the reference stack's own (None for a chain).
     """
     dev = resolve_device(device)
     specs = [_spec(s) for s in specs]
@@ -70,7 +73,8 @@ def stack_from_numpy(layers: Dict[str, dict], extras: Dict[str, Any], qcfg,
         extras["entry"] = {**extras["entry"],
                            "inv_scale": torch.from_numpy(
                                np.array(entry_inv_scale, np.float32))}
-    stack = ConvertedStack(_qcfg(qcfg), specs, _tensors(layers), extras)
+    stack = ConvertedStack(_qcfg(qcfg), specs, _tensors(layers), extras,
+                           handoff_edges=handoff_edges)
     return stack.to(dev)
 
 

@@ -15,7 +15,9 @@ tile loop and count the launches whose A operand took its vector (16-byte
 policy's ``bc`` below Cin) are counted in ``fq_conv2d.split_launches`` and
 their epilogue pass in ``fq_conv.splitk_epilogue.launches``, which
 :func:`split_launch_counts` reads; a split launch counts in ``launches``
-too, once.
+too, once. The integer LM's attention island (``lm_island.lm_island``, a
+port-only kernel: the reference's island is plain jnp) counts its launches
+the same way.
 """
 from __future__ import annotations
 
@@ -23,10 +25,12 @@ from typing import Dict
 
 from .fq_conv import fq_conv2d, fq_conv2d_pool, splitk_epilogue
 from .fq_matmul import fq_matmul
+from .lm_island import lm_island
 from .quantize import quantize_codes
 
 _WRAPPERS = {"quantize_codes": quantize_codes, "fq_matmul": fq_matmul,
-             "fq_conv2d": fq_conv2d, "fq_conv2d_pool": fq_conv2d_pool}
+             "fq_conv2d": fq_conv2d, "fq_conv2d_pool": fq_conv2d_pool,
+             "lm_island": lm_island}
 PACKED = ("fq_matmul", "fq_conv2d", "fq_conv2d_pool")
 NOISY = PACKED
 VECTOR = ("fq_matmul", "fq_conv2d", "fq_conv2d_pool")

@@ -28,7 +28,12 @@ both runs differentiate the same forward. It also sums, for the leaves
 named in ``paths``, the magnitude M of the terms each one's gradient sums: a
 log-scale's over its quantizers and noise draws, BN's gamma and beta over
 positions. Those terms cancel, so float32 sums of them in two orders
-differ by ~sqrt(N) eps M, whatever the result.
+differ by ~sqrt(N) eps M, whatever the result. Where a reference run is
+given, it also sums for each log-scale D, the terms' forward difference:
+g x sum |dL/dQ| x |x - x_ref| over its quantizers' inputs. A log-scale
+whose every term is 0 in exact arithmetic (its quantizer's inputs exactly
+0 wherever gradient flows) has M = 0 in one run and float32 residue in the
+other; D bounds that residue.
 """
 from __future__ import annotations
 
@@ -99,7 +104,8 @@ class Taps:
     input's largest magnitude in the call (an input 0 in exact arithmetic,
     signed by rounding); the others are counted in ``relu_far`` and left
     as they are. ``paths``: {id(leaf): name} of the leaves whose M is
-    summed into ``mag`` as the backward runs.
+    summed into ``mag`` as the backward runs, and, with a ``ref``, the
+    log-scales' forward difference D into ``fwd``.
     """
 
     def __init__(self, ref=None, *, pin: bool = True, record: bool = False,
@@ -111,6 +117,7 @@ class Taps:
         self.calls, self.pools, self.relus = [], [], []
         self.count = {"calls": 0, "pools": 0, "relus": 0}
         self.mag: Dict[str, float] = {}
+        self.fwd: Dict[str, float] = {}
         self.code_flips = self.tie_flips = self.positions = 0
         self.round_ties = 0  # of the code flips
         self.pool_flips = self.windows = 0
@@ -139,9 +146,10 @@ class Taps:
         if self.record:
             getattr(self, kind).append(x.detach().clone())
 
-    def _add(self, leaf, value):
+    def _add(self, leaf, value, into=None):
+        into = self.mag if into is None else into
         name = self.paths[id(leaf)]
-        self.mag[name] = self.mag.get(name, 0.0) + value
+        into[name] = into.get(name, 0.0) + value
 
     def matched(self):
         """Raises unless this run made as many calls of each kind as the
@@ -180,6 +188,10 @@ class Taps:
             size = (q.detach().abs() + x.detach().abs()).double()
             q.register_hook(lambda gq, s=s, size=size, g=g: self._add(
                 s, g * float((gq.double().abs() * size).sum())))
+            if ref is not None:
+                dx = (x.detach() - ref).abs().double()
+                q.register_hook(lambda gq, s=s, dx=dx, g=g: self._add(
+                    s, g * float((gq.double().abs() * dx).sum()), self.fwd))
         return q
 
     def noise(self, x, key, sigma, s, bits):
@@ -289,3 +301,29 @@ def value_and_grad(fn: Callable, params, taps: Taps):
     return (value.detach(), aux), {
         k: torch.zeros_like(t) if g is None else g
         for (k, _), t, g in zip(named, live, grads)}
+
+
+def head_value_and_grad(fn: Callable, params, taps: Taps, head=None):
+    """As :func:`value_and_grad` for ``fn(params) -> (value, (logits,
+    ...))``, with the gradient of the value by the logits (the head's)
+    returned third. With ``head`` (another run's head gradient) the
+    backward below the logits starts from ``head`` instead of this run's
+    own, so that the network below the head is compared alone; the head
+    gradient returned is still this run's own."""
+    named = tree.named_leaves(params)
+    live = [t.detach().requires_grad_(True) for _, t in named]
+    taps.paths = {id(t): k for (k, _), t in zip(named, live)}
+    with taps, torch.enable_grad():
+        value, aux = fn(tree.unflatten(params, live))
+        logits = aux[0]
+        if head is None:
+            *grads, g_head = torch.autograd.grad(value, live + [logits],
+                                                 allow_unused=True)
+        else:
+            g_head, = torch.autograd.grad(value, logits, retain_graph=True)
+            grads = torch.autograd.grad(logits, live,
+                                        grad_outputs=head.to(logits.device),
+                                        allow_unused=True)
+    return (value.detach(), aux), {
+        k: torch.zeros_like(t) if g is None else g
+        for (k, _), t, g in zip(named, live, grads)}, g_head.detach()

@@ -813,3 +813,91 @@ def test_split_conv_is_capturable(cuda):
     torch.cuda.synchronize()
     assert torch.equal(y, want)
     assert torch.equal(want, tref.ref_fq_conv2d(a, w, s, **kw))
+
+
+# -- the integer LM (models.fq_lm): K2 at its shapes, the attention island --
+
+# (K, N) of the LM's projections at full width: wq / wo, wk / wv, up, down;
+# M = decode slots (1, 4, 8) or B * T of a prefill
+LM_KN = [(64, 64), (64, 32), (64, 128), (128, 64)]
+
+
+@pytest.mark.parametrize("chunks", [None, 1, 4])
+@pytest.mark.parametrize("k,n", LM_KN)
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 64, 96])
+def test_fq_matmul_lm_shapes_match_plain(cuda, m, k, n, chunks):
+    """Full-range signed codes (a_lo = lo = -127), clean and noisy."""
+    rng = np.random.default_rng(m * 1000 + k + n)
+    a = _codes(rng, (m, k), -127, 127, cuda)
+    w = _codes(rng, (k, n), -127, 127, cuda)
+    s = torch.tensor(np.float32(0.0173), device=cuda)
+    kw = dict(epilogue="requant", n_out=127, lo=-127)
+    if chunks is not None:
+        kw.update(_noise(cuda, 0.0173, chunks, seed=2024 + m))
+    got = fq_matmul(a, w, s, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.ref_fq_matmul(a, w, s, **kw))
+
+
+def _island_operands(rng, b, tq, length, dev):
+    q = _codes(rng, (b, tq, 64), -127, 127, dev)
+    k = _codes(rng, (b, length, 2, 16), -127, 127, dev)
+    v = _codes(rng, (b, length, 2, 16), -127, 127, dev)
+    scales = torch.tensor([0.61, 1.37, 0.83], dtype=torch.float32,
+                          device=dev)
+    return q, k, v, scales
+
+
+@pytest.mark.parametrize("b,tq,length", [(1, 1, 128), (4, 1, 128),
+                                         (8, 1, 128), (1, 16, 128),
+                                         (4, 64, 128), (3, 5, 37)])
+def test_lm_island_matches_plain(cuda, b, tq, length):
+    """Bit-identical to the plain version at decode and prefill shapes,
+    and the row outputs do not depend on the batch or Tq."""
+    from repro_torch.kernels.lm_island import (lm_island, lm_island_plain,
+                                               sqrt_head)
+    rng = np.random.default_rng(b * 100 + tq)
+    q, k, v, s = _island_operands(rng, b, tq, length, cuda)
+    qpos = torch.from_numpy(rng.integers(0, length, (b, tq)).astype(
+        np.int32)).to(cuda)
+    kw = dict(n=127, n_heads=4, sqrt_dh=sqrt_head(16))
+    got = lm_island(q, k, v, s, qpos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lm_island_plain(q, k, v, s, qpos, **kw))
+    one = lm_island(q[-1:, -1:], k[-1:], v[-1:], s,
+                    qpos[-1:, -1:].contiguous(), **kw)
+    assert torch.equal(one[0, 0], got[-1, -1])
+
+
+def test_lm_serving_on_the_card(cuda):
+    """The reduced LM on the card: prefill + decode == a longer prefill
+    (caches and logits), K1 / K2 / the island launched, tokens equal the
+    CPU's."""
+    from repro_torch import kernels
+    from repro_torch.models import fq_lm
+    cfg = fq_lm.FQLMConfig.reduced()
+    p = fq_lm.standin_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    cpu = fq_lm.convert_int(p, cfg, fq_lm.LM_QCFG)
+    st = cpu.to(cuda)
+    qc = fq_lm.LM_QCFG
+    pre = torch.tensor([[3, 17, 8, 25]], dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    _, caches = fq_lm.int_prefill(st, pre, qc, cfg, max_len=32)
+    counts = kernels.launch_counts()
+    assert counts["quantize_codes"] == 1
+    assert counts["fq_matmul"] == 6 * cfg.n_layers
+    assert counts["lm_island"] == cfg.n_layers
+    l_step, c_step = fq_lm.int_decode_step(
+        st, caches, torch.tensor([[11]], dtype=torch.int32, device=cuda), qc,
+        cfg)
+    l_full, c_full = fq_lm.int_prefill(
+        st, torch.tensor([[3, 17, 8, 25, 11]], dtype=torch.int32,
+                         device=cuda), qc, cfg, max_len=32, full=True)
+    assert torch.equal(l_step, l_full[:, -1:])
+    for a, b in zip(c_step, c_full):
+        assert all(torch.equal(a[x], b[x]) for x in ("k", "v", "pos"))
+    for prompt in ([1, 5, 9, 2], [7, 3]):
+        assert fq_lm.int_generate(st, prompt, qc, cfg, max_new=5,
+                                  max_len=32) == fq_lm.int_generate(
+            cpu, prompt, qc, cfg, max_new=5, max_len=32)

@@ -60,7 +60,9 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.train.trainer, repro_torch.data.synthetic, "
             "repro_torch.models.resnet, repro_torch.configs.paper_nets, "
             "repro_torch.serve.fleet, repro_torch.analysis.planlint, "
-            "repro_torch.launch.mesh\n"
+            "repro_torch.launch.mesh, repro_torch.models.fq_lm, "
+            "repro_torch.serve.batching, repro_torch.serve.decode, "
+            "repro_torch.kernels.lm_island\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
@@ -134,6 +136,22 @@ def test_resnet_entry_points_raise_without_cuda(no_cuda):
     logits, _ = tres.apply(params, state, torch.zeros(1, 16, 16, 3),
                            QuantConfig(), cfg)
     assert logits.device.type == "cpu" and logits.shape == (1, 10)
+
+
+def test_lm_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.models import fq_lm
+    cfg = fq_lm.FQLMConfig.reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fq_lm.init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fq_lm.init_caches(cfg, 2, 8)
+    p = fq_lm.standin_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    stack = fq_lm.convert_int(p, cfg, fq_lm.LM_QCFG)
+    assert stack.device.type == "cpu"
+    out = fq_lm.int_generate(stack, [1, 2], fq_lm.LM_QCFG, cfg, max_new=2,
+                             max_len=8)
+    assert len(out) == 2
 
 
 def _run_smoke(cwd, script, env_extra=None):

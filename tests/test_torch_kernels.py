@@ -372,7 +372,8 @@ def test_cpu_path_launches_no_kernel():
                             impl="fused")
     quantize_codes(torch.zeros(4, 4), torch.tensor(1.0), n=7, b=0.0)
     assert tkernels.launch_counts() == {"quantize_codes": 0, "fq_matmul": 0,
-                                        "fq_conv2d": 0, "fq_conv2d_pool": 0}
+                                        "fq_conv2d": 0, "fq_conv2d_pool": 0,
+                                        "lm_island": 0}
 
 
 def test_wrappers_refuse_other_devices():

@@ -14,7 +14,9 @@ a code out of range, a packed field that decodes to -2, a rescale of 0,
 inf or a denormal, a wrong static, a static that is an array, a format
 mismatch, a stale rescale against its params, a stale decode scale, a
 non-terminal final layer, a dropped pool, a non-monotone fused pool, a
-seed collision, a broken hand-off.
+seed collision, a broken hand-off. The integer LM's residual-DAG hand-off
+(``lint_handoff_edges``) is held on the port's reduced LM stand-in, intact
+and with one broken edge, and the LM stack's ``lint_stack`` findings too.
 """
 import functools
 
@@ -30,6 +32,7 @@ from repro_torch.core import integer_inference as ii
 from repro_torch.core.quant import QuantConfig
 from repro_torch.launch import mesh
 from repro_torch.models import darknet as tdn
+from repro_torch.models import fq_lm as tlm
 from repro_torch.models import kws as tkws
 from repro_torch.serve.fleet import ModelSLO
 
@@ -41,6 +44,7 @@ try:
     from repro.core import integer_inference as jii
     from repro.core.quant import QuantConfig as JQuantConfig
     from repro.models import darknet as jdn
+    from repro.models import fq_lm as jlm
     from repro.models import kws as jkws
     from repro.serve import fleet as jfleet
 except ImportError:  # the card's machine has no jax: -m cuda runs alone
@@ -438,3 +442,54 @@ def test_place_stack_cpu_to_cuda_and_back():
     rep = Report()
     planlint.lint_stack(on_card, rep, "card")
     assert not rep.findings
+
+
+# -- the integer LM's residual-DAG hand-off ------------------------------------
+
+LM_CFG = tlm.FQLMConfig.reduced()
+
+
+@functools.lru_cache(maxsize=None)
+def lm_standin():
+    """numpy float params of the port's reduced LM stand-in."""
+    return _np(tlm.standin_params(torch.Generator().manual_seed(0), LM_CFG,
+                                  device="cpu"))
+
+
+@pytest.mark.parametrize("broken", [None, "wo1.s_out", "wk0.s_in",
+                                    "down0.s_out", "down1.s_in"])
+def test_lint_handoff_edges_equals_reference(broken):
+    """Every edge holds on the tied stand-in (one proof); one broken scale
+    gives the reference's findings, subject by subject, message by
+    message."""
+    p = lm_standin()
+    if broken:
+        name, key = broken.split(".")
+        p = {**p, name: {**p[name], key: np.float32(0.9)}}
+    tp, _ = interop.params_from_numpy(p, {}, device="cpu")
+    jrep, trep = JReport(), Report()
+    jplanlint.lint_handoff_edges(_jp(p), jlm.handoff_edges(
+        jlm.FQLMConfig.reduced()), jrep, "lm")
+    planlint.lint_handoff_edges(tp, tlm.handoff_edges(LM_CFG), trep, "lm")
+    same(jrep, trep)
+    assert bool(trep.findings) == bool(broken)
+    assert bool(trep.proofs) != bool(broken)
+
+
+def test_lm_stack_findings_equal_reference():
+    """``lint_stack`` over the LM's DAG stack (signed requant layers, the
+    ReLU'd ``up``) with its layer params, the reference's findings."""
+    p = lm_standin()
+    jcfg = jlm.FQLMConfig.reduced()
+    ip = jlm.convert_int(_jp(p), jcfg, jlm.LM_QCFG)
+    st = interop.stack_from_numpy(_np(ip.layers), _np(ip.extras), ip.qcfg,
+                                  ip.specs, handoff_edges=ip.handoff_edges,
+                                  device="cpu")
+    tp, _ = interop.params_from_numpy(p, {}, device="cpu")
+    names = tlm.proj_names(LM_CFG)
+    jrep, trep = JReport(), Report()
+    jplanlint.lint_stack(ip, jrep, "lm", layer_params=_jp(
+        {n: p[n] for n in names}))
+    planlint.lint_stack(st, trep, "lm", layer_params={n: tp[n]
+                                                      for n in names})
+    same(jrep, trep)
