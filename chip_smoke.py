@@ -265,6 +265,9 @@ REPLACES = {
     # replaces the last reduction step's epilogue (fq_conv.py:339)
     "fq_conv2d_splitk": "src/repro/kernels/fq_conv.py:385",
     "splitk_epilogue": "src/repro/kernels/fq_conv.py:339",
+    # port-only: the integer LM's attention island, plain jnp in the
+    # reference (fq_lm._attention)
+    "lm_island": "src/repro/models/fq_lm.py:202",
 }
 SOURCES = {
     "quantize_codes": "src/repro_torch/kernels/csrc/quantize.cu",
@@ -273,6 +276,7 @@ SOURCES = {
     "fq_conv2d_pool": "src/repro_torch/kernels/csrc/fq_conv.cu",
     "fq_conv2d_splitk": "src/repro_torch/kernels/csrc/fq_conv.cu",
     "splitk_epilogue": "src/repro_torch/kernels/csrc/fq_conv.cu",
+    "lm_island": "src/repro_torch/kernels/csrc/lm_island.cu",
 }
 PATH_KERNELS = {"kws": ("quantize_codes", "fq_matmul", "fq_conv2d"),
                 "darknet": ("quantize_codes", "fq_matmul", "fq_conv2d",
@@ -2503,21 +2507,25 @@ LM_STEPS_TIMED = 20        # decode steps on the host clock, mean
 LM_BUDGET_S = 60.0
 # (K, N) of the projections: wq / wo, wk / wv, up, down; launches a layer
 LM_KN = {(64, 64): 2, (64, 32): 2, (64, 128): 1, (128, 64): 1}
-LM_REPLACES = "src/repro/models/fq_lm.py:202"
-LM_SOURCE = "src/repro_torch/kernels/csrc/lm_island.cu"
 
 
-def lm_island_work(b, tq, length, kv, g, dh):
-    """(bytes, float32 operations) of one island call: the int8 codes and
-    caches read once, the float32 context written once; per query row the
-    scores and the context (2 L dh each), the scale, max, sum and divide
-    (L each), the exp (~18 float32-equivalent steps a key), and the
-    dequantizing of q and the caches (2 each)."""
-    rows = b * kv * g * tq
-    bytes_ = (b * tq * kv * g * dh + 2 * b * length * kv * dh + 12
-              + 4 * b * tq + 4 * b * tq * kv * g * dh)
-    ops = rows * (4 * length * dh + 4 * length + 18 * length) + 2 * (
-        b * tq * kv * g * dh + 2 * b * length * kv * dh)
+def lm_island_work(qpos, kv, g, dh):
+    """(bytes, float32 operations) of the function one island call
+    computes, counted from the call's query positions ``qpos`` ((B, Tq)):
+    a query at position p needs keys 0..p alone (a masked key's weight is
+    exactly 0 and changes no sum), whatever the kernel reads. Bytes: the
+    int8 q codes, each batch row's K / V codes up to its furthest needed
+    key, the three scales and qpos read once, the float32 context written
+    once. Operations per query head and needed key: the score and the
+    context (2 dh each), the scale, max, sum and divide (1 each) and the
+    exp (~18 float32-equivalent steps); plus the dequantizing of q and of
+    the needed K / V codes (2 each)."""
+    b, tq = qpos.shape
+    keys = qpos.long().cpu() + 1
+    q_el = b * tq * kv * g * dh
+    kv_el = 2 * int(keys.max(1).values.sum()) * kv * dh
+    bytes_ = q_el + kv_el + 12 + 4 * b * tq + 4 * q_el
+    ops = int(keys.sum()) * kv * g * (4 * dh + 22) + 2 * (q_el + kv_el)
     return bytes_, ops
 
 
@@ -2654,13 +2662,14 @@ def phase_serve_lm(torch, dev):
                     if err:
                         raise AssertionError(f"{name_k} {(m, k, nn)} != "
                                              f"plain (max abs err {err})")
+    consts = fq_lm.island_consts(stack)
     island_shapes = [(b, 1) for b in LM_SLOTS] + [(1, t)
                                                    for t in LM_PREFILLS]
     kw_isl = dict(n=n, n_heads=cfg.n_heads, sqrt_dh=sqrt_head(dh))
     for b, tq in island_shapes:
         q = codes((b, tq, cfg.d_model))
         kc, vc = codes((b, LM_MAX_LEN, kv, dh)), codes((b, LM_MAX_LEN, kv, dh))
-        sc = fq_lm.island_consts(stack)[0][0]
+        sc = consts[0][0]
         qpos = torch.from_numpy(rng.integers(tq - 1, LM_MAX_LEN, (b, tq))
                                 .astype(np.int32)).to(dev)
         if tq > 1:
@@ -2683,7 +2692,7 @@ def phase_serve_lm(torch, dev):
                 <= qpos[:, :, None])[:, None]
         lib = (lambda qf=qf, kf=kf, vf=vf, mask=mask:
                F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask))
-        bytes_, ops = lm_island_work(b, tq, LM_MAX_LEN, kv, g, dh)
+        bytes_, ops = lm_island_work(qpos, kv, g, dh)
         if (b, tq) in ((LM_RECORD_SLOTS, 1), (1, max(LM_PREFILLS))):
             rows.record("lm_island", b if tq == 1 else tq, (b, tq, LM_MAX_LEN),
                         got, plain(), fn, plain, lib, bytes_, ops, "fp32",
@@ -2825,7 +2834,7 @@ def phase_serve_lm(torch, dev):
             raise AssertionError(f"serve_lm int_core {label}: {diff} codes "
                                  "differ from the CPU's")
 
-    # -- times ------------------------------------------------------------
+    # -- times (the island constants derived once, as the batcher's are) ---
     step_ms, lines = {}, []
     for slots in LM_SLOTS:
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (slots, 8)).astype(
@@ -2835,7 +2844,7 @@ def phase_serve_lm(torch, dev):
 
         def step(cc=cc, tok=tok):
             return fq_lm.int_decode_step(stack, cc, tok, qcfg, cfg,
-                                         inplace=True)
+                                         inplace=True, consts=consts)
         step_ms[slots] = eager_ms(torch, step, reps=LM_STEPS_TIMED)
         lines.append(f"slots {slots}: {step_ms[slots]:.4f} ms a decode step, "
                      f"{slots * 1e3 / step_ms[slots]:.1f} tokens/s")
@@ -2847,7 +2856,8 @@ def phase_serve_lm(torch, dev):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, t)).astype(
             np.int32)).to(dev)
         prefill_ms[t] = eager_ms(torch, lambda toks=toks: fq_lm.int_prefill(
-            stack, toks, qcfg, cfg, max_len=LM_MAX_LEN), reps=10)
+            stack, toks, qcfg, cfg, max_len=LM_MAX_LEN, consts=consts),
+            reps=10)
     kv_bytes = sum(c["k"][0].numel() + c["v"][0].numel()
                    for c in fq_lm.init_caches(cfg, 1, LM_MAX_LEN, device=dev))
     print(f"serve_lm times ({smi}; host clock, eager): " + "; ".join(lines)
@@ -2872,59 +2882,8 @@ def phase_serve_lm(torch, dev):
     if secs > LM_BUDGET_S:
         raise AssertionError(f"serve_lm took {secs:.1f} s > {LM_BUDGET_S}")
     return {"rows": rows, "counts": counts, "noisy": noisy_counts,
-            "step_ms": step_ms, "prefill_ms": prefill_ms}
-
-
-def lm_record(results):
-    """The LM path's record entries: one decode step of LM_RECORD_SLOTS
-    slots (K1 once, K2 6 a layer at its (K, N) mix, the island once a
-    layer), the launches of the counted batcher run at those slots; the
-    noisy K2 of the noisy integer cores."""
-    from repro_torch.models.fq_lm import FQLMConfig
-    lm = results["serve_lm"]
-    rows = lm["rows"]
-    layers = FQLMConfig().n_layers
-    out = []
-    for name in rows.rows:
-        base, _, chunks = variant(name)
-        top = [r for r in rows.rows[name] if r["batch"] == LM_RECORD_SLOTS]
-        if name == "quantize_codes" or name == "lm_island":
-            weights = [1 if name == "quantize_codes" else layers for _ in top]
-        else:
-            weights = [layers * LM_KN[r["shape"][1:]] for r in top]
-        work = {}
-        for r, w in zip(top, weights):
-            for kind, v in r["work"].items():
-                work[kind] = work.get(kind, 0) + w * v
-        bound_ms, bound_by = bound(sum(w * r["bytes"]
-                                       for r, w in zip(top, weights)), work)
-        libs = [r["library_ms"] for r in top]
-        launches = (lm["noisy"][name] if chunks else lm["counts"][base])
-        entry = {
-            "name": name, "path": "lm", "route": "cuda",
-            "source": LM_SOURCE if base == "lm_island" else SOURCES[base],
-            "replaces": (LM_REPLACES if base == "lm_island" else
-                         NOISE_REPLACES[base] if chunks else REPLACES[base]),
-            "launches": launches,
-            "max_abs_err": max([r["err"] for r in rows.rows[name]]
-                               + [rows.extra_err.get(name, 0.0)]),
-            "ms": sum(w * r["ms"] for r, w in zip(top, weights)),
-            "plain_ms": sum(w * r["plain_ms"] for r, w in zip(top, weights)),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": (None if any(v is None for v in libs) else
-                           sum(w * v for v, w in zip(libs, weights))),
-            "eager_ms": sum(w * r["eager_ms"] for r, w in zip(top, weights)),
-            "batch": LM_RECORD_SLOTS, "calls": sum(weights),
-        }
-        if base in TC_KERNELS:
-            entry.update(loop=TC_LOOP, loaders=sorted(
-                {r["loader"] for r in top}))
-        if chunks:
-            entry.update(epilogue=NOISE_EPILOGUE, mac_chunks=chunks,
-                         clean_ms=sum(w * r["clean_ms"]
-                                      for r, w in zip(top, weights)))
-        out.append(entry)
-    return out
+            "step_ms": step_ms, "prefill_ms": prefill_ms,
+            "n_layers": cfg.n_layers}
 
 
 # ---------------------------------------------------------------------------
@@ -4469,22 +4428,26 @@ def fleet_report(torch, dev, fleet, trace, models, synced, clock, ticks,
     return problems
 
 
-def kernels_record(rows, counts, batch, per_apply, names=None):
+def kernels_record(rows, counts, batch, per_apply, names=None,
+                   weight=lambda name, r: 1):
     """One entry per kernel of one path (or per kernel in ``names``): the
     work of one int_apply at request batch ``batch`` (``per_apply`` picks
-    the rows one call runs), summed, with the launches of that path's
-    counted run."""
+    the rows one call runs, ``weight`` how many calls of a row's shape it
+    makes), summed, with the launches of that path's counted run."""
     out = []
     for name in names or rows.rows:
         all_rows = rows.rows[name]
-        top = [r for r in all_rows if r["batch"] == batch
-               and per_apply(name, r)]
+        top = [(r, weight(name, r)) for r in all_rows
+               if r["batch"] == batch and per_apply(name, r)]
+
+        def total(key):
+            return sum(w * r[key] for r, w in top)
         work = {}
-        for r in top:
+        for r, w in top:
             for kind, n in r["work"].items():
-                work[kind] = work.get(kind, 0) + n
-        bound_ms, bound_by = bound(sum(r["bytes"] for r in top), work)
-        libs = [r["library_ms"] for r in top]
+                work[kind] = work.get(kind, 0) + w * n
+        bound_ms, bound_by = bound(total("bytes"), work)
+        libs = [r["library_ms"] for r, _ in top]
         base, fmt, chunks = variant(name)
         replaces = (NOISE_REPLACES if chunks else
                     REPLACES if fmt == "int8" else PACKED_REPLACES)[base]
@@ -4494,24 +4457,23 @@ def kernels_record(rows, counts, batch, per_apply, names=None):
             "launches": counts[name],
             "max_abs_err": max(max(r["err"] for r in all_rows),
                                rows.extra_err.get(name, 0.0)),
-            "ms": sum(r["ms"] for r in top),
-            "plain_ms": sum(r["plain_ms"] for r in top),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": (None if any(v is None for v in libs)
-                           else sum(libs)),
-            "eager_ms": sum(r["eager_ms"] for r in top),
-            "batch": batch, "calls": len(top),
+                           else total("library_ms")),
+            "eager_ms": total("eager_ms"),
+            "batch": batch, "calls": sum(w for _, w in top),
         }
         if base in TC_KERNELS:
             entry.update(loop=TC_LOOP, loaders=sorted(
-                {r["loader"] for r in top}))
+                {r["loader"] for r, _ in top}))
         if fmt != "int8":
             entry["prologue"] = TC_LOOP
         if chunks:
             entry.update(epilogue=NOISE_EPILOGUE, mac_chunks=chunks,
-                         clean_ms=sum(r["clean_ms"] for r in top))
+                         clean_ms=total("clean_ms"))
         elif fmt != "int8":
-            entry["int8_ms"] = sum(r["int8_ms"] for r in top)
+            entry["int8_ms"] = total("int8_ms")
         out.append(entry)
     return out
 
@@ -4596,8 +4558,20 @@ def kernels_record_all(torch, results):
     for e in entries:
         e["path"] = "fleet"
     record += entries
-    # the integer LM: one decode step of the batcher's slots
-    record += lm_record(results)
+    # the integer LM: one decode step of LM_RECORD_SLOTS slots (K1 once, K2
+    # 6 a layer at its (K, N) mix, the island once a layer; the noisy K2 of
+    # the noisy integer cores), the launches of the counted batcher run at
+    # those slots
+    lm = results["serve_lm"]
+    layers = lm["n_layers"]
+
+    def lm_calls(name, r):
+        if name == "quantize_codes":
+            return 1
+        return layers * (1 if name == "lm_island" else LM_KN[r["shape"][1:]])
+    record += kernels_record(lm["rows"], lm["counts"] | lm["noisy"],
+                             LM_RECORD_SLOTS, lambda name, r: True,
+                             weight=lm_calls)
     # the tensor-core loop's off-path edge rows (kernels_tc) and K1's edges
     # (kernels_k1) count too
     for e in record + off_path:

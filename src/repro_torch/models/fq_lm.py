@@ -285,29 +285,27 @@ def int_linear_ref(ip, codes, *, noise: Optional[NoiseConfig] = None,
 def island_consts(stack):
     """Per layer: the island's dequant scales e^s of the wq / wk / wv
     outputs, a (3,) float32 tensor, and e^{island_s_in}, by
-    ``core.quant.exp`` (the reference's exp). Derived once per stack object
-    (a stack made by ``to`` or ``rederive`` derives its own), so a decode
-    step runs no exp."""
-    consts = getattr(stack, "_lm_island_consts", None)
-    if consts is None:
-        n_layers = len(stack["island_s_in"])
-        consts = []
-        for i in range(n_layers):
-            s = torch.stack([torch.as_tensor(stack[f"{k}{i}"]["s_out"])
-                             for k in ("wq", "wk", "wv")])
-            consts.append((quant.exp(s.float()).contiguous(),
-                           quant.exp(torch.as_tensor(
-                               stack["island_s_in"][i]).float())))
-        stack._lm_island_consts = consts
+    ``core.quant.exp`` (the reference's exp). A forward derives them unless
+    its caller passes them (``consts=``): ``serve_fns`` and
+    ``int_generate`` derive them once per stack, so a decode step runs no
+    exp."""
+    consts = []
+    for i in range(len(stack["island_s_in"])):
+        s = torch.stack([torch.as_tensor(stack[f"{k}{i}"]["s_out"])
+                         for k in ("wq", "wk", "wv")])
+        consts.append((quant.exp(s.float()).contiguous(),
+                       quant.exp(torch.as_tensor(
+                           stack["island_s_in"][i]).float())))
     return consts
 
 
-def _island(stack, i, qc, kcache, vcache, qpos, cfg: FQLMConfig,
+def _island(stack, i, consts, qc, kcache, vcache, qpos, cfg: FQLMConfig,
             qcfg: QuantConfig):
     """The attention island of layer i and its re-entry codes: ctx by the
     island kernel, then round(clip(ctx / e^s, -1, 1) * n) (the plain
-    ``quant.quantize_to_int``, with e^s derived once)."""
-    scales, e_in = island_consts(stack)[i]
+    ``quant.quantize_to_int``, with e^s from ``consts``, the stack's
+    :func:`island_consts`)."""
+    scales, e_in = consts[i]
     ctx = lm_island(qc, kcache, vcache, scales, qpos,
                     n=stack[f"wq{i}"]["n_out"], n_heads=cfg.n_heads,
                     sqrt_dh=sqrt_head(cfg.d_head))
@@ -397,14 +395,16 @@ def _logits(stack, h, qcfg: QuantConfig):
 
 
 def int_prefill(stack, tokens, qcfg: QuantConfig, cfg: FQLMConfig, *,
-                max_len: int, linear=None, full: bool = False):
+                max_len: int, linear=None, full: bool = False, consts=None):
     """Integer prefill: (B, T) tokens -> (last-token logits, caches).
 
     K/V codes go straight into the padded cache, and attention runs over
     the full ``max_len`` cache, so its per-row reductions have the shape
     of a decode step's. ``full=True`` returns logits at every position.
+    ``consts``: the stack's :func:`island_consts`, derived if None.
     """
     linear = linear or ii.int_linear
+    consts = island_consts(stack) if consts is None else consts
     b, t = tokens.shape
     dh, kv = cfg.d_head, cfg.n_kv_heads
     dev = tokens.device
@@ -418,8 +418,8 @@ def int_prefill(stack, tokens, qcfg: QuantConfig, cfg: FQLMConfig, *,
         caches[i]["k"][:, :t] = kc.reshape(b, t, kv, dh)
         caches[i]["v"][:, :t] = vc.reshape(b, t, kv, dh)
         caches[i]["pos"].fill_(t)
-        ctx_codes = _island(stack, i, qc, caches[i]["k"], caches[i]["v"],
-                            qpos, cfg, qcfg)
+        ctx_codes = _island(stack, i, consts, qc, caches[i]["k"],
+                            caches[i]["v"], qpos, cfg, qcfg)
         h = _block_tail(stack, i, h, ctx_codes, linear)
     if not full:
         h = h[:, -1:]
@@ -427,7 +427,8 @@ def int_prefill(stack, tokens, qcfg: QuantConfig, cfg: FQLMConfig, *,
 
 
 def int_decode_step(stack, caches, tokens, qcfg: QuantConfig,
-                    cfg: FQLMConfig, *, linear=None, inplace: bool = False):
+                    cfg: FQLMConfig, *, linear=None, inplace: bool = False,
+                    consts=None):
     """One integer decode step: append K/V codes at each slot's position,
     attend, advance the positions. tokens: (B, 1) -> (logits (B, 1, V),
     caches). The cache never sees float K/V.
@@ -437,8 +438,10 @@ def int_decode_step(stack, caches, tokens, qcfg: QuantConfig,
     as it was. A slot at or past ``max_len`` (a retired lane still flowing
     through the batch) writes nothing, as the reference's scatter drops
     it, and reads the last position embedding, as its gather clamps.
+    ``consts``: the stack's :func:`island_consts`, derived if None.
     """
     linear = linear or ii.int_linear
+    consts = island_consts(stack) if consts is None else consts
     b = tokens.shape[0]
     dh, kv = cfg.d_head, cfg.n_kv_heads
     max_len = caches[0]["k"].shape[1]
@@ -464,8 +467,8 @@ def int_decode_step(stack, caches, tokens, qcfg: QuantConfig,
             caches[i].update(layer)
         new_caches.append(caches[i] if inplace else layer)
         qpos = p[:, None].contiguous()
-        ctx_codes = _island(stack, i, qc, layer["k"], layer["v"], qpos, cfg,
-                            qcfg)
+        ctx_codes = _island(stack, i, consts, qc, layer["k"], layer["v"],
+                            qpos, cfg, qcfg)
         h = _block_tail(stack, i, h, ctx_codes, linear)
     return _logits(stack, h, qcfg), new_caches
 
@@ -474,15 +477,24 @@ def serve_fns(cfg: FQLMConfig, qcfg: QuantConfig, *, max_len: int,
               linear=None, device: DeviceLike = None):
     """(prefill_fn, step_fn, init_caches_fn) for ``ContinuousBatcher``; the
     step updates the batch's caches in place. ``device`` is where the
-    caches live (the stack's device)."""
+    caches live (the stack's device). The island constants are derived
+    once for each stack the functions are given (a swapped-in stack is a
+    new object)."""
+    derived = {}
+
+    def consts_of(stack):
+        if derived.get("stack") is not stack:
+            derived.update(stack=stack, consts=island_consts(stack))
+        return derived["consts"]
 
     def prefill_fn(stack, tokens):
         return int_prefill(stack, tokens, qcfg, cfg, max_len=max_len,
-                           linear=linear)
+                           linear=linear, consts=consts_of(stack))
 
     def step_fn(stack, caches, tokens):
         return int_decode_step(stack, caches, tokens, qcfg, cfg,
-                               linear=linear, inplace=True)
+                               linear=linear, inplace=True,
+                               consts=consts_of(stack))
 
     def init_caches_fn(batch):
         return init_caches(cfg, batch, max_len, device=device)
@@ -497,8 +509,9 @@ def int_generate(stack, prompt, qcfg: QuantConfig, cfg: FQLMConfig, *,
     (appended, then stop) or the budget runs out."""
     toks = torch.tensor([list(prompt)], dtype=torch.int32,
                         device=stack.device)
+    consts = island_consts(stack)
     logits, caches = int_prefill(stack, toks, qcfg, cfg, max_len=max_len,
-                                 linear=linear)
+                                 linear=linear, consts=consts)
     out = [int(torch.argmax(logits[0, -1]))]
     for _ in range(max_new - 1):
         if out[-1] == eos_id:
@@ -506,6 +519,7 @@ def int_generate(stack, prompt, qcfg: QuantConfig, cfg: FQLMConfig, *,
         tok = torch.tensor([[out[-1]]], dtype=torch.int32,
                            device=stack.device)
         logits, caches = int_decode_step(stack, caches, tok, qcfg, cfg,
-                                         linear=linear, inplace=True)
+                                         linear=linear, inplace=True,
+                                         consts=consts)
         out.append(int(torch.argmax(logits[0, -1])))
     return out

@@ -176,7 +176,8 @@ def _island_flips(name, st, js, toks):
     for i in range(tcfg.n_layers):
         qc, _, _ = M._qkv(st, i, h, ii.int_linear)
         kcache, vcache = caches[i]["k"], caches[i]["v"]
-        got = M._island(st, i, qc, kcache, vcache, qpos, tcfg, QCFG)
+        got = M._island(st, i, M.island_consts(st), qc, kcache, vcache,
+                        qpos, tcfg, QCFG)
         n = js[f"wq{i}"]["n_out"]
         dh, kv = jcfg.d_head, jcfg.n_kv_heads
         ctx = JM._attention(
