@@ -27,11 +27,13 @@ Phases, each of which must pass:
    unpooled K3 at the policy's split and at split 1, bit-exact against the
    plain version clean, dequant and noisy at mac_chunks 1 and 4, with a
    line a layer (split, blocks, stages, K3 ms at split 1 and at the chosen
-   split, the bound); the split convs of the fused path and their epilogue
-   pass alone are timed into the record (``fq_conv2d_splitk``,
-   ``splitk_epilogue``). serve_darknet then checks that the main path ran
+   split, the bound); each split conv is one launch, its blocks reducing
+   the split slices in a thread-block cluster; the policy's splits and a
+   split of 16 (two slices a block) are also held bit-exact as CUDA-graph
+   replays; the split convs of the fused path are timed into the record
+   (``fq_conv2d_splitk``). serve_darknet then checks that the main path ran
    as many split launches as the policy picks, and serve_batcher that the
-   replayed graphs show both split kernels;
+   replayed graphs show the split kernel;
 4. serve_kws: builds the full-width KWS integer stack with the port's own
    ``kws.init -> to_fq -> s_out = 0.1 -> sync_handoff -> convert_int`` from
    a seed and answers request batches of 1, 8 and 64 through
@@ -113,7 +115,8 @@ Phases, each of which must pass:
    checks that no projection's output codes are all zero; holds K1, K2
    (clean and K4 at mac_chunks 1 and 4; signed codes, lo = -127) at every
    LM shape (M = 1, 4, 8, 16, 64) and the port-only attention island
-   kernel (``csrc/lm_island.cu``) at decode and prefill shapes bit-exact
+   kernel (``csrc/lm_island.cu``: its int8 re-entry codes, every launch
+   on the 16-byte row loader) at decode and prefill shapes bit-exact
    against their plain versions; checks prefill(T) + decode == prefill(T +
    1, full) bit for bit on the card (caches and logits); serves 12
    staggered requests (prompts of 1-24 tokens, one EOS taken from a
@@ -261,10 +264,8 @@ REPLACES = {
     "fq_conv2d": "src/repro/kernels/fq_conv.py:385",
     "fq_conv2d_pool": "src/repro/kernels/fq_conv.py:356",
     # K3 split-K: fq_conv2d's reduction over kh * kw * Cin / bc cin blocks
-    # (its bc knob, fq_conv.py:20), cut across blocks; its epilogue pass
-    # replaces the last reduction step's epilogue (fq_conv.py:339)
+    # (its bc knob, fq_conv.py:20), cut across the blocks of a cluster
     "fq_conv2d_splitk": "src/repro/kernels/fq_conv.py:385",
-    "splitk_epilogue": "src/repro/kernels/fq_conv.py:339",
     # port-only: the integer LM's attention island, plain jnp in the
     # reference (fq_lm._attention)
     "lm_island": "src/repro/models/fq_lm.py:202",
@@ -275,17 +276,17 @@ SOURCES = {
     "fq_conv2d": "src/repro_torch/kernels/csrc/fq_conv.cu",
     "fq_conv2d_pool": "src/repro_torch/kernels/csrc/fq_conv.cu",
     "fq_conv2d_splitk": "src/repro_torch/kernels/csrc/fq_conv.cu",
-    "splitk_epilogue": "src/repro_torch/kernels/csrc/fq_conv.cu",
     "lm_island": "src/repro_torch/kernels/csrc/lm_island.cu",
 }
 PATH_KERNELS = {"kws": ("quantize_codes", "fq_matmul", "fq_conv2d"),
                 "darknet": ("quantize_codes", "fq_matmul", "fq_conv2d",
                             "fq_conv2d_pool")}
 # K3's split-K, where the tile policy's cin block bc is below Cin (DarkNet's
-# late convs), and its epilogue pass; their kernels as the profiler names
-# them
-SPLIT_KERNELS = ("fq_conv2d_splitk", "splitk_epilogue")
-SPLIT_GRAPH_KERNELS = ("fq_conv_splitk_kernel", "fq_splitk_reduce_kernel")
+# late convs), one cluster launch a conv; its kernel as the profiler names
+# it
+SPLIT_KERNELS = ("fq_conv2d_splitk",)
+SPLIT_GRAPH_KERNELS = ("fq_conv_splitk_kernel",)
+SPLIT_WIDE = 16            # a split past the cluster's 8 blocks
 # K5, the packed prologue, in each kernel that takes weights
 PACKED_FORMATS = ("ternary", "int4")
 PACKED_REPLACES = {"fq_matmul": "src/repro/kernels/fq_matmul.py:86",
@@ -376,6 +377,23 @@ def device_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
     uses too)."""
     from repro_torch.kernels.autotune import device_ms as timed
     return timed(fn, calls, replays)
+
+
+def replayed(torch, fn):
+    """``fn()``'s output as a CUDA graph captures and replays it (after a
+    warm-up call on a side stream), for checks against the eager call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out.clone()
 
 
 def eager_ms(torch, fn, reps: int = 50) -> float:
@@ -851,14 +869,15 @@ def phase_kernels_split(torch, dev):
     the way without pool fusion): bit-exact against the plain version at
     the tile policy's split and at split 1, clean, dequant and noisy at
     mac_chunks 1 and 4; a line a layer with its blocks, stages, split, K3
-    device time at split 1 and at the chosen split, and its bound. Where the
-    fused path runs a split (unpooled, split > 1) the split conv and its
-    epilogue pass alone (on the plain partials) get record rows."""
+    device time at split 1 and at the chosen split, and its bound. The
+    policy's splits and SPLIT_WIDE (two slices a cluster block) are also
+    held as CUDA-graph replays at B=1. Where the fused path runs a split
+    (unpooled, split > 1) the split conv gets a record row."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.core.quant import n_levels
     from repro_torch.kernels import ref
-    from repro_torch.kernels.fq_conv import fq_conv2d, splitk_epilogue
+    from repro_torch.kernels.fq_conv import fq_conv2d
     from repro_torch.models.darknet import DarkNetConfig
 
     cfg = DarkNetConfig()
@@ -879,15 +898,21 @@ def phase_kernels_split(torch, dev):
                       lo=0)
             split = policy_split(torch, dev, side, cin, cout, ks, batch)
             bc = cin // split
+            wide = (cin // SPLIT_WIDE if split > 1 and batch == 1
+                    and cin % (16 * SPLIT_WIDE) == 0 else None)
             for extra in ({}, dict(epilogue="dequant"),
                           *(dict(noise_sigma_acc=torch.div(
                               torch.full_like(s, 1.5), s), noise_seed=seed,
                               mac_chunks=c) for c in CHUNKS)):
                 want = ref.ref_fq_conv2d(a, w, s, **kw, **extra)
-                for b_ in sorted({bc, cin}):
+                for b_ in sorted({bc, cin} | ({wide} if wide else set())):
                     errs.append(max_abs_err(
                         torch, fq_conv2d(a, w, s, bc=b_, **kw, **extra),
                         want))
+                    if b_ != cin and batch == 1:
+                        errs.append(max_abs_err(torch, replayed(
+                            torch, lambda b_=b_, extra=extra: fq_conv2d(
+                                a, w, s, bc=b_, **kw, **extra)), want))
             if max(errs) != 0.0:
                 raise AssertionError(f"{name} B={batch}: K3 at split "
                                      f"{split} or 1 != plain version")
@@ -922,16 +947,6 @@ def phase_kernels_split(torch, dev):
                        lambda: ref.ref_fq_conv2d(a, w, s, **kw),
                        lambda: F.conv2d(xf, wf, padding=ks // 2), bytes_,
                        ops_, "int8", layer=name)
-            parts = ref.ref_splitk_partials(a, w, kh=ks, kw=ks, bc=bc,
-                                            padding=(ks // 2, ks // 2))
-            ek = dict(n_out=n, lo=0)
-            out.record("splitk_epilogue", batch, tuple(parts.shape),
-                       splitk_epilogue(parts, s, **ek),
-                       ref.ref_splitk_epilogue(parts, s, **ek),
-                       lambda: splitk_epilogue(parts, s, **ek),
-                       lambda: ref.ref_splitk_epilogue(parts, s, **ek), None,
-                       parts.numel() * 4 + m * cout + 4, parts.numel(), "alu",
-                       layer=name)
     torch.cuda.synchronize()
     for batch in DN_BATCHES:
         on = [r for r in layers if r["batch"] == batch and not r["pooled"]]
@@ -940,7 +955,9 @@ def phase_kernels_split(torch, dev):
               f"1 {sum(r['ms1'] for r in on):.5f}, at the chosen splits "
               f"{sum(r['ms_split'] for r in on):.5f}", flush=True)
     print(f"  split darknet: every conv at its split and at split 1, clean, "
-          f"dequant, noisy c1 / c4: max_abs_err={max(errs):g}", flush=True)
+          f"dequant, noisy c1 / c4, eager and (B=1, the policy's splits and "
+          f"split {SPLIT_WIDE}) as CUDA-graph replays: max_abs_err="
+          f"{max(errs):g}", flush=True)
     out.layers = layers
     return out
 
@@ -1971,7 +1988,7 @@ def phase_serve_darknet(torch, dev):
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
     # the tile policy's splits: fused runs the unpooled convs as K3, the way
-    # without pool fusion every conv; each split launch is one epilogue pass
+    # without pool fusion every conv; a split conv is one cluster launch
     layers = darknet_int_layers(cfg, DN_SIZE)
     splits = {b: [policy_split(torch, dev, side, cin, cout, ks, b) > 1
                   for _, side, cin, cout, ks, _ in layers] for b in DN_BATCHES}
@@ -2087,13 +2104,11 @@ def phase_serve_darknet(torch, dev):
                                     launched=True)[2]
     print(f"serve darknet B={big} fused: device ops launched per request "
           f"(profiled) int8 {n_ops['int8']:g}, ternary {n_ops['ternary']:g} "
-          f"(int8 splits {fused_splits[big]} convs: one epilogue pass "
-          f"each; packed weights never split)", flush=True)
-    if not n_ops["int8"] or n_ops["int8"] != n_ops["ternary"] + \
-            fused_splits[big]:
-        raise AssertionError(f"the ternary fused path runs other device ops "
-                             f"than the int8 one less its split epilogue "
-                             f"passes ({fused_splits[big]}): {n_ops}")
+          f"(int8 splits {fused_splits[big]} convs, each one launch; packed "
+          f"weights never split)", flush=True)
+    if not n_ops["int8"] or n_ops["int8"] != n_ops["ternary"]:
+        raise AssertionError(f"the int8 fused path runs other device ops "
+                             f"than the ternary one: {n_ops}")
     check_stacks(torch, ii, "darknet", stacks,
                  {n: params[n] for n in stack.layer_names})
     serve_timing(torch, "darknet ternary", packed_serve["ternary"], requests,
@@ -2509,23 +2524,25 @@ LM_BUDGET_S = 60.0
 LM_KN = {(64, 64): 2, (64, 32): 2, (64, 128): 1, (128, 64): 1}
 
 
-def lm_island_work(qpos, kv, g, dh):
+def lm_island_work(qpos, kv, g, dh, length):
     """(bytes, float32 operations) of the function one island call
-    computes, counted from the call's query positions ``qpos`` ((B, Tq)):
-    a query at position p needs keys 0..p alone (a masked key's weight is
-    exactly 0 and changes no sum), whatever the kernel reads. Bytes: the
-    int8 q codes, each batch row's K / V codes up to its furthest needed
-    key, the three scales and qpos read once, the float32 context written
-    once. Operations per query head and needed key: the score and the
-    context (2 dh each), the scale, max, sum and divide (1 each) and the
-    exp (~18 float32-equivalent steps); plus the dequantizing of q and of
-    the needed K / V codes (2 each)."""
+    computes, counted from the call's query positions ``qpos`` ((B, Tq))
+    and the cache length: a query at position p needs keys 0..min(p, L - 1)
+    alone (a masked key's weight is exactly 0 and changes no sum), whatever
+    the kernel reads. Bytes: the int8 q codes, each batch row's K / V codes
+    up to its furthest needed key, the three scales, e_in and qpos read
+    once, the int8 re-entry codes written once. Operations per query head
+    and needed key: the score and the context (2 dh each), the scale, max,
+    sum and divide (1 each) and the exp (~18 float32-equivalent steps);
+    plus the dequantizing of q and of the needed K / V codes (2 each) and
+    the re-entry quantizer (divide, clip, multiply, round: 4 an output)."""
     b, tq = qpos.shape
-    keys = qpos.long().cpu() + 1
+    keys = qpos.long().cpu().clamp(max=length - 1) + 1
     q_el = b * tq * kv * g * dh
     kv_el = 2 * int(keys.max(1).values.sum()) * kv * dh
-    bytes_ = q_el + kv_el + 12 + 4 * b * tq + 4 * q_el
-    ops = int(keys.sum()) * kv * g * (4 * dh + 22) + 2 * (q_el + kv_el)
+    bytes_ = q_el + kv_el + 12 + 4 + 4 * b * tq + q_el
+    ops = (int(keys.sum()) * kv * g * (4 * dh + 22) + 2 * (q_el + kv_el)
+           + 4 * q_el)
     return bytes_, ops
 
 
@@ -2665,23 +2682,25 @@ def phase_serve_lm(torch, dev):
     consts = fq_lm.island_consts(stack)
     island_shapes = [(b, 1) for b in LM_SLOTS] + [(1, t)
                                                    for t in LM_PREFILLS]
-    kw_isl = dict(n=n, n_heads=cfg.n_heads, sqrt_dh=sqrt_head(dh))
+    kw_isl = dict(n=n, n_a=quant.n_levels(qcfg.bits_a), n_heads=cfg.n_heads,
+                  sqrt_dh=sqrt_head(dh))
     for b, tq in island_shapes:
         q = codes((b, tq, cfg.d_model))
         kc, vc = codes((b, LM_MAX_LEN, kv, dh)), codes((b, LM_MAX_LEN, kv, dh))
-        sc = consts[0][0]
+        sc, e_in = consts[0]
         qpos = torch.from_numpy(rng.integers(tq - 1, LM_MAX_LEN, (b, tq))
                                 .astype(np.int32)).to(dev)
         if tq > 1:
             qpos = (torch.arange(tq, dtype=torch.int32, device=dev)[None]
                     .expand(b, tq).contiguous())
         fn = (lambda q=q, kc=kc, vc=vc, sc=sc, qpos=qpos:
-              lm_island(q, kc, vc, sc, qpos, **kw_isl))
+              lm_island(q, kc, vc, sc, qpos, e_in, **kw_isl))
         plain = (lambda q=q, kc=kc, vc=vc, sc=sc, qpos=qpos:
-                 lm_island_plain(q, kc, vc, sc, qpos, **kw_isl))
+                 lm_island_plain(q, kc, vc, sc, qpos, e_in, **kw_isl))
         got = fn()
         # the library yardstick: SDPA on the dequantized floats, K / V
-        # repeated per query head, the same mask
+        # repeated per query head, the same mask (the context alone: no
+        # one PyTorch call also requantizes it)
         e = sc.cpu()
         qf = (e[0] * torch.div(q.float(), float(n))).reshape(
             b, tq, cfg.n_heads, dh).transpose(1, 2).contiguous()
@@ -2692,7 +2711,7 @@ def phase_serve_lm(torch, dev):
                 <= qpos[:, :, None])[:, None]
         lib = (lambda qf=qf, kf=kf, vf=vf, mask=mask:
                F.scaled_dot_product_attention(qf, kf, vf, attn_mask=mask))
-        bytes_, ops = lm_island_work(qpos, kv, g, dh)
+        bytes_, ops = lm_island_work(qpos, kv, g, dh, LM_MAX_LEN)
         if (b, tq) in ((LM_RECORD_SLOTS, 1), (1, max(LM_PREFILLS))):
             rows.record("lm_island", b if tq == 1 else tq, (b, tq, LM_MAX_LEN),
                         got, plain(), fn, plain, lib, bytes_, ops, "fp32",
@@ -2704,8 +2723,9 @@ def phase_serve_lm(torch, dev):
             if err:
                 raise AssertionError(f"lm_island {(b, tq)} != plain")
     print(f"serve_lm kernels: K1, K2 (clean, noisy c1 / c4) and the island "
-          f"bit-exact against their plain versions at M in {ms} and island "
-          f"shapes {island_shapes} (timed rows above)", flush=True)
+          f"(its int8 re-entry codes) bit-exact against their plain versions "
+          f"at M in {ms} and island shapes {island_shapes} (timed rows "
+          "above)", flush=True)
 
     # -- prefill(T) + decode == prefill(T + 1), on the card ---------------
     pre = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20)).astype(
@@ -2775,6 +2795,11 @@ def phase_serve_lm(torch, dev):
         if c != expect or any(noisy.values()):
             raise AssertionError(f"serve_lm slots {slots}: launches {c} "
                                  f"(noisy {noisy}) != {expect}")
+        if lm_island.vector_launches != c["lm_island"]:
+            raise AssertionError(f"serve_lm slots {slots}: "
+                                 f"{lm_island.vector_launches} of "
+                                 f"{c['lm_island']} island launches took "
+                                 "the 16-byte row loader (d_head 16)")
         mism = [i for i in range(len(prompts)) if out[i] != want[i]]
         for i in mism:
             toks = torch.tensor([prompts[i]], dtype=torch.int32, device=dev)
@@ -2796,7 +2821,8 @@ def phase_serve_lm(torch, dev):
               f"{wall:.3f} s; kernels (lm, slots {slots}): "
               + " ".join(f"{k}={v}" for k, v in c.items())
               + f" (K1 1, K2 {6 * cfg.n_layers}, island {cfg.n_layers} a "
-              "forward; noisy 0)", flush=True)
+              "forward, every island on the 16-byte row loader; noisy 0)",
+              flush=True)
         counts = c
     print(f"serve_lm: the CPU's int_generate of the {len(prompts)} requests "
           f"took {t_cpu:.2f} s", flush=True)
@@ -2866,7 +2892,8 @@ def phase_serve_lm(torch, dev):
           + f"; KV cache {kv_bytes} int8 bytes a slot", flush=True)
     print(f"serve_lm profile (decode step, slots {LM_RECORD_SLOTS}): wall "
           f"{wall:.4f} ms, device busy {busy:.4f} ms (share "
-          f"{busy / wall:.4f}), {ops:.1f} device ops launched; most device "
+          f"{busy / wall:.4f}), {ops:.1f} device ops launched a decode step; "
+          "most device "
           "time: " + ", ".join(f"{k.split('(')[0][-48:]} {v:.4f}"
                                for k, v in top), flush=True)
     for name in ("fq_matmul", "lm_island"):
@@ -4494,8 +4521,8 @@ def kernels_record_all(torch, results):
     record += kernels_record(results["kernels_darknet"],
                              results["serve_darknet"]["int8"],
                              rows_batch("darknet"), per_apply)
-    # K3's split-K and its epilogue pass: the unpooled convs the policy
-    # splits at the record batch, launches from the same counted run
+    # K3's split-K: the unpooled convs the policy splits at the record
+    # batch, launches from the same counted run
     record += kernels_record(results["kernels_split"],
                              results["serve_darknet"]["split"],
                              rows_batch("darknet"), per_apply)
@@ -4580,6 +4607,7 @@ def kernels_record_all(torch, results):
         if e["name"] == "quantize_codes":
             e["max_abs_err"] = max(e["max_abs_err"],
                                    results["kernels_k1"]["extra_err"])
+        if e["name"] in ("quantize_codes", "lm_island"):
             e["launch_floor_ms"] = min(
                 ms for _, ms in results["kernels_k1"]["floor"].values())
     print("packed K2 per int_apply (clean and noisy), launched by no serving "

@@ -55,14 +55,16 @@
 // the 64 x 64 tiles of DarkNet's late convs are fewer than the 132 SMs
 // (3 x 3, 512 -> 1024 at 7 x 7: 16 blocks of 72 serial stages at B = 1),
 // so where the tile policy (kernels/fq_conv.py::pick_blocks) picks bc < Cin
-// for an unpooled int8 conv, the reduction is cut into Cin / bc splits of
-// kh * kw * bc codes, each run by its own block (grid z) over its range of
-// the tap-major reduction, which writes raw int32 partials to a (split, M,
-// Cout) workspace; a second kernel sums them in int32 and runs the
-// epilogue (and the noise) at the same global output element. The int32
-// sum is exact in any order, so the codes equal the unsplit kernel's.
-// Packed weights (bc fixed to cin_p, the reference's rule) and K3b keep
-// one split.
+// for an unpooled int8 conv, the reduction is cut into split = Cin / bc
+// slices of kh * kw * bc codes, run by the c = min(split, 8) blocks of one
+// thread-block cluster along z (fq_conv_splitk_kernel): rank r sums slices
+// r, r + c, ... in its registers, parks its int32 accumulators in its own
+// shared memory, and after a cluster barrier finishes 1/c of the tile,
+// adding its peers' accumulators through distributed shared memory in rank
+// order, then the noise and the epilogue at the global output element.
+// One launch, no workspace in device memory. The int32 sum is exact in
+// any order, so the codes equal the unsplit kernel's. Packed weights (bc
+// fixed to cin_p, the reference's rule) and K3b keep one split.
 //
 // K5, packed weights (replaces fq_conv.py:330-333 and, for the channel
 // padding, :442-452): weights of factor 2 (int4) or 4 (ternary) hold
@@ -86,6 +88,8 @@
 // no field code.
 #include <climits>
 #include <cmath>
+
+#include <cooperative_groups.h>
 
 #include "igemm_tc.cuh"
 
@@ -358,63 +362,95 @@ fq_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// K3, split-K, int8 weights: split blockIdx.z sums the kspan reduction
-// codes [z kspan, (z + 1) kspan) of its tile, as many as one cin block of
-// bc channels over all kh * kw taps (kspan = kh kw bc), and writes the raw
-// int32 accumulators into its slice of the (split, M, Cout) workspace;
-// fq_splitk_reduce_kernel sums the slices and runs the epilogue.
-template <bool AVEC>
+// K3, split-K, int8 weights: the blocks of one output tile are one
+// cluster of c = gridDim.z <= 8 along z. Rank r sums the slices z = r, r +
+// c, ... < split of the reduction, each kspan codes [z kspan, (z + 1)
+// kspan) (one cin block of bc channels over all kh * kw taps, kspan = kh kw
+// bc), parks its accumulators in its shared memory (the stage buffers,
+// RED_LD-strided rows), and after a cluster barrier finishes the tile's
+// groups of 4 columns [r 1024 / c, (r + 1) 1024 / c): the sum of every
+// rank's accumulators in rank order (one 16-byte read a rank, all in
+// flight together), the noise.cuh field at the global index when NOISE,
+// the shared epilogue. A second barrier keeps each block's shared memory
+// alive until its peers have read it.
+constexpr int MAX_CLUSTER = 8;          // the portable cluster size
+constexpr int RED_LD = fq::tc::BN + 4;  // a parked row, 16-byte aligned
+static_assert(fq::tc::BM * RED_LD * 4 <= fq::tc::SMEM_BYTES, "parked tile");
+
+template <bool DEQUANT, bool NOISE, bool AVEC>
 __global__ void __launch_bounds__(fq::tc::THREADS)
 fq_conv_splitk_kernel(const int8_t* __restrict__ x,
-                      const int8_t* __restrict__ w, int* __restrict__ ws,
-                      ConvShape c, int kspan, bool bvec) {
+                      const int8_t* __restrict__ w,
+                      const float* __restrict__ scale, void* __restrict__ out,
+                      ConvShape c, int split, int kspan, int lo, int n_out,
+                      bool bvec, fq::NoiseArgs na) {
   extern __shared__ __align__(128) int8_t smem[];
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
-  const int M = c.B * c.Ho * c.Wo;
+  const int M = c.B * c.Ho * c.Wo, K = conv_k<1>(c);
   const int m0 = blockIdx.x * fq::tc::BM, n0 = blockIdx.y * fq::tc::BN;
-  const int k_begin = blockIdx.z * kspan;
-  const int k_end = min(conv_k<1>(c), k_begin + kspan);
+  const int ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   int acc[16];
-  conv_tile<1, AVEC>(smem, x, w, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo}, n0,
-                     bvec, tid, acc, k_begin, k_end);
-  int* const part = ws + (long long)blockIdx.z * M * c.Cout;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0;
+  for (int z = rank; z < split; z += ranks) {
+    // mainloop ends with this warpgroup's MMAs complete only: the next
+    // slice's prologue cp.asyncs into ring slots the other's may still read
+    if (z != rank) __syncthreads();
+    int part[16];
+    conv_tile<1, AVEC>(smem, x, w, c, PlainRows{m0, M, c.Ho * c.Wo, c.Wo},
+                       n0, bvec, tid, part, z * kspan,
+                       min(K, (z + 1) * kspan));
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] += part[e];
+  }
+  __syncthreads();  // every MMA of the block has read its stage buffers
+  int* const parked = reinterpret_cast<int*>(smem);
   const fq::tc::FragMap map(tid);
 #pragma unroll
-  for (int e = 0; e < 16; ++e) {
-    const int m = m0 + map.row(e), n = n0 + map.col(e);
-    if (m < M && n < c.Cout) part[(long long)m * c.Cout + n] = acc[e];
-  }
-}
-
-// The split-K epilogue pass: output element i = m * N + n of the (M, N)
-// conv output is the int32 sum of the split slices of the workspace at i
-// (exact: int32 addition is associative and no partial sum nears 2^31),
-// then, as in fq_conv_kernel, the noise.cuh field at global index i when
-// NOISE and the shared epilogue. So the output is the unsplit kernel's,
-// bit for bit. One thread an element, a grid-stride loop: bytes-bound
-// (4 split bytes in, 1 or 4 out).
-template <bool DEQUANT, bool NOISE>
-__global__ void __launch_bounds__(256)
-fq_splitk_reduce_kernel(const int* __restrict__ ws,
-                        const float* __restrict__ scale,
-                        void* __restrict__ out, int split, int M, int N,
-                        int lo, int n_out, fq::NoiseArgs na) {
+  for (int e = 0; e < 16; ++e)
+    parked[map.row(e) * RED_LD + map.col(e)] = acc[e];
+  cluster.sync();
   const float sc = *scale;
   fq::Noise nz{};
   if constexpr (NOISE) nz = fq::Noise::load(na);
-  const long long mn = (long long)M * N;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < mn; i += stride) {
-    int acc = ws[i];
-    for (int z = 1; z < split; ++z) acc += ws[z * mn + i];
-    if constexpr (NOISE) {
-      const int m = (int)(i / N), n = (int)(i - (long long)m * N);
-      fq::put<DEQUANT>(out, i, nz.add(acc, m, N, n), sc, lo, n_out);
-    } else {
-      fq::put<DEQUANT>(out, i, acc, sc, lo, n_out);
+  constexpr int QUADS = fq::tc::BM * fq::tc::BN / 4;
+  const int end = (rank + 1) * QUADS / ranks;
+  for (int i = rank * QUADS / ranks + tid; i < end; i += fq::tc::THREADS) {
+    const int r = i / (fq::tc::BN / 4), col = 4 * (i % (fq::tc::BN / 4));
+    const int m = m0 + r;
+    if (m >= M || n0 + col >= c.Cout) continue;
+    int4 part[MAX_CLUSTER];
+#pragma unroll
+    for (int p = 0; p < MAX_CLUSTER; ++p)
+      if (p < ranks)
+        part[p] = *reinterpret_cast<const int4*>(
+            cluster.map_shared_rank(parked, p) + r * RED_LD + col);
+    int sum[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int p = 0; p < MAX_CLUSTER; ++p) {
+      if (p < ranks) {
+        sum[0] += part[p].x;
+        sum[1] += part[p].y;
+        sum[2] += part[p].z;
+        sum[3] += part[p].w;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + col + e;
+      if (n >= c.Cout) break;
+      const long long o = (long long)m * c.Cout + n;
+      if constexpr (NOISE)
+        fq::put<DEQUANT>(out, o, nz.add(sum[e], m, c.Cout, n), sc, lo,
+                         n_out);
+      else
+        fq::put<DEQUANT>(out, o, sum[e], sc, lo, n_out);
     }
   }
+  cluster.sync();
 }
 
 // K3b, 2 x 2: the block's 64 rows are windows g0 .. g0 + 15 x 4 positions
@@ -559,61 +595,61 @@ extern "C" int fq_conv2d_s8(const void* x, const void* w, const void* scale,
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// K3, split-K (int8 weights): the (split, M = B Ho Wo, Cout) int32
-// partial sums into ws, split z over the reduction codes [z kspan,
-// (z + 1) kspan); fq_splitk_epilogue_s8 finishes them. avec as
-// fq_conv2d_s8's, and kspan % 16 == 0 with it.
-extern "C" int fq_conv2d_splitk_s8(const void* x, const void* w, void* ws,
-                                   int B, int H, int W, int Cin, int Cout,
-                                   int kh, int kw, int sh, int sw, int ph,
-                                   int pw, int dh, int dw, int Ho, int Wo,
-                                   int split, int kspan, int avec, int bvec,
+// K3, split-K (int8 weights): the conv as split slices of kspan reduction
+// codes, slice z over [z kspan, (z + 1) kspan), reduced in a cluster of
+// min(split, 8) blocks a tile (fq_conv_splitk_kernel); the output, sigma,
+// seed, dequant, lo, n_out, chunks, avec and bvec as fq_conv2d_s8's, and
+// kspan % 16 == 0 with avec.
+extern "C" int fq_conv2d_splitk_s8(const void* x, const void* w,
+                                   const void* scale, void* out,
+                                   const void* sigma, const void* seed, int B,
+                                   int H, int W, int Cin, int Cout, int kh,
+                                   int kw, int sh, int sw, int ph, int pw,
+                                   int dh, int dw, int Ho, int Wo, int split,
+                                   int kspan, int dequant, int lo, int n_out,
+                                   int chunks, int avec, int bvec,
                                    void* stream) {
   const ConvShape c{B, H, W, Cin, Cout, kh, kw, sh, sw, ph, pw, dh, dw, Ho, Wo};
   const int M = B * Ho * Wo;
   if (split < 1 || kspan < 1 || (long long)split * kspan < kh * kw * Cin ||
+      (sigma && chunks < 1) ||
       (avec && ((uintptr_t)x % 16 || Cin % 16 || kspan % 16)) ||
       (bvec && ((uintptr_t)w % 16 || Cout % 16)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (M > 0 && Cout > 0) {
-    const dim3 grid((M + fq::tc::BM - 1) / fq::tc::BM,
-                    (Cout + fq::tc::BN - 1) / fq::tc::BN, split);
+    const unsigned ranks = split < MAX_CLUSTER ? split : MAX_CLUSTER;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((M + fq::tc::BM - 1) / fq::tc::BM,
+                       (Cout + fq::tc::BN - 1) / fq::tc::BN, ranks);
+    cfg.blockDim = dim3(fq::tc::THREADS);
+    cfg.dynamicSmemBytes = fq::tc::SMEM_BYTES;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = ranks;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
     const int8_t *xs = (const int8_t*)x, *wt = (const int8_t*)w;
-    cudaStream_t st = (cudaStream_t)stream;
-    err = avec ? fq::tc::launch(fq_conv_splitk_kernel<true>, grid, st, xs, wt,
-                                (int*)ws, c, kspan, bvec != 0)
-               : fq::tc::launch(fq_conv_splitk_kernel<false>, grid, st, xs,
-                                wt, (int*)ws, c, kspan, bvec != 0);
-  }
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-}
-
-// The split-K epilogue pass over a (split, M, N) int32 workspace: the
-// (M, N) output, int8 codes or f32 (dequant); sigma and seed as
-// fq_conv2d_s8's. max_blocks caps the grid (the wrapper's multiple of the
-// SM count).
-extern "C" int fq_splitk_epilogue_s8(const void* ws, const void* scale,
-                                     void* out, const void* sigma,
-                                     const void* seed, int split, int M,
-                                     int N, int dequant, int lo, int n_out,
-                                     int chunks, int max_blocks,
-                                     void* stream) {
-  if (split < 1 || (sigma && chunks < 1)) return (int)cudaErrorInvalidValue;
-  const long long mn = (long long)M * N;
-  if (mn > 0) {
-    long long blocks = (mn + 255) / 256;
-    if (blocks > max_blocks) blocks = max_blocks;
+    const float* sc = (const float*)scale;
     const fq::NoiseArgs na{(const float*)sigma, (const uint32_t*)seed, chunks};
     fq::with_flags(dequant, sigma != nullptr, [&](auto dq, auto nz) {
       constexpr bool DQ = decltype(dq)::value, NZ = decltype(nz)::value;
-      fq_splitk_reduce_kernel<DQ, NZ>
-          <<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
-              (const int*)ws, (const float*)scale, out, split, M, N, lo,
-              n_out, na);
+      const auto go = [&](auto kernel) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            fq::tc::SMEM_BYTES);
+        if (err == cudaSuccess)
+          err = cudaLaunchKernelEx(&cfg, kernel, xs, wt, sc, out, c, split,
+                                   kspan, lo, n_out, bvec != 0, na);
+      };
+      if (avec) go(fq_conv_splitk_kernel<DQ, NZ, true>);
+      else go(fq_conv_splitk_kernel<DQ, NZ, false>);
     });
   }
-  return (int)cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // K3b: (Ho, Wo) is the conv output; the output is (B, Ho / qh, Wo / qw,

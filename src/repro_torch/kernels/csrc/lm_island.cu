@@ -1,41 +1,66 @@
 // The integer LM's attention island: masked GQA softmax attention over the
-// int8 code-domain KV cache.
+// int8 code-domain KV cache, and the context's re-entry into int8 codes.
 //
 // Replaces no TPU kernel: repro/models/fq_lm.py::_attention (fq_lm.py:
-// 202-218) is plain jnp einsum / softmax in the reference. It is a kernel
-// here because its outputs must not depend on the shape of the call (the
-// reference's tests hold prefill(T) + decode == prefill(T + 1) and batched
-// == unbatched decode bit for bit), and cuBLAS and PyTorch's reductions
-// pick their summation order from the whole shape. This kernel fixes the
-// order, and kernels/lm_island.py::lm_island_plain repeats it in
+// 202-218) is plain jnp einsum / softmax in the reference, and its
+// re-entry is wo's input quantizer. It is a kernel here because its outputs
+// must not depend on the shape of the call (the reference's tests hold
+// prefill(T) + decode == prefill(T + 1) and batched == unbatched decode bit
+// for bit), and cuBLAS and PyTorch's reductions pick their summation order
+// from the whole shape. This kernel fixes the order over the cache's slots
+// (kernels/lm_island.py, module doc), and lm_island_plain repeats it in
 // elementwise PyTorch ops; the two are bit-identical. Every float32 step is
 // one IEEE operation rounded to nearest (__f*_rn, and the library builds
 // with --fmad=false: no contraction), the exp is core/quant.py::exp (XLA's
 // float32 exp: Cephes with each multiply-add fused, taken in float64).
 //
-// One block per (query position t, KV head h, batch row b), all G query
-// heads of that KV head:
-//   1. dequantize, value = e^s * (code / n): q's G x dh and v's L x dh into
-//      shared memory; k row by row in registers;
-//   2. a thread per key j: score = sum_d q[d] * k[j, d], d = 0, 1, ... in
-//      turn, / sqrt(dh); -1e30 where j > qpos[b, t];
-//   3. thread g: the max over keys; then every thread e_j = exp(s_j - m);
-//      thread g: the sum over j = 0, 1, ... in turn; every thread p_j =
-//      e_j / sum;
-//   4. a thread per output (g, d): ctx = sum_j p_j * v[j, d], j in turn.
+// One warp per query head (b, t, h, g), the G query heads of KV head h in
+// one block of G warps. Lane l owns slots j = 32 c + l, chunk c = 0, 1, ...
+// up to the query's last needed key min(qpos, L - 1): it reads only the
+// keys the query needs, and never a dequantized tile in shared memory.
+//   1. the loads that depend on nothing (the scales, the query's position,
+//      q's codes, e_in), then the lane's K and V rows of the first CACHED
+//      chunks (4 at d_head 16: the LM's 128-key cache) into registers, all
+//      in flight while the block fills a table of e^s * (code / n) for
+//      every int8 code and each of the q, k and v scales (3 x 256 floats),
+//      so no division is left in the loops;
+//   2. each lane scores its slots (the sum over d in turn of q[d] k[j, d],
+//      / sqrt(dh)). The CACHED chunks run unrolled and without branches, so
+//      their chains overlap: a slot past the last needed one loads nothing
+//      and is masked (it takes no part in the max, adds an exact +0.0 to
+//      the sums: a partial starts at +0.0, so it is never -0.0). A later
+//      chunk loads its rows and recomputes its score where needed, so the
+//      cache's length has no ceiling;
+//   3. m: a per-lane max, then a __shfl_xor_sync butterfly (exact);
+//   4. e_j = exp(s_j - m): a per-lane partial from +0.0f over the chunks in
+//      turn, then the xor butterfly over offsets 16, 8, 4, 2, 1 (every lane
+//      ends with the same total: float addition commutes);
+//   5. p_j = e_j / total; the context per d the same two steps over
+//      p_j * v[j, d] (a butterfly a d);
+//   6. code = rint(min(max(ctx / e_in, -1), 1) * n_a), int8, lane d % 32
+//      storing d's.
+// The CACHED chunks hold the LM's whole 128-key cache in registers after
+// one load; one loop over all chunks, loading and scoring each slot in each
+// of the three passes, takes up to 1.7 times as long at the LM's shapes
+// (PERF.md).
+// A K or V row is one 16-byte copy per 16 codes (the vector loader: d_head
+// % 16 == 0 and 16-byte aligned operands) or byte loads.
 //
-// Bound: at the LM's decode shapes (B = 1-8 slots, L = 128 keys, 2 KV
-// heads x 2 query heads x dh 16) a call moves ~2 x 4 KB of cache a row and
-// does ~16 K float32 operations: far below a microsecond of bytes or
-// operations, so its time is the launch and the serial chains of steps 3
-// and 4 (L dependent adds each), which the fixed order asks for. The
-// design keeps the whole row group in one block, with no second pass and
-// no atomics.
+// Bound: at the LM's decode shapes (B = 1-8 slots, L = 128, 2 KV heads x 2
+// query heads x dh 16) a call needs a few KB of cache and ~10^4 float32
+// operations: far below a microsecond of either, so its time is the launch
+// and each warp's chain of dependent instructions (PERF.md). The design
+// shortens that chain: one warp a query head over 32 slots at once, the
+// cached chunks' chains side by side, five shuffle steps per reduction,
+// and the re-entry quantizer in the same launch.
+#include <cmath>
+
 #include "epilogue.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int LANES = 32;
 
 // XLA's float32 exp constants (core/quant.py)
 constexpr float EXP_LO = -88.3762626647949f, EXP_HI = 88.73f;
@@ -67,94 +92,245 @@ __device__ __forceinline__ float xla_exp(float s) {
   return out < FLT_MIN_F ? 0.0f : out;
 }
 
-__device__ __forceinline__ float deq(int8_t code, float e, float n) {
-  return __fmul_rn(e, __fdiv_rn((float)code, n));
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
 }
 
-__global__ void __launch_bounds__(THREADS)
-lm_island_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
-                 const int8_t* __restrict__ v,
-                 const float* __restrict__ scales,
-                 const int* __restrict__ qpos, float* __restrict__ out,
-                 int Tq, int L, int KV, int G, int DH, float n,
-                 float sqrt_dh) {
-  extern __shared__ float smem[];
-  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  float* qs = smem;             // G x DH
-  float* vs = qs + G * DH;      // L x DH
-  float* sc = vs + L * DH;      // G x L: scores, then e, then p
-  float* red = sc + G * L;      // G maxima, G sums
-  const float eq = scales[0], ek = scales[1], ev = scales[2];
-  const int H = KV * G;
-  const long long qrow = ((long long)b * Tq + t) * H * DH;
-  for (int i = threadIdx.x; i < G * DH; i += THREADS)
-    qs[i] = deq(q[qrow + (long long)h * G * DH + i], eq, n);
-  for (int i = threadIdx.x; i < L * DH; i += THREADS) {
-    const int j = i / DH, d = i % DH;
-    vs[i] = deq(v[(((long long)b * L + j) * KV + h) * DH + d], ev, n);
-  }
-  const int limit = qpos[b * Tq + t];
-  __syncthreads();
+// The fixed tree: lane l adds lane l ^ off, off = 16, 8, 4, 2, 1.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
 
-  for (int j = threadIdx.x; j < L; j += THREADS) {
-    const int8_t* kr = k + (((long long)b * L + j) * KV + h) * DH;
-    for (int g = 0; g < G; ++g) {
-      const float* qg = qs + g * DH;
-      float acc = __fmul_rn(qg[0], deq(kr[0], ek, n));
-      for (int d = 1; d < DH; ++d)
-        acc = __fadd_rn(acc, __fmul_rn(qg[d], deq(kr[d], ek, n)));
-      const float s = __fdiv_rn(acc, sqrt_dh);
-      sc[g * L + j] = j <= limit ? s : -1e30f;
+// One q, K or V row's int8 codes in registers, 4 a word, each byte stored
+// as code + 128 (the table's index; a xor with 0x80 a byte): one 16-byte
+// load per 16 codes (VEC) or byte loads; 0 (code -128) until loaded. DHMAX
+// bounds dh at compile time, so the arrays indexed by d stay registers.
+template <int DHMAX, bool VEC>
+struct RowCodes {
+  static constexpr uint32_t BIAS = 0x80808080u;
+  uint32_t w[DHMAX / 4];
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < DHMAX / 4; ++i) w[i] = 0;
+  }
+
+  __device__ __forceinline__ void load(const int8_t* __restrict__ row,
+                                       int dh) {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int c = 0; c < DHMAX / 16; ++c) {
+        if (16 * c >= dh) break;
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(row) + c);
+        w[4 * c] = x.x ^ BIAS;
+        w[4 * c + 1] = x.y ^ BIAS;
+        w[4 * c + 2] = x.z ^ BIAS;
+        w[4 * c + 3] = x.w ^ BIAS;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < DHMAX / 4; ++i) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (4 * i + k < dh)
+            word |= (uint32_t)(uint8_t)__ldg(row + 4 * i + k) << (8 * k);
+        w[i] = word ^ BIAS;
+      }
     }
   }
+
+  // f(d, value) for d = 0 .. dh - 1 in turn, value the table's entry for
+  // code d (tab[code + 128])
+  template <class F>
+  __device__ __forceinline__ void values(int dh, const float* tab,
+                                         F&& f) const {
+#pragma unroll
+    for (int d = 0; d < DHMAX; ++d) {
+      if (d >= dh) break;
+      f(d, tab[(w[d / 4] >> (8 * (d % 4))) & 0xffu]);
+    }
+  }
+};
+
+template <int DHMAX, bool VEC>
+__global__ void lm_island_kernel(const int8_t* __restrict__ q,
+                                 const int8_t* __restrict__ k,
+                                 const int8_t* __restrict__ v,
+                                 const float* __restrict__ scales,
+                                 const int* __restrict__ qpos,
+                                 const float* __restrict__ e_in,
+                                 int8_t* __restrict__ out, int Tq, int L,
+                                 int KV, int G, int DH, float n, float n_a,
+                                 float sqrt_dh) {
+  // the chunks whose rows are loaded ahead and whose scores stay in
+  // registers
+  constexpr int CACHED = DHMAX >= 64 ? 1 : 64 / DHMAX;
+  using Row = RowCodes<DHMAX, VEC>;
+  __shared__ float tab[3][256];  // e^s * (code / n) at code + 128
+  const int t = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const long long orow =
+      ((long long)b * Tq + t) * KV * G * DH + (long long)(h * G + g) * DH;
+  auto row = [&](const int8_t* base, int j) {
+    return base + (((long long)b * L + j) * KV + h) * DH;
+  };
+
+  // 1. the loads that depend on nothing, then the rows of the cached
+  // chunks, in flight while the block fills the table
+  const float sq = scales[0], sk = scales[1], sv = scales[2];
+  const float ein = *e_in;
+  Row qr;
+  qr.load(q + orow, DH);
+  const int last = min(qpos[b * Tq + t], L - 1);  // the last needed slot
+  const int nc = last < 0 ? 0 : last / LANES + 1;
+  Row kr[CACHED], vr[CACHED];
+  bool live[CACHED];
+#pragma unroll
+  for (int c = 0; c < CACHED; ++c) {
+    const int j = LANES * c + lane;
+    live[c] = j <= last;
+    kr[c].clear();
+    vr[c].clear();
+    if (live[c]) {
+      kr[c].load(row(k, j), DH);
+      vr[c].load(row(v, j), DH);
+    }
+  }
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    const float x = __fdiv_rn((float)(i - 128), n);
+    tab[0][i] = __fmul_rn(sq, x);
+    tab[1][i] = __fmul_rn(sk, x);
+    tab[2][i] = __fmul_rn(sv, x);
+  }
   __syncthreads();
 
-  if (threadIdx.x < G) {
-    const float* row = sc + threadIdx.x * L;
-    float m = row[0];
-    for (int j = 1; j < L; ++j) m = fmaxf(m, row[j]);
-    red[threadIdx.x] = m;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < G * L; i += THREADS)
-    sc[i] = xla_exp(__fsub_rn(sc[i], red[i / L]));
-  __syncthreads();
-  if (threadIdx.x < G) {
-    const float* row = sc + threadIdx.x * L;
-    float total = row[0];
-    for (int j = 1; j < L; ++j) total = __fadd_rn(total, row[j]);
-    red[G + threadIdx.x] = total;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < G * L; i += THREADS)
-    sc[i] = __fdiv_rn(sc[i], red[G + i / L]);
-  __syncthreads();
+  float qf[DHMAX];
+  qr.values(DH, tab[0], [&](int d, float x) { qf[d] = x; });
+  auto dot = [&](const Row& kj) {
+    float acc = 0.0f;
+    kj.values(DH, tab[1], [&](int d, float x) {
+      const float p = __fmul_rn(qf[d], x);
+      acc = d == 0 ? p : __fadd_rn(acc, p);
+    });
+    return __fdiv_rn(acc, sqrt_dh);
+  };
+  auto score = [&](int j) {  // a slot past the cached chunks
+    Row kj;
+    kj.load(row(k, j), DH);
+    return dot(kj);
+  };
 
-  for (int o = threadIdx.x; o < G * DH; o += THREADS) {
-    const int g = o / DH, d = o % DH;
-    const float* p = sc + g * L;
-    float acc = __fmul_rn(p[0], vs[d]);
-    for (int j = 1; j < L; ++j)
-      acc = __fadd_rn(acc, __fmul_rn(p[j], vs[j * DH + d]));
-    out[qrow + (long long)h * G * DH + o] = acc;
+  // 2-3: scores and their max
+  float s[CACHED];
+  float m = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < CACHED; ++c) {
+    s[c] = dot(kr[c]);
+    m = fmaxf(m, live[c] ? s[c] : -INFINITY);
   }
+  for (int c = CACHED; c < nc; ++c) {
+    const int j = LANES * c + lane;
+    if (j <= last) m = fmaxf(m, score(j));
+  }
+  m = warp_max(m);
+
+  // 4: e_j and the sum
+  float part = 0.0f;
+#pragma unroll
+  for (int c = 0; c < CACHED; ++c) {
+    const float e = xla_exp(__fsub_rn(s[c], m));
+    s[c] = live[c] ? e : 0.0f;
+    part = __fadd_rn(part, s[c]);
+  }
+  for (int c = CACHED; c < nc; ++c) {
+    const int j = LANES * c + lane;
+    if (j <= last) part = __fadd_rn(part, xla_exp(__fsub_rn(score(j), m)));
+  }
+  const float total = warp_sum(part);
+
+  // 5: the context
+  float ctx[DHMAX];
+#pragma unroll
+  for (int d = 0; d < DHMAX; ++d) ctx[d] = 0.0f;
+  auto add_row = [&](const Row& vj, float p) {
+    vj.values(DH, tab[2], [&](int d, float x) {
+      ctx[d] = __fadd_rn(ctx[d], __fmul_rn(p, x));
+    });
+  };
+#pragma unroll
+  for (int c = 0; c < CACHED; ++c)
+    add_row(vr[c], live[c] ? __fdiv_rn(s[c], total) : 0.0f);
+  for (int c = CACHED; c < nc; ++c) {
+    const int j = LANES * c + lane;
+    if (j <= last) {
+      Row vj;
+      vj.load(row(v, j), DH);
+      add_row(vj, __fdiv_rn(xla_exp(__fsub_rn(score(j), m)), total));
+    }
+  }
+
+  // 6: the tree over lanes a d, then the re-entry codes, lane d % 32
+  // storing d's
+#pragma unroll
+  for (int d = 0; d < DHMAX; ++d) {
+    if (d >= DH) break;
+    const float x = warp_sum(ctx[d]);
+    if (lane == d % LANES) {
+      const float y = fminf(fmaxf(__fdiv_rn(x, ein), -1.0f), 1.0f);
+      out[orow + d] = (int8_t)__float2int_rn(rintf(__fmul_rn(y, n_a)));
+    }
+  }
+}
+
+template <int DHMAX>
+void launch(bool vec, dim3 grid, int threads, cudaStream_t st,
+            const int8_t* q, const int8_t* k, const int8_t* v,
+            const float* scales, const int* qpos, const float* e_in,
+            int8_t* out, int Tq, int L, int KV, int G, int DH, float n,
+            float n_a, float sqrt_dh) {
+  if (vec)
+    lm_island_kernel<DHMAX, true><<<grid, threads, 0, st>>>(
+        q, k, v, scales, qpos, e_in, out, Tq, L, KV, G, DH, n, n_a, sqrt_dh);
+  else
+    lm_island_kernel<DHMAX, false><<<grid, threads, 0, st>>>(
+        q, k, v, scales, qpos, e_in, out, Tq, L, KV, G, DH, n, n_a, sqrt_dh);
 }
 
 }  // namespace
 
 // q (B, Tq, KV * G * DH), k / v (B, L, KV, DH) int8; scales (3,) e^s of q,
-// k, v; qpos (B, Tq) int32; out (B, Tq, KV * G * DH) float32.
+// k, v; qpos (B, Tq) int32; e_in (1,) e^s of the re-entry quantizer; out
+// (B, Tq, KV * G * DH) int8 codes at n_a levels. vec: the 16-byte loader
+// (DH % 16 == 0, q, k and v 16-byte aligned). G <= 32, DH <= 128.
 extern "C" int fq_lm_island(const void* q, const void* k, const void* v,
-                            const void* scales, const void* qpos, void* out,
-                            int B, int Tq, int L, int KV, int G, int DH,
-                            int n, float sqrt_dh, void* stream) {
-  if (B > 0 && Tq > 0) {
-    const size_t smem = sizeof(float) * (G * DH + L * DH + G * L + 2 * G);
-    lm_island_kernel<<<dim3(Tq, KV, B), THREADS, smem,
-                       (cudaStream_t)stream>>>(
-        (const int8_t*)q, (const int8_t*)k, (const int8_t*)v,
-        (const float*)scales, (const int*)qpos, (float*)out, Tq, L, KV, G,
-        DH, (float)n, sqrt_dh);
+                            const void* scales, const void* qpos,
+                            const void* e_in, void* out, int B, int Tq,
+                            int L, int KV, int G, int DH, int n, int n_a,
+                            int vec, float sqrt_dh, void* stream) {
+  if (G < 1 || G > LANES || DH < 1 || DH > 128 ||
+      (vec && (DH % 16 || (uintptr_t)q % 16 || (uintptr_t)k % 16 ||
+               (uintptr_t)v % 16)))
+    return (int)cudaErrorInvalidValue;
+  if (B > 0 && Tq > 0 && KV > 0) {
+    const dim3 grid(Tq, KV, B);
+    const auto args = [&](auto launcher) {
+      launcher(vec != 0, grid, LANES * G, (cudaStream_t)stream,
+               (const int8_t*)q, (const int8_t*)k, (const int8_t*)v,
+               (const float*)scales, (const int*)qpos, (const float*)e_in,
+               (int8_t*)out, Tq, L, KV, G, DH, (float)n, (float)n_a,
+               sqrt_dh);
+    };
+    if (DH <= 16) args(launch<16>);
+    else if (DH <= 32) args(launch<32>);
+    else if (DH <= 64) args(launch<64>);
+    else args(launch<128>);
   }
   return (int)cudaGetLastError();
 }

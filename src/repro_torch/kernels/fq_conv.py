@@ -39,11 +39,12 @@ reference counts them, attributed to the active :func:`replica_scope`. It
 runs on every CUDA launch of :func:`fq_conv2d` (under a CUDA graph: once,
 at capture). The kernel reads only its ``bc``, the block of input
 channels: a ``bc`` below Cin on an unpooled int8 conv runs the reduction
-as Cin / bc splits (split-K, counted in ``fq_conv2d.split_launches``)
-whose int32 partials :func:`splitk_epilogue` sums before the epilogue, so
-the codes do not change. ``bho`` and ``bco`` are validated and returned
-as the reference returns them; the 64 x 64 wgmma tile does not read them
-(as K1's kernel does not read the reference's ``block_rows``). On the CPU
+as Cin / bc splits (split-K, counted in ``fq_conv2d.split_launches``),
+reduced in int32 inside a thread-block cluster before the epilogue, in the
+same launch, so the codes do not change. ``bho`` and ``bco`` are validated
+and returned as the reference returns them; the 64 x 64 wgmma tile does
+not read them (as K1's kernel does not read the reference's
+``block_rows``). On the CPU
 the plain version runs unsplit and explicit knobs are only validated.
 """
 from __future__ import annotations
@@ -62,15 +63,12 @@ from . import _build
 from .fq_matmul import (VECTOR_BYTES, b_vector, check_noise, check_operands,
                         noise_pointers, packed_counts)
 from .ref import ref_fq_conv2d as fq_conv2d_plain
-from .ref import ref_splitk_epilogue as splitk_epilogue_plain
 
 _CONV_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
 _SIG = {"fq_conv2d_s8": _CONV_ARGS + [ctypes.c_int] * 7 + [ctypes.c_void_p],
         "fq_conv2d_pool_s8": _CONV_ARGS + [ctypes.c_int] * 9
         + [ctypes.c_void_p],
-        "fq_conv2d_splitk_s8": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 19
-        + [ctypes.c_void_p],
-        "fq_splitk_epilogue_s8": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        "fq_conv2d_splitk_s8": _CONV_ARGS + [ctypes.c_int] * 8
         + [ctypes.c_void_p]}
 
 # ---------------------------------------------------------------------------
@@ -432,14 +430,6 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
                            weight_format=weight_format, batch=b,
                            sms=_build.sm_count(a_codes.device))
     split = cin // bc if pool is None and factor == 1 else 1
-    if split > 1:
-        shape = (b, h, w, cin, cout, kh, kw, *stride, *padding, *dilation,
-                 ho, wo)
-        y = _conv_splitk(a_codes, w_codes, scale, bc, shape,
-                         epilogue=epilogue, n_out=n_out, lo=lo,
-                         noise_sigma_acc=noise_sigma_acc,
-                         noise_seed=noise_seed, mac_chunks=mac_chunks)
-        return y.view(b, ho, wo, cout)
     dequant = epilogue == "dequant"
     oh, ow = (ho, wo) if pool is None else (ho // pool[0], wo // pool[1])
     out = torch.empty((b, oh, ow, cout), device=a_codes.device,
@@ -447,21 +437,28 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
     lib = _build.library("fq_conv", _SIG)
     shape = (b, h, w, cin, cout, kh, kw, *stride, *padding, *dilation, ho, wo)
     tail = (factor, int(dequant), int(lo), int(n_out), mac_chunks)
-    vector = a_loader(cin, a_codes.data_ptr()) == "vector"
+    kspan = kh * kw * bc if split > 1 else 0
+    vector = a_loader(cin, a_codes.data_ptr(), kspan) == "vector"
     bvec = b_vector(cout, w_codes.data_ptr())
     with torch.cuda.device(a_codes.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         ptrs = (_build.ptr(a_codes), _build.ptr(w_codes), _build.ptr(scale),
                 _build.ptr(out), sigma, seed)
-        if pool is None:
+        if split > 1:
+            err = lib.fq_conv2d_splitk_s8(*ptrs, *shape, split, kspan,
+                                          *tail[1:], int(vector), int(bvec),
+                                          stream)
+        elif pool is None:
             err = lib.fq_conv2d_s8(*ptrs, *shape, *tail, int(vector),
                                    int(bvec), stream)
         else:
             err = lib.fq_conv2d_pool_s8(*ptrs, *shape, *pool, *tail,
                                         int(vector), int(bvec), stream)
-    _build.check(err, what, lib)
+    _build.check(err, what + (" (split-K)" if split > 1 else ""), lib)
     _count(fq_conv2d if pool is None else fq_conv2d_pool, weight_format,
            noisy, vector)
+    if split > 1:
+        fq_conv2d.split_launches += 1
     return out
 
 
@@ -477,102 +474,11 @@ def _count(counted, weight_format: str, noisy: bool, vector: bool) -> None:
         counted.vector_launches += 1
 
 
-def _conv_splitk(a_codes, w_codes, scale, bc: int, shape: tuple, *,
-                 epilogue: str, n_out: int, lo: int, noise_sigma_acc,
-                 noise_seed, mac_chunks: int) -> torch.Tensor:
-    """K3 as split-K (int8, unpooled, checked by :func:`fq_conv2d`): the
-    Cin / bc splits' int32 partials into a (split, M, Cout) workspace, then
-    :func:`splitk_epilogue`; (M, Cout)."""
-    b, _, _, cin, cout, kh, kw = shape[:7]
-    ho, wo = shape[-2:]
-    split, kspan = cin // bc, kh * kw * bc
-    m = b * ho * wo
-    ws = torch.empty((split, m, cout), dtype=torch.int32,
-                     device=a_codes.device)
-    vector = a_loader(cin, a_codes.data_ptr(), kspan) == "vector"
-    lib = _build.library("fq_conv", _SIG)
-    with torch.cuda.device(a_codes.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        err = lib.fq_conv2d_splitk_s8(
-            _build.ptr(a_codes), _build.ptr(w_codes), _build.ptr(ws), *shape,
-            split, kspan, int(vector),
-            int(b_vector(cout, w_codes.data_ptr())), stream)
-    _build.check(err, "fq_conv2d (split-K)", lib)
-    _count(fq_conv2d, "int8", noise_sigma_acc is not None, vector)
-    fq_conv2d.split_launches += 1
-    return splitk_epilogue(ws, scale, epilogue=epilogue, n_out=n_out, lo=lo,
-                           noise_sigma_acc=noise_sigma_acc,
-                           noise_seed=noise_seed, mac_chunks=mac_chunks)
-
-
 fq_conv2d.launches = 0
 fq_conv2d.packed_launches = packed_counts()
 fq_conv2d.noisy_launches = 0
 fq_conv2d.vector_launches = 0
 fq_conv2d.split_launches = 0
-
-EPILOGUE_BLOCKS_PER_SM = 8   # the split-K epilogue pass's grid cap per SM
-
-
-def splitk_epilogue(partials: torch.Tensor, scale: torch.Tensor, *,
-                    epilogue: str = "requant", n_out: int = 7, lo: int = 0,
-                    noise_sigma_acc=None, noise_seed=None,
-                    mac_chunks: int = 1) -> torch.Tensor:
-    """The split-K epilogue pass: (split, M, N) int32 partial sums -> their
-    int32 sum, the ADC noise at the global index ``row * N + col`` when
-    ``noise_sigma_acc`` is given (as :func:`fq_conv2d` draws it), then the
-    requant (int8) or dequant (f32) epilogue; (M, N). For a CUDA tensor it
-    launches ``fq_splitk_reduce_kernel`` (``csrc/fq_conv.cu``), for a CPU
-    tensor it runs the plain version, :func:`splitk_epilogue_plain`.
-    """
-    noisy = check_noise("splitk_epilogue", noise_sigma_acc, noise_seed,
-                        mac_chunks)
-    if partials.dim() != 3:
-        raise ValueError(f"splitk_epilogue: partials must be (split, M, N), "
-                         f"got {tuple(partials.shape)}")
-    if partials.device.type == "cpu":
-        return splitk_epilogue_plain(
-            partials, scale, epilogue=epilogue, n_out=n_out, lo=lo,
-            noise_sigma_acc=noise_sigma_acc, noise_seed=noise_seed,
-            mac_chunks=mac_chunks)
-    dev = partials.device
-    if dev.type != "cuda" or partials.dtype != torch.int32 \
-            or not partials.is_contiguous():
-        raise ValueError("splitk_epilogue: partials must be contiguous "
-                         f"int32 on a CUDA device, got {partials.dtype} on "
-                         f"{dev}")
-    if scale.device != dev or scale.dtype != torch.float32 \
-            or scale.numel() != 1:
-        raise ValueError(f"splitk_epilogue: scale must be one float32 "
-                         f"element on {dev}")
-    if epilogue not in ("requant", "dequant"):
-        raise ValueError(f"splitk_epilogue: epilogue must be 'requant' or "
-                         f"'dequant', got {epilogue!r}")
-    split, m, n = partials.shape
-    if m * n >= 2 ** 31:
-        raise ValueError("splitk_epilogue: the kernel indexes rows with "
-                         "32-bit ints (M * N < 2^31)")
-    sigma, seed = (noise_pointers("splitk_epilogue", dev, noise_sigma_acc,
-                                  noise_seed) if noisy else (None, None))
-    dequant = epilogue == "dequant"
-    out = torch.empty((m, n), device=dev,
-                      dtype=torch.float32 if dequant else torch.int8)
-    lib = _build.library("fq_conv", _SIG)
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        err = lib.fq_splitk_epilogue_s8(
-            _build.ptr(partials), _build.ptr(scale), _build.ptr(out), sigma,
-            seed, split, m, n, int(dequant), int(lo), int(n_out), mac_chunks,
-            EPILOGUE_BLOCKS_PER_SM * _build.sm_count(dev), stream)
-    _build.check(err, "splitk_epilogue", lib)
-    splitk_epilogue.launches += 1
-    if noisy:
-        splitk_epilogue.noisy_launches += 1
-    return out
-
-
-splitk_epilogue.launches = 0
-splitk_epilogue.noisy_launches = 0
 
 
 def fq_conv2d_pool(a_codes: torch.Tensor, w_codes: torch.Tensor,

@@ -173,8 +173,9 @@ def ref_splitk_epilogue(partials: torch.Tensor, scale: torch.Tensor, *,
                         epilogue: str = "requant", n_out: int = 7,
                         lo: int = 0, noise_sigma_acc=None, noise_seed=None,
                         mac_chunks: int = 1) -> torch.Tensor:
-    """The split-K epilogue pass: (split, M, N) int32 partials -> their
-    int32 sum, the ADC noise at the global index ``row * N + col`` when
+    """The split-K reduction and epilogue (what each cluster of
+    ``csrc/fq_conv.cu``'s split kernel does after its barrier): (split, M,
+    N) int32 partials -> their int32 sum, the ADC noise at the global index ``row * N + col`` when
     ``noise_sigma_acc`` is given, then the fused epilogue; (M, N)."""
     acc = partials.sum(dim=0, dtype=torch.int32)
     acc = add_mac_noise(acc, noise_sigma_acc, noise_seed, mac_chunks)

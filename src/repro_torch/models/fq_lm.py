@@ -16,11 +16,11 @@ DAG instead of a chain.
     append-then-quantize, since quantization is elementwise;
   * attention is a float island between two integer segments: the
     ``kernels.lm_island`` kernel dequantizes Q and the cache, attends over
-    the whole ``max_len`` cache with position masks in one fixed order, and
-    the context re-enters the integer domain through ``wo``'s input
-    quantizer (``island_s_in``, plain ``quant.quantize_to_int``). Prefill
-    and decode attend over the same padded cache, so a prefill of T tokens
-    and a decode step equal a prefill of T + 1 bit for bit.
+    the keys at or before each query's position in one fixed order over
+    the cache's slots, and requantizes the context through ``wo``'s input
+    quantizer (``island_s_in``) into int8 codes. The order does not depend
+    on the shape of the call, so a prefill of T tokens and a decode step
+    equal a prefill of T + 1 bit for bit.
 
 ``apply`` is the float FQ forward (training, noise); ``int_prefill`` /
 ``int_decode_step`` the integer deployment forward over a
@@ -301,17 +301,13 @@ def island_consts(stack):
 
 def _island(stack, i, consts, qc, kcache, vcache, qpos, cfg: FQLMConfig,
             qcfg: QuantConfig):
-    """The attention island of layer i and its re-entry codes: ctx by the
-    island kernel, then round(clip(ctx / e^s, -1, 1) * n) (the plain
-    ``quant.quantize_to_int``, with e^s from ``consts``, the stack's
-    :func:`island_consts`)."""
+    """The attention island of layer i and its re-entry codes
+    round(clip(ctx / e^s, -1, 1) * n), both in the island kernel, with
+    e^s from ``consts``, the stack's :func:`island_consts`."""
     scales, e_in = consts[i]
-    ctx = lm_island(qc, kcache, vcache, scales, qpos,
-                    n=stack[f"wq{i}"]["n_out"], n_heads=cfg.n_heads,
-                    sqrt_dh=sqrt_head(cfg.d_head))
-    n = n_levels(qcfg.bits_a)
-    return torch.round(torch.clamp(torch.div(ctx, e_in), WEIGHT_BOUND, 1.0)
-                       * n).to(torch.int8)
+    return lm_island(qc, kcache, vcache, scales, qpos, e_in,
+                     n=stack[f"wq{i}"]["n_out"], n_a=n_levels(qcfg.bits_a),
+                     n_heads=cfg.n_heads, sqrt_dh=sqrt_head(cfg.d_head))
 
 
 def _block_tail(stack, i, h, ctx_codes, linear, *, noise=None, rngs=None,

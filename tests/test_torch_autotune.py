@@ -13,8 +13,9 @@ rounding, miss counts and warnings, and replica attribution through both
 reference's is a VMEM budget); its own properties are held here.
 
 The split-K plain versions (``kernels.ref.ref_splitk_partials`` and
-``ref_splitk_epilogue``, the reduce-plus-epilogue pass) are held against
-the unsplit plain conv, bit for bit.
+``ref_splitk_epilogue``, the reduce-plus-epilogue that each cluster of the
+split kernel runs) are held against the unsplit plain conv, bit for bit,
+and so is ``fq_conv2d`` given a split ``bc`` on the CPU.
 """
 import json
 import warnings
@@ -388,7 +389,7 @@ def test_smem_footprint_fits_the_budget():
     assert tfc.smem_footprint() == 61_440 <= tfc.SMEM_BUDGET
 
 
-# -- split-K on the CPU: the plain reduce-plus-epilogue ---------------------
+# -- split-K on the CPU: the plain reduce-plus-epilogue, the wrapper --------
 
 
 def _noise(chunks):
@@ -420,11 +421,10 @@ def test_splitk_plain_equals_unsplit_plain(bc, epilogue, lo, chunks):
                                    lo=lo, **_noise(chunks))
     assert torch.equal(got.reshape(want.shape), want)
     tkernels.reset_launch_counts()
-    wrapped = tfc.splitk_epilogue(parts, s, epilogue=epilogue, n_out=7,
-                                  lo=lo, **_noise(chunks))
-    assert torch.equal(wrapped, got)
-    assert tkernels.split_launch_counts() == {"fq_conv2d_splitk": 0,
-                                              "splitk_epilogue": 0}
+    wrapped = tfc.fq_conv2d(a, w, s, bc=bc, epilogue=epilogue, n_out=7,
+                            lo=lo, **kw, **_noise(chunks))
+    assert torch.equal(wrapped, want)
+    assert tkernels.split_launch_counts() == {"fq_conv2d_splitk": 0}
 
 
 def test_splitk_plain_matches_reference_oracle():
@@ -457,10 +457,13 @@ def test_splitk_noise_field_is_the_unsplit_one():
     assert torch.equal(got, torch.zeros(m, n) + field)
 
 
-def test_splitk_epilogue_refuses_bad_partials():
-    with pytest.raises(ValueError):
-        tfc.splitk_epilogue(torch.zeros(4, 4, dtype=torch.int32),
-                            torch.tensor(1.0))
+def test_split_conv_refuses_bad_knobs():
+    """fq_conv2d checks a split's knobs on every device: a bc that does not
+    divide Cin, a noise sigma without its seed."""
+    a = torch.zeros(1, 5, 5, 48, dtype=torch.int8)
+    w = torch.zeros(9 * 48, 8, dtype=torch.int8)
+    with pytest.raises(ValueError, match="must divide"):
+        tfc.fq_conv2d(a, w, torch.tensor(1.0), kh=3, kw=3, bc=20)
     with pytest.raises(ValueError, match="noise_seed"):
-        tfc.splitk_epilogue(torch.zeros(2, 4, 4, dtype=torch.int32),
-                            torch.tensor(1.0), noise_sigma_acc=1.0)
+        tfc.fq_conv2d(a, w, torch.tensor(1.0), kh=3, kw=3, bc=16,
+                      noise_sigma_acc=1.0)

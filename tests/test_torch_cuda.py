@@ -21,8 +21,7 @@ from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.fq_conv import a_loader as conv_a_loader
-from repro_torch.kernels.fq_conv import (fq_conv2d, fq_conv2d_pool,
-                                        splitk_epilogue)
+from repro_torch.kernels.fq_conv import fq_conv2d, fq_conv2d_pool
 from repro_torch.kernels.fq_matmul import a_loader as matmul_a_loader
 from repro_torch.kernels.fq_matmul import fq_matmul
 from repro_torch.kernels.quantize import quantize_codes
@@ -759,7 +758,7 @@ def test_fq_conv2d_split_matches_plain(cuda, case, noise, epilogue, lo):
               n_out=15, lo=lo,
               **({} if noise is None else _noise(cuda, 0.004, noise)))
     before = (fq_conv2d.launches, fq_conv2d.split_launches,
-              splitk_epilogue.launches, fq_conv2d.vector_launches)
+              fq_conv2d.vector_launches)
     got = fq_conv2d(a, w, s, bc=bc, **kw)
     torch.cuda.synchronize()
     want = tref.ref_fq_conv2d(a, w, s, **kw)
@@ -767,31 +766,58 @@ def test_fq_conv2d_split_matches_plain(cuda, case, noise, epilogue, lo):
     split = cin // bc
     vector = cin % 16 == 0 and (ks * ks * bc) % 16 == 0
     assert (fq_conv2d.launches - before[0], fq_conv2d.split_launches
-            - before[1], splitk_epilogue.launches - before[2],
-            fq_conv2d.vector_launches - before[3]) == \
-        (1, int(split > 1), int(split > 1), int(vector))
+            - before[1], fq_conv2d.vector_launches - before[2]) == \
+        (1, int(split > 1), int(vector))
     assert torch.equal(fq_conv2d(a, w, s, bc=cin, **kw), want)
 
 
-@pytest.mark.parametrize("split,m,n", [(2, 49, 1024), (8, 49, 1024),
-                                       (3, 130, 45), (1, 7, 5)])
+# (split, batch, side, cin, cout, ksize): clusters of 2, 4 and 8 blocks,
+# and split 16 (8 blocks, 2 slices each); a partial last tile (M 49, 98),
+# a ragged Cout (200) and both A loaders (kspan 9 x 16, 1 x 8)
+CLUSTER_CASES = [(2, 1, 7, 64, 128, 3), (4, 2, 7, 128, 200, 3),
+                 (8, 1, 7, 512, 1024, 3), (16, 1, 7, 512, 64, 3),
+                 (16, 2, 7, 128, 64, 1)]
+
+
+@pytest.mark.parametrize("case", CLUSTER_CASES, ids=lambda c: "x".join(
+    map(str, c)))
 @pytest.mark.parametrize("noise", [None, 1, 4])
 @pytest.mark.parametrize("epilogue", ["requant", "dequant"])
-def test_splitk_epilogue_matches_plain(cuda, split, m, n, noise, epilogue):
-    rng = np.random.default_rng(split * m + n)
-    parts = torch.from_numpy(rng.integers(-60000, 60000, size=(
-        split, m, n)).astype(np.int32)).to(cuda)
-    s = torch.tensor(np.float32(1e-4), device=cuda)
-    kw = dict(epilogue=epilogue, n_out=7, lo=-7,
-              **({} if noise is None else _noise(cuda, 1e-4, noise)))
-    got = splitk_epilogue(parts, s, **kw)
+def test_split_cluster_matches_plain(cuda, case, noise, epilogue):
+    """One cluster launch a split conv, equal to the unsplit plain version
+    eagerly and in CUDA-graph replays."""
+    split, b, side, cin, cout, ks = case
+    rng = np.random.default_rng(split * cin + cout)
+    a = _codes(rng, (b, side, side, cin), -7, 7, cuda)
+    w = _codes(rng, (ks * ks * cin, cout), -7, 7, cuda)
+    s = torch.tensor(np.float32(1e-3), device=cuda)
+    kw = dict(kh=ks, kw=ks, padding=(ks // 2, ks // 2), epilogue=epilogue,
+              n_out=7, lo=-7,
+              **({} if noise is None else _noise(cuda, 1e-3, noise)))
+    want = tref.ref_fq_conv2d(a, w, s, **kw)
+    before = (fq_conv2d.launches, fq_conv2d.split_launches)
+    got = fq_conv2d(a, w, s, bc=cin // split, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got, tref.ref_splitk_epilogue(parts, s, **kw))
+    assert (fq_conv2d.launches - before[0],
+            fq_conv2d.split_launches - before[1]) == (1, 1)
+    assert torch.equal(got, want)
+    graph = torch.cuda.CUDAGraph()
+    side_stream = torch.cuda.Stream()
+    side_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side_stream):
+        fq_conv2d(a, w, s, bc=cin // split, **kw)
+    torch.cuda.current_stream().wait_stream(side_stream)
+    with torch.cuda.graph(graph):
+        y = fq_conv2d(a, w, s, bc=cin // split, **kw)
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
 
 
 def test_split_conv_is_capturable(cuda):
-    """The policy's split (DarkNet conv13 at B=1) inside a CUDA graph: the
-    workspace comes from the graph's pool, replays equal the eager call."""
+    """The policy's split (DarkNet conv13 at B=1, a cluster of 8) inside a
+    CUDA graph: replays equal the eager call."""
     rng = np.random.default_rng(13)
     a = _codes(rng, (1, 7, 7, 512), 0, 15, cuda)
     w = _codes(rng, (9 * 512, 1024), -1, 1, cuda)
@@ -839,33 +865,42 @@ def test_fq_matmul_lm_shapes_match_plain(cuda, m, k, n, chunks):
     assert torch.equal(got, tref.ref_fq_matmul(a, w, s, **kw))
 
 
-def _island_operands(rng, b, tq, length, dev):
-    q = _codes(rng, (b, tq, 64), -127, 127, dev)
-    k = _codes(rng, (b, length, 2, 16), -127, 127, dev)
-    v = _codes(rng, (b, length, 2, 16), -127, 127, dev)
+def _island_operands(rng, b, tq, length, dh, dev):
+    q = _codes(rng, (b, tq, 4 * dh), -127, 127, dev)
+    k = _codes(rng, (b, length, 2, dh), -127, 127, dev)
+    v = _codes(rng, (b, length, 2, dh), -127, 127, dev)
     scales = torch.tensor([0.61, 1.37, 0.83], dtype=torch.float32,
                           device=dev)
     return q, k, v, scales
 
 
+@pytest.mark.parametrize("dh", [16, 8])
 @pytest.mark.parametrize("b,tq,length", [(1, 1, 128), (4, 1, 128),
                                          (8, 1, 128), (1, 16, 128),
-                                         (4, 64, 128), (3, 5, 37)])
-def test_lm_island_matches_plain(cuda, b, tq, length):
-    """Bit-identical to the plain version at decode and prefill shapes,
-    and the row outputs do not depend on the batch or Tq."""
+                                         (4, 64, 128), (3, 5, 37),
+                                         (2, 3, 200), (8, 1, 256)])
+def test_lm_island_matches_plain(cuda, b, tq, length, dh):
+    """Bit-identical re-entry codes to the plain version at decode and
+    prefill shapes, past the old kernel's shared-memory ceiling (L 200,
+    256) and with both row loaders (d_head 16: vector, 8: byte); the row
+    outputs do not depend on the batch or Tq."""
     from repro_torch.kernels.lm_island import (lm_island, lm_island_plain,
                                                sqrt_head)
-    rng = np.random.default_rng(b * 100 + tq)
-    q, k, v, s = _island_operands(rng, b, tq, length, cuda)
-    qpos = torch.from_numpy(rng.integers(0, length, (b, tq)).astype(
+    rng = np.random.default_rng(b * 100 + tq + length + dh)
+    q, k, v, s = _island_operands(rng, b, tq, length, dh, cuda)
+    qpos = torch.from_numpy(rng.integers(0, length + 4, (b, tq)).astype(
         np.int32)).to(cuda)
-    kw = dict(n=127, n_heads=4, sqrt_dh=sqrt_head(16))
-    got = lm_island(q, k, v, s, qpos, **kw)
+    e_in = torch.tensor(np.float32(0.3), device=cuda)
+    kw = dict(n=127, n_a=127, n_heads=4, sqrt_dh=sqrt_head(dh))
+    before = (lm_island.launches, lm_island.vector_launches)
+    got = lm_island(q, k, v, s, qpos, e_in, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got, lm_island_plain(q, k, v, s, qpos, **kw))
+    assert (lm_island.launches - before[0],
+            lm_island.vector_launches - before[1]) == (1, int(dh == 16))
+    assert got.dtype == torch.int8
+    assert torch.equal(got, lm_island_plain(q, k, v, s, qpos, e_in, **kw))
     one = lm_island(q[-1:, -1:], k[-1:], v[-1:], s,
-                    qpos[-1:, -1:].contiguous(), **kw)
+                    qpos[-1:, -1:].contiguous(), e_in, **kw)
     assert torch.equal(one[0, 0], got[-1, -1])
 
 

@@ -36,7 +36,7 @@ from repro_torch import interop
 from repro_torch.core import integer_inference as ii
 from repro_torch.core.noise import NoiseConfig
 from repro_torch.core.quant import QuantConfig
-from repro_torch.kernels.lm_island import lm_island_plain, sqrt_head
+from repro_torch.kernels.lm_island import lm_island_ctx_plain, sqrt_head
 from repro_torch.models import fq_lm as M
 from repro_torch.serve.batching import ContinuousBatcher, Request
 
@@ -513,7 +513,8 @@ def _island_inputs(b, tq, length, seed=0):
 
 
 def _plain(q, k, v, scales, qpos):
-    return lm_island_plain(q, k, v, scales, qpos.to(torch.int32), n=127,
+    """The island's float context (before the re-entry quantizer)."""
+    return lm_island_ctx_plain(q, k, v, scales, qpos.to(torch.int32), n=127,
                                n_heads=4, sqrt_dh=sqrt_head(16))
 
 
