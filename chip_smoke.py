@@ -4455,6 +4455,143 @@ def fleet_report(torch, dev, fleet, trace, models, synced, clock, ticks,
     return problems
 
 
+# ---------------------------------------------------------------------------
+# analysis: the static verifier (python -m repro_torch.analysis) on the card
+# ---------------------------------------------------------------------------
+
+ANALYSIS_BUDGET_S = 120.0
+ANALYSIS_JOBS = 7          # trace processes (the host has 8 cores)
+ANALYSIS_TRACES = 36       # 4 conv stacks x 2 impls x (clean + 3 mac_chunks)
+                           # + the LM's clean + 3
+# kernel nodes a trace of each full-size core must hold: one a kernel call
+ANALYSIS_NODES = {("kws", "fused"): {"fq_conv2d": 7},
+                  ("kws", "im2col"): {"fq_matmul": 7},
+                  ("darknet", "fused"): {"fq_conv2d": 13,
+                                         "fq_conv2d_pool": 4},
+                  ("darknet", "im2col"): {"fq_matmul": 17},
+                  ("lm", "int8"): {"fq_matmul": 24}}
+# the reduced cores traced on the card and on the CPU: (target function,
+# its arguments, impls, mac_chunks)
+ANALYSIS_SAME_GRAPHS = (
+    ("kws_target", {}, ("fused",), (1,)),
+    ("kws_target", {}, ("im2col",), ()),
+    ("kws_target", {"weight_format": "auto"}, ("fused", "im2col"), ()),
+    ("lm_target", {}, ("int8",), ()))
+
+
+def call_targets(gm) -> list:
+    return [str(n.target) for n in gm.graph.nodes if n.op == "call_function"]
+
+
+def phase_analysis(torch, dev):
+    """The static quantization-contract verifier on the card, run last so
+    that the serve-time table misses of every earlier phase are in its
+    counters: ``python -m repro_torch.analysis --device cuda`` in process
+    (its traces in ANALYSIS_JOBS processes) over the five full-size
+    default targets, both impls and mac_chunks 1, 4 and 16. It fails unless
+    the command exits 0 with no finding at or above a warning (the table's
+    policy rows are info) and nothing suppressed, every trace proves, each
+    core's trace holds one kernel node a kernel call (ANALYSIS_NODES), no
+    earlier (eager) phase entered a kernel operator, the reduced KWS and LM
+    cores traced on the card hold the calls of their CPU traces in the same
+    order, and the phase takes at most ANALYSIS_BUDGET_S."""
+    import tempfile
+
+    from repro_torch.analysis import intlint, targets
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.kernels import library
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    calls = dict(library.op_calls)
+    print(f"analysis: kernel operator calls of the eager phases: {calls}",
+          flush=True)
+    if any(calls.values()):
+        raise AssertionError(f"an eager phase entered a kernel operator: "
+                             f"{calls}")
+    if targets.DEFAULT_SUPPRESSIONS:
+        raise AssertionError("analysis: DEFAULT_SUPPRESSIONS is not empty")
+    figures = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "analysis.json")
+        t0 = time.perf_counter()
+        rc = analysis_main(["--device", "cuda", "--json", path, "--jobs",
+                            str(ANALYSIS_JOBS)], figures=figures)
+        cli_s = time.perf_counter() - t0
+        with open(path) as f:
+            report = json.load(f)
+    summary = report["summary"]
+    print(f"analysis: the command exited {rc} in {cli_s:.1f} s: "
+          f"{json.dumps(summary)}", flush=True)
+    problems = []
+    if rc != 0:
+        problems.append(f"the command exited {rc}")
+    loud = [f for f in report["findings"] if f["severity"] != "info"]
+    quiet = [f for f in report["findings"] if f["severity"] == "info"]
+    if loud or summary["suppressed"]:
+        problems.append(f"{len(loud)} findings at or above a warning, "
+                        f"{summary['suppressed']} suppressed")
+    if any(f["check"] != "kernellint/table-schema"
+           or "policy" not in f["details"] for f in quiet):
+        problems.append("an info finding other than the table's policy rows")
+    proved = {p["subject"] for p in report["proofs"]
+              if p["check"] == "intlint"}
+    if len(figures) != ANALYSIS_TRACES or proved != set(figures):
+        problems.append(f"{len(proved)} traces proved of {len(figures)} "
+                        f"(want {ANALYSIS_TRACES})")
+    for subject, fig in figures.items():
+        base, impl = subject.split("/")[0].split("-")[0], \
+            subject.split("/")[1]
+        want = ANALYSIS_NODES[(base, impl)]
+        ok = fig["kernel_nodes"] == want
+        state = "proved" if subject in proved else "NOT proved"
+        print(f"analysis {subject}: {state}; "
+              f"{fig['contractions']} contractions, largest bound "
+              f"{fig['max_int_bound']:.0f}, int32 headroom "
+              f"{fig['int32_headroom']:.6f}; {fig['nodes']} nodes, kernel "
+              f"nodes {fig['kernel_nodes']}{'' if ok else f' (want {want})'}",
+              flush=True)
+        if not ok:
+            problems.append(f"{subject}: kernel nodes {fig['kernel_nodes']}")
+    host = sum(fig["seconds"] for fig in figures.values())
+    print(f"analysis: {len(figures)} traces, "
+          f"{sum(fig['nodes'] for fig in figures.values())} fx nodes, "
+          f"{host:.1f} s of trace-process time in {cli_s:.1f} s",
+          flush=True)
+    misses = {k: v for k, v in report["counters"].items()
+              if k.startswith("kernellint/runtime-miss")}
+    print(f"analysis: serve-time table misses of the whole run: "
+          f"{misses or 'none'}", flush=True)
+
+    # the graphs do not depend on the device: the reduced cores, traced on
+    # the card and on the CPU, call the same operators in the same order
+    t0 = time.perf_counter()
+    for make, kw, impls, chunks in ANALYSIS_SAME_GRAPHS:
+        pair = [targets.core_traces(getattr(targets, make)(
+            reduced=True, device=d, **kw), impls=impls, mac_chunks=chunks)
+            for d in (dev, "cpu")]
+        for card, cpu in zip(*pair):
+            a = call_targets(intlint.trace(card.fn, card.example_args))
+            b = call_targets(intlint.trace(cpu.fn, cpu.example_args))
+            same = "hold the same" if a == b else "DIFFER in their"
+            print(f"analysis {card.subject}: card and CPU graphs {same} "
+                  f"{len(a)} calls", flush=True)
+            if a != b:
+                problems.append(f"{card.subject}: the card's graph is not "
+                                "the CPU's")
+    print(f"analysis: card against CPU graphs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"analysis: phase {secs:.1f} s (budget {ANALYSIS_BUDGET_S:.0f} s; "
+          f"the command {cli_s:.1f} s, {ANALYSIS_JOBS} trace processes) on "
+          f"{smi}", flush=True)
+    if secs > ANALYSIS_BUDGET_S:
+        problems.append(f"the phase took {secs:.1f} s > {ANALYSIS_BUDGET_S}")
+    if problems:
+        raise AssertionError("analysis: " + "; ".join(problems))
+    return {"seconds": secs, "figures": figures, "summary": summary}
+
+
 def kernels_record(rows, counts, batch, per_apply, names=None,
                    weight=lambda name, r: 1):
     """One entry per kernel of one path (or per kernel in ``names``): the
@@ -4690,7 +4827,8 @@ def main() -> int:
             ("serve_lm", lambda: phase_serve_lm(torch, dev)),
             ("train_fq", lambda: phase_train_fq(torch, dev)),
             ("train_qat", lambda: phase_train_qat(torch, dev)),
-            ("fleet", lambda: phase_fleet(torch, dev))):
+            ("fleet", lambda: phase_fleet(torch, dev)),
+            ("analysis", lambda: phase_analysis(torch, dev))):
         print(f"== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:

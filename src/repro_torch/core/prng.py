@@ -28,7 +28,8 @@ field. This module is the port's own copy of what that takes, from
 
 Keys are int64 tensors of shape (2,) holding two uint32 words (a split
 gives (n, 2)); there is no global generator state. Every uint32 value is
-held in int64 and masked with ``0xFFFFFFFF`` after each add and shift:
+held in int64 and masked with ``0xFFFFFFFF`` after each add and shift
+(threefry's first word once, at the end of the block):
 PyTorch has no CPU ``>>`` on uint32. Bits, keys and uniforms are bit-exact
 with ``jax.random`` on any device. Normals are not: torch's ``log1p``
 and sums are not XLA's, so about 5% of the float32 draws differ, by at
@@ -43,6 +44,8 @@ from typing import Sequence, Union
 
 import numpy as np
 import torch
+
+from ..device import tracing
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -64,15 +67,18 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor,
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32
+    # x0 is masked once, at the end: it only meets x1 in adds and in the
+    # xor that x1's mask follows, and 25 adds of words below 2^32 stay
+    # below 2^37
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x0.add_(x1).bitwise_and_(M32)
+            x0.add_(x1)
             left = x1 << r
             x1.bitwise_right_shift_(32 - r).bitwise_or_(left) \
-                .bitwise_and_(M32).bitwise_xor_(x0)
-        x0.add_(ks[(i + 1) % 3]).bitwise_and_(M32)
+                .bitwise_xor_(x0).bitwise_and_(M32)
+        x0.add_(ks[(i + 1) % 3])
         x1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(M32)
-    return x0, x1
+    return x0.bitwise_and_(M32), x1
 
 
 def _hash_iota(key: torch.Tensor, n: int):
@@ -206,9 +212,10 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
 
     # the sqrt correctly rounded on every device: torch's CPU sqrt calls
     # MKL's vmsSqrt, whose accuracy has depended on the state of its first
-    # call in the process, so the CPU takes numpy's (the IEEE instruction)
-    root = (torch.from_numpy(np.sqrt(w.numpy())) if w.device.type == "cpu"
-            else torch.sqrt(w))
+    # call in the process, so the CPU takes numpy's (the IEEE instruction);
+    # a trace records torch.sqrt, the op, not a constant of one run
+    root = (torch.from_numpy(np.sqrt(w.numpy()))
+            if w.device.type == "cpu" and not tracing() else torch.sqrt(w))
     p = torch.where(w < 5.0, horner(_ERFINV_CENTRAL, w - 2.5),
                     horner(_ERFINV_TAIL, root - 3.0))
     return p * x

@@ -9,8 +9,17 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+from torch.fx.experimental.proxy_tensor import get_proxy_mode
 
 DeviceLike = Union[str, torch.device, None]
+
+
+def tracing() -> bool:
+    """True while ``make_fx`` traces the caller (a proxy mode is active):
+    the kernel wrappers then call their ``torch.library`` operators, which
+    the trace records as one node each (``kernels.library``), and checks
+    that read tensor values back to the host are skipped."""
+    return get_proxy_mode() is not None
 
 
 def has_cuda() -> bool:

@@ -18,11 +18,14 @@ reads; a split launch counts in ``launches`` too, once. The integer LM's
 attention island (``lm_island.lm_island``, a port-only kernel: the
 reference's island is plain jnp) counts its launches the same way, and in
 ``lm_island.vector_launches`` those that took its 16-byte row loader.
+Under a trace, K2, K3 and K3b are called through the operators of
+:mod:`.library`, whose ``op_calls`` count those calls.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from . import library  # noqa: F401  (registers the traced operators)
 from .fq_conv import fq_conv2d, fq_conv2d_pool
 from .fq_matmul import fq_matmul
 from .lm_island import lm_island

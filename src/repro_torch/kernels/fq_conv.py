@@ -46,6 +46,12 @@ and returned as the reference returns them; the 64 x 64 wgmma tile does
 not read them (as K1's kernel does not read the reference's
 ``block_rows``). On the CPU
 the plain version runs unsplit and explicit knobs are only validated.
+
+While ``make_fx`` traces the caller (``device.tracing``), the wrapper
+calls the operator ``repro_torch::fq_conv2d`` or
+``repro_torch::fq_conv2d_pool`` instead (``kernels.library``): one node
+in the trace, carrying the ``bc`` the policy picks for the card, which
+runs the same plain version or launch.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core.quant import WEIGHT_FORMATS, format_factor
+from ..device import tracing
 from . import _build
 from .fq_matmul import (VECTOR_BYTES, b_vector, check_noise, check_operands,
                         noise_pointers, packed_counts)
@@ -395,10 +402,10 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
     Cin runs split-K on the card, with the same result.
     """
     what = "fq_conv2d" if pool is None else "fq_conv2d_pool"
-    noisy = check_noise(what, noise_sigma_acc, noise_seed, mac_chunks)
+    check_noise(what, noise_sigma_acc, noise_seed, mac_chunks)
     b, h, w, cin = a_codes.shape
     cout = w_codes.shape[1]
-    factor = check_weights("fq_conv2d", w_codes, kh * kw, cin, weight_format)
+    check_weights("fq_conv2d", w_codes, kh * kw, cin, weight_format)
     ho = conv_out_size(h, kh, stride[0], padding[0], dilation[0])
     wo = conv_out_size(w, kw, stride[1], padding[1], dilation[1])
     if ho <= 0 or wo <= 0:
@@ -410,25 +417,63 @@ def fq_conv2d(a_codes: torch.Tensor, w_codes: torch.Tensor,
         if min(pool) < 1 or ho < pool[0] or wo < pool[1]:
             raise ValueError(f"fq_conv2d: pool {pool} does not fit the conv "
                              f"output ({ho}, {wo})")
+    geometry = dict(kh=kh, kw=kw, stride=stride, padding=padding,
+                    dilation=dilation)
+    noise = dict(noise_sigma_acc=noise_sigma_acc, noise_seed=noise_seed,
+                 mac_chunks=mac_chunks)
+    if tracing():
+        # the operator carries the bc a launch on the card would take
+        dev = a_codes.device
+        _, _, bc = pick_blocks(ho=ho, wo=wo, cin=cin, cout=cout, kh=kh,
+                               kw=kw, stride=stride, pool=pool, bho=bho,
+                               bco=bco, bc=bc, weight_format=weight_format,
+                               batch=b, sms=(_build.sm_count(dev)
+                                             if dev.type == "cuda"
+                                             else H100_SMS))
+        args = (a_codes, w_codes, scale, kh, kw, list(stride),
+                list(padding), list(dilation))
+        tail = (epilogue, n_out, lo, weight_format, bc, noise_sigma_acc,
+                noise_seed, mac_chunks)
+        if pool is None:
+            return torch.ops.repro_torch.fq_conv2d(*args, *tail)
+        return torch.ops.repro_torch.fq_conv2d_pool(*args, list(pool), *tail)
     if a_codes.device.type == "cpu":
         check_blocks(cin, bc, weight_format)
-        return fq_conv2d_plain(a_codes, w_codes, scale, kh=kh, kw=kw,
-                               stride=stride, padding=padding,
-                               dilation=dilation, pool=pool,
-                               epilogue=epilogue, n_out=n_out, lo=lo,
-                               weight_format=weight_format,
-                               noise_sigma_acc=noise_sigma_acc,
-                               noise_seed=noise_seed, mac_chunks=mac_chunks)
-    check_operands(what, scale, epilogue, a_codes, w_codes, weight_format)
-    sigma, seed = (noise_pointers(what, a_codes.device, noise_sigma_acc,
-                                  noise_seed) if noisy else (None, None))
-    if a_codes.numel() >= 2 ** 31:
-        raise ValueError(f"{what}: the CUDA kernel indexes activations "
-                         "with 32-bit offsets (< 2^31 elements)")
+        return fq_conv2d_plain(a_codes, w_codes, scale, **geometry,
+                               pool=pool, epilogue=epilogue, n_out=n_out,
+                               lo=lo, weight_format=weight_format, **noise)
     _, _, bc = pick_blocks(ho=ho, wo=wo, cin=cin, cout=cout, kh=kh, kw=kw,
                            stride=stride, pool=pool, bho=bho, bco=bco, bc=bc,
                            weight_format=weight_format, batch=b,
                            sms=_build.sm_count(a_codes.device))
+    return launch(a_codes, w_codes, scale, **geometry, pool=pool,
+                  epilogue=epilogue, n_out=n_out, lo=lo,
+                  weight_format=weight_format, bc=bc, **noise)
+
+
+def launch(a_codes: torch.Tensor, w_codes: torch.Tensor,
+           scale: torch.Tensor, *, kh: int, kw: int, stride: Tuple[int, int],
+           padding: Tuple[int, int], dilation: Tuple[int, int],
+           pool: Optional[Tuple[int, int]], epilogue: str, n_out: int,
+           lo: int, weight_format: str, bc: int, noise_sigma_acc,
+           noise_seed, mac_chunks: int) -> torch.Tensor:
+    """K3's or K3b's launch on CUDA tensors, the geometry already checked
+    by :func:`fq_conv2d` and ``bc`` resolved by :func:`pick_blocks`: an
+    unpooled int8 conv with ``bc`` below Cin runs split-K. Counted on
+    ``fq_conv2d``'s or ``fq_conv2d_pool``'s counters."""
+    what = "fq_conv2d" if pool is None else "fq_conv2d_pool"
+    noisy = noise_sigma_acc is not None
+    b, h, w, cin = a_codes.shape
+    cout = w_codes.shape[1]
+    factor = format_factor(weight_format)
+    ho = conv_out_size(h, kh, stride[0], padding[0], dilation[0])
+    wo = conv_out_size(w, kw, stride[1], padding[1], dilation[1])
+    check_operands(what, scale, epilogue, a_codes, w_codes, weight_format)
+    if a_codes.numel() >= 2 ** 31:
+        raise ValueError(f"{what}: the CUDA kernel indexes activations "
+                         "with 32-bit offsets (< 2^31 elements)")
+    sigma, seed = (noise_pointers(what, a_codes.device, noise_sigma_acc,
+                                  noise_seed) if noisy else (None, None))
     split = cin // bc if pool is None and factor == 1 else 1
     dequant = epilogue == "dequant"
     oh, ow = (ho, wo) if pool is None else (ho // pool[0], wo // pool[1])

@@ -12,7 +12,10 @@ Counterpart of ``repro.kernels.fq_matmul`` (Pallas). (M, K) int8 codes x
 Packed weights (``weight_format`` "int4" or "ternary", K5): B is
 (ceil(K/factor), N) uint8 from ``core.quant.pack_codes`` and the kernel
 decodes it in its tile loop. ``fq_matmul.launches`` counts every launch,
-``fq_matmul.packed_launches[fmt]`` the packed ones.
+``fq_matmul.packed_launches[fmt]`` the packed ones. While ``make_fx``
+traces the caller (``device.tracing``), the wrapper calls the operator
+``repro_torch::fq_matmul`` instead (``kernels.library``), which the trace
+records as one node and which runs the same plain version or launch.
 
 ADC noise (K4): with ``noise_sigma_acc`` (sigma in accumulator units) and
 ``noise_seed``, the epilogue adds ``core.noise.mac_noise_field`` at the
@@ -33,6 +36,7 @@ import ctypes
 import torch
 
 from ..core.quant import WEIGHT_FORMATS, format_factor
+from ..device import tracing
 from . import _build
 from .ref import apply_epilogue, ref_fq_matmul as fq_matmul_plain
 
@@ -127,22 +131,42 @@ def fq_matmul(a_codes: torch.Tensor, b_codes: torch.Tensor,
     ``noise_seed`` (uint32), one-element tensors on the codes' device, turn
     on the ADC noise, ``mac_chunks`` draws per output.
     """
-    noisy = check_noise("fq_matmul", noise_sigma_acc, noise_seed, mac_chunks)
+    check_noise("fq_matmul", noise_sigma_acc, noise_seed, mac_chunks)
     factor = format_factor(weight_format)
-    m, k = a_codes.shape
-    rows, n = b_codes.shape
+    k = a_codes.shape[1]
+    rows = b_codes.shape[0]
     if not 0 <= rows * factor - k < factor:
         raise ValueError(f"fq_matmul: {tuple(a_codes.shape)} x "
                          f"{tuple(b_codes.shape)} ({weight_format})")
     if factor > 1 and b_codes.dtype != torch.uint8:
         raise ValueError(f"fq_matmul: {weight_format} weights are packed "
                          f"uint8, got {b_codes.dtype}")
+    if tracing():
+        return torch.ops.repro_torch.fq_matmul(
+            a_codes, b_codes, scale, epilogue, n_out, lo, weight_format,
+            noise_sigma_acc, noise_seed, mac_chunks)
     if a_codes.device.type == "cpu":
         return fq_matmul_plain(a_codes, b_codes, scale, epilogue=epilogue,
                                n_out=n_out, lo=lo,
                                weight_format=weight_format,
                                noise_sigma_acc=noise_sigma_acc,
                                noise_seed=noise_seed, mac_chunks=mac_chunks)
+    return launch(a_codes, b_codes, scale, epilogue=epilogue, n_out=n_out,
+                  lo=lo, weight_format=weight_format,
+                  noise_sigma_acc=noise_sigma_acc, noise_seed=noise_seed,
+                  mac_chunks=mac_chunks)
+
+
+def launch(a_codes: torch.Tensor, b_codes: torch.Tensor,
+           scale: torch.Tensor, *, epilogue: str, n_out: int, lo: int,
+           weight_format: str, noise_sigma_acc, noise_seed,
+           mac_chunks: int) -> torch.Tensor:
+    """K2's launch on CUDA tensors, the shapes already checked by
+    :func:`fq_matmul`; counted on ``fq_matmul``'s counters."""
+    noisy = noise_sigma_acc is not None
+    factor = format_factor(weight_format)
+    m, k = a_codes.shape
+    n = b_codes.shape[1]
     check_operands("fq_matmul", scale, epilogue, a_codes, b_codes,
                    weight_format)
     sigma, seed = (noise_pointers("fq_matmul", a_codes.device,
