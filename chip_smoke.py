@@ -130,6 +130,34 @@ Phases, each of which must pass:
    each K2 shape's and the island's ms beside bound, plain version and
    library call (``torch._int_mm`` where it takes the shape; SDPA on the
    dequantized floats), the KV bytes a slot, and fails past 60 s;
+11b. serve_transformer: the float transformer zoo
+   (``repro_torch.models.transformer``), which reaches no TPU-kernel
+   counterpart (the K1-K5 and island counters must read 0 across it).
+   minitron-4b (``configs.get_arch("minitron-4b").model``: 32 layers,
+   d_model 3072, 24 / 8 heads, d_ff 9216, vocab 256000, bf16) from seed
+   SEED on the card, converted by ``quantize_params_for_serving(bits_w=8)``;
+   it checks prefill(125) + 3 decode steps against forward over 128 tokens
+   (TX_RTOL x max|logit| in bf16, greedy tokens equal where forward's top-2
+   margin passes the bound; the same weights with float32 activations
+   within the reference's 2e-2), the int8 KV cache (each layer's decode
+   attention within the reference's int8-KV tolerance; the logits under a
+   gross-error guard), serves 8 greedy requests of 128 tokens, 32 new each,
+   through ``ContinuousBatcher``'s float default on 4 slots (max_len 256),
+   holds request 0 against forward over its own tokens (each token greedy
+   within the bound) and, on the float32 copy of the same served weights,
+   the batcher's tokens for request 0 equal to ``generate`` at B=1 (in bf16
+   the GEMMs of M = 4 and M = 1 round apart at near-ties), and prints
+   weight and KV bytes, ms a decode step at slots 1 and 4, prefill ms at
+   T=128, the profiled busy share and device ops of a step, peak memory
+   and the weight-read bound (the codes, scales, norms and one embedding
+   row a slot); a 2-layer float32 cut of
+   the served model card against CPU (1e-4 x max|logit|, TF32 off); and
+   all ten archs' smoke configs card against CPU from one set of params
+   (forward, prefill + decode within 1e-4 x max|logit|, quantizer codes
+   that round otherwise pinned and counted, all rounding ties; greedy
+   ``generate`` tokens equal; the batcher's tokens equal ``generate``'s,
+   the MoE archs' the CPU batcher's; minitron's int8 KV logits within
+   0.05). It fails past 90 s;
 12. train_fq: float FQ training, which reaches no TPU-kernel counterpart
    (the K1-K5 counters must read 0 across it). Full-width KWS (B=64, 140
    frames), DarkNet-19 (224 x 224, B=8) and the paper's CIFAR ResNets
@@ -2914,6 +2942,532 @@ def phase_serve_lm(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# The float transformer zoo served (serve_transformer)
+# ---------------------------------------------------------------------------
+
+TX_ARCH = "minitron-4b"        # the full-width model served
+TX_SLOTS = (1, 4)              # decode slots timed; the batcher runs on 4
+TX_REQUESTS = 8                # greedy requests through the batcher
+TX_PROMPT = 128                # tokens a prompt (equal lengths: one position)
+TX_NEW = 32                    # new tokens a request
+TX_MAX_LEN = 256
+TX_DECODE = 3                  # prefill TX_PROMPT - 3, then 3 decode steps
+# The decode-parity bound in bf16, x max|logit| of forward's: prefill +
+# decode and forward run the bf16 model in two op orders (flash against
+# one-token attention, GEMMs of M = 128 against M = 1), each op rounding
+# to bf16. tools/tx_parity_probe.py on an H100 reads 0.039-0.055 over 3
+# params seeds x 4 prompts; the bound is 1.45x the largest. The sharp
+# check is float32's (~1e-5 read, the reference's 2e-2 bound).
+TX_RTOL = 8e-2
+TX_RTOL_F32 = 2e-2             # the reference's decode-parity bound
+TX_KV8_TOL = 0.05              # the reference's int8-KV tolerance (an op's)
+# The int8 KV cache at full depth, logits x max|logit| of forward's. Each
+# layer's attention meets the reference's tolerance; through 32 random
+# layers the logits move 0.075-0.105 (bf16) and 0.058-0.085 (float32) in
+# tools/tx_parity_probe.py's 12 runs. Planted faults there read: K or V of
+# one KV head at twice its scale 0.80-1.12, codes rounded down instead of
+# half-even 0.161-0.251; the guard sits between.
+TX_KV8_GUARD = 0.15
+TX_CUT_LAYERS = 2              # part 2: card against CPU, in float32
+TX_CUT_PROMPT = 32
+TX_CUT_DECODE = 2
+TX_CPU_RTOL = 1e-4             # x max|logit|: float32 sums in other orders
+TX_SMOKE_NEW = 4               # part 3: tokens a smoke request
+TX_STEPS_TIMED = 5             # decode steps on the host clock, mean
+TX_BUDGET_S = 90.0
+TX_MOE = ("llama4-maverick-400b-a17b", "deepseek-v2-lite-16b")
+
+
+def tx_compare(torch, got, want, rtol):
+    """(max |got - want|, max |want|, ok) of two logit tensors, the bound
+    ``rtol`` x max |want|."""
+    g, w = got.double().cpu(), want.double().cpu()
+    err, top = float((g - w).abs().max()), float(w.abs().max())
+    return err, top, err <= rtol * top
+
+
+def tx_margin(torch, logits):
+    """Top-2 margin of each position's logits (..., V) -> (...)."""
+    top = torch.topk(logits.double(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def tx_taps_run(torch, fn, ref=None):
+    """(fn(), its Taps): recording the quantizers' inputs, or pinned to
+    ``ref``'s where a code rounds otherwise (``repro_torch.taps``)."""
+    from repro_torch.taps import Taps
+    taps = Taps(ref, record=ref is None)
+    with taps, torch.no_grad():
+        out = fn()
+    if ref is not None:
+        taps.matched()
+        if taps.code_flips != taps.round_ties:
+            raise AssertionError(
+                f"{taps.code_flips} code flips, only {taps.round_ties} "
+                f"rounding ties, of {taps.positions} quantized values")
+    return out, taps
+
+
+def tx_kv8_attention(torch, fn):
+    """Run ``fn()`` with every decode attention over a float cache repeated
+    over the cache's int8 codes (``attention._q8``); returns (the largest
+    |int8 out - float out| / (TX_KV8_TOL + TX_KV8_TOL |float out|), calls):
+    the reference's int8-KV tolerance (``tests/test_attention.py``) at
+    each call."""
+    from repro_torch.models import attention as A
+    orig, worst = A.decode_attention, [0.0, 0]
+
+    def both(q, cache, *, window=None):
+        out = orig(q, cache, window=window)
+        c8 = dict(cache)
+        (c8["k"], c8["k_scale"]), (c8["v"], c8["v_scale"]) = (
+            A._q8(cache["k"]), A._q8(cache["v"]))
+        o8 = orig(q, c8, window=window).float()
+        ratio = (o8 - out.float()).abs() / (
+            TX_KV8_TOL + TX_KV8_TOL * out.float().abs())
+        worst[0] = max(worst[0], float(ratio.max()))
+        worst[1] += 1
+        return out
+    A.decode_attention = both
+    try:
+        fn()
+    finally:
+        A.decode_attention = orig
+    return worst[0], worst[1]
+
+
+def tx_smoke_batch(torch, cfg, dev, seed, b=2, s=12):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n_vis = cfg.frontend.n_positions if (cfg.frontend.enabled
+                                         and not cfg.enc_dec) else 0
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s - n_vis)).astype(np.int32)).to(dev)}
+    if cfg.frontend.enabled:
+        batch["feats"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.frontend.n_positions, cfg.frontend.feat_dim)).astype(
+            np.float32)).to(dev)
+    return batch
+
+
+def tx_smoke_arch(torch, dev, arch_id):
+    """One smoke arch on the card against the port's CPU path from the same
+    params: forward, prefill + 3 decode steps, greedy generate, and the
+    batcher (against generate; the MoE archs against the CPU's batcher:
+    capacity is shared by the slots). Returns a line of flips and errors."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+    from repro_torch.serve.decode import generate
+    a = get_arch(arch_id)
+    cfg, q = a.smoke, a.qcfg
+    cpu = torch.device("cpu")
+    params = T.make_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                           device=dev)
+    cparams = tree.map(lambda x: x.cpu(), params)
+    batch = tx_smoke_batch(torch, cfg, dev, SEED + 41)
+    cbatch = {k: v.cpu() for k, v in batch.items()}
+    worst, flips, n = 0.0, 0, 0
+
+    def hold(fn):
+        """fn on the card (quantizer inputs recorded), then on the CPU
+        pinned to them; (card's, CPU's)."""
+        nonlocal flips, n
+        got, taps = tx_taps_run(torch, lambda: fn(dev, params, batch))
+        want, ctaps = tx_taps_run(torch, lambda: fn(cpu, cparams, cbatch),
+                                  taps)
+        flips += ctaps.code_flips
+        n += ctaps.positions
+        return got, want
+
+    def fwd(d, p, b):
+        return T.forward(p, b, cfg, q)[0]
+    got, want = hold(fwd)
+    err, top, ok = tx_compare(torch, got, want, TX_CPU_RTOL)
+    worst = max(worst, err / top)
+    if not ok:
+        raise AssertionError(f"{arch_id} forward: card {err:.3g} from the "
+                             f"CPU, bound {TX_CPU_RTOL * top:.3g}")
+    n_pre = batch["tokens"].shape[1] - TX_DECODE
+
+    def pre_dec(d, p, b, c_=cfg):
+        toks = b["tokens"]
+        lg, c = T.prefill(p, dict(b, tokens=toks[:, :n_pre]), c_, q,
+                          max_len=16)
+        out = [lg[:, -1]]
+        for i in range(n_pre, n_pre + TX_DECODE):
+            lg, c = T.decode_step(p, c, toks[:, i:i + 1], c_, q)
+            out.append(lg[:, -1])
+        return torch.stack(out, 1)
+    got, want = hold(pre_dec)
+    err, top, ok = tx_compare(torch, got, want, TX_CPU_RTOL)
+    worst = max(worst, err / top)
+    if not ok:
+        raise AssertionError(f"{arch_id} prefill + decode: card {err:.3g} "
+                             f"from the CPU, bound {TX_CPU_RTOL * top:.3g}")
+
+    kv8 = ""
+    if arch_id == TX_ARCH:
+        # the int8 KV cache at smoke depth, on the card: within the
+        # reference's tolerance of forward's logits
+        with torch.no_grad():
+            full = T.forward(params, batch, cfg, q)[0][:, n_pre - 1:]
+            cfg8 = dataclasses.replace(cfg, kv_bits=8)
+            err, top, ok = tx_compare(torch, pre_dec(
+                dev, params, batch, cfg8), full, TX_KV8_TOL)
+        if not ok:
+            raise AssertionError(f"{arch_id} kv_bits=8: {err / top:.3g} x "
+                                 "max|logit| from forward")
+        kv8 = f"; kv_bits=8 {err / top:.3g} x max|logit| from forward"
+
+    def gen(d, p, b):
+        return generate(p, cfg, q, b, max_new=TX_SMOKE_NEW)
+    got, want = hold(gen)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"{arch_id} generate: card {got.tolist()} CPU "
+                             f"{want.tolist()}")
+    prompts = [t.tolist() for t in batch["tokens"][:, :4].cpu()] + \
+        [batch["tokens"][0, 2:6].tolist()]
+    feats = batch["feats"][:1] if cfg.enc_dec else None
+    max_len = 18
+
+    def batcher(d, p, b):
+        pf = None
+        if cfg.enc_dec:
+            def pf(pp, toks):
+                return T.prefill(pp, {"tokens": toks, "feats": feats.to(d)},
+                                 cfg, q, max_len=max_len)
+        bt = ContinuousBatcher(p, cfg, q, slots=2, max_len=max_len,
+                               prefill_fn=pf)
+        out = bt.run([Request(rid=i, prompt=pr, max_new=TX_SMOKE_NEW)
+                      for i, pr in enumerate(prompts)])
+        return [out[i] for i in range(len(prompts))]
+    if arch_id in TX_MOE:
+        got, want = hold(batcher)
+        how = "the CPU's batcher"
+    else:
+        with torch.no_grad():
+            got = batcher(dev, params, batch)
+            want = []
+            for pr in prompts:
+                b = {"tokens": torch.tensor([pr], dtype=torch.int32,
+                                            device=dev)}
+                if feats is not None:
+                    b["feats"] = feats
+                want.append(generate(params, cfg, q, b, max_new=TX_SMOKE_NEW,
+                                     max_len=max_len)[0].tolist())
+        how = "generate's"
+    if got != want:
+        raise AssertionError(f"{arch_id} batcher: {got} != {how} {want}")
+    return (f"{arch_id}: forward, prefill + {TX_DECODE} decode within "
+            f"{worst:.2e} x max|logit| of the CPU; generate == CPU; batcher "
+            f"== {how}; {flips} of {n} codes pinned (rounding ties){kv8}")
+
+
+def phase_serve_transformer(torch, dev):
+    """The float transformer zoo served on the card: minitron-4b at full
+    width through the float batcher, decode parity, int8 KV, times; a
+    2-layer float32 cut against the CPU; all ten smoke archs against the
+    CPU. No integer kernel may launch."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch import kernels, tree
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+    from repro_torch.serve.decode import generate, make_serve_step
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    kernels.reset_launch_counts()
+    arch = get_arch(TX_ARCH)
+    cfg, q = arch.model, arch.qcfg
+    rng = np.random.default_rng(SEED + 31)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        # -- part 1: full width, full depth ---------------------------------
+        t0 = time.perf_counter()
+        params = T.make_params(torch.Generator(device=dev).manual_seed(SEED),
+                               cfg, device=dev)
+        n_params = sum(x.numel() for x in tree.leaves(params))
+        sp = T.quantize_params_for_serving(params, bits_w=arch.serve_bits_w)
+        del params
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        leaves = tree.named_leaves(sp)
+        code_b = sum(x.numel() for n, x in leaves if n.endswith("_codes"))
+        emb_b = sp["embed"]["w"].numel() * sp["embed"]["w"].element_size()
+        w_bytes = sum(x.numel() * x.element_size() for _, x in leaves)
+        kv_slot = sum(x.numel() * x.element_size() for n, x in
+                      tree.named_leaves(T.init_caches(cfg, 1, TX_MAX_LEN,
+                                                      device="meta"))
+                      if n.split(".")[-1] in ("k", "v"))
+        print(f"serve_transformer: {TX_ARCH} at full width ({cfg.n_layers} "
+              f"layers, d_model {cfg.d_model}, {cfg.n_heads} / "
+              f"{cfg.n_kv_heads} heads, head_dim {cfg.head_dim_}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}), "
+              f"{n_params} params from seed {SEED} on the card, converted "
+              f"to int8 codes (serve_bits_w {arch.serve_bits_w}) in "
+              f"{t_build:.1f} s; weight bytes {w_bytes} ({code_b} int8 code "
+              f"bytes, the head's included; {emb_b} bf16 embedding bytes; "
+              f"{w_bytes - code_b - emb_b} of scales and norms); KV "
+              f"{kv_slot} bytes a slot at max_len {TX_MAX_LEN} ({smi})",
+              flush=True)
+
+        prompts = rng.integers(0, cfg.vocab, (TX_REQUESTS, TX_PROMPT)).astype(
+            np.int32)
+        toks = torch.from_numpy(prompts[:1]).to(dev)
+        n_pre = TX_PROMPT - TX_DECODE
+
+        def prefill_decode(p, c):
+            """Logits of prefill(T - 3)'s last position and of 3 decode
+            steps, (4, V) float32."""
+            lg, caches = T.prefill(p, {"tokens": toks[:, :n_pre]}, c, q,
+                                   max_len=TX_MAX_LEN)
+            out = [lg[0, -1]]
+            for i in range(n_pre, TX_PROMPT):
+                lg, caches = T.decode_step(p, caches, toks[:, i:i + 1], c,
+                                           q)
+                out.append(lg[0, -1])
+            return torch.stack(out).float()
+
+        # the served bf16 model: prefill(T - 3) + 3 decode against forward(T)
+        want = T.forward(sp, {"tokens": toks}, cfg, q)[0][0, n_pre - 1:]
+        want = want.float()
+        got = prefill_decode(sp, cfg)
+        err, top, ok = tx_compare(torch, got, want, TX_RTOL)
+        margin = tx_margin(torch, want)
+        sure = margin > TX_RTOL * top
+        same = got.argmax(-1) == want.argmax(-1)
+        print(f"serve_transformer decode parity (bf16, as served): prefill("
+              f"{n_pre}) + {TX_DECODE} decode steps against forward("
+              f"{TX_PROMPT}): max |diff| {err:.4g}, max|logit| {top:.4g}, "
+              f"{err / top:.4g} x max|logit| (bound {TX_RTOL}); greedy tokens "
+              f"equal at {int(same.sum())} of {same.numel()} positions, "
+              f"{int(sure.sum())} of them with forward's top-2 margin past "
+              f"the bound (margins {[round(float(m), 4) for m in margin]})",
+              flush=True)
+        if not ok or not bool(same[sure].all()):
+            raise AssertionError("serve_transformer: decode parity (bf16)")
+        got8 = prefill_decode(sp, dataclasses.replace(cfg, kv_bits=8))
+        err8, top8, ok8 = tx_compare(torch, got8, want, TX_KV8_GUARD)
+        # the same served weights with float32 activations and caches: the
+        # op orders' bf16 roundings gone, the two paths agree to float32,
+        # and the int8 KV cache's own effect shows alone
+        sp32 = tree.map(lambda x: x.float() if x.dtype == torch.bfloat16
+                        else x, sp)
+        cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+        want32 = T.forward(sp32, {"tokens": toks}, cfg32, q)[0][
+            0, n_pre - 1:].float()
+        got32 = prefill_decode(sp32, cfg32)
+        err32, top32, ok32 = tx_compare(torch, got32, want32, TX_RTOL_F32)
+        # greedy tokens equal where float32 forward's top-2 margin passes
+        # the float32 bound
+        sure32 = tx_margin(torch, want32) > TX_RTOL_F32 * top32
+        ok32 = ok32 and bool((got32.argmax(-1) == want32.argmax(-1))[
+            sure32].all())
+        got32_8 = prefill_decode(sp32, dataclasses.replace(cfg32, kv_bits=8))
+        err32_8, _, ok32_8 = tx_compare(torch, got32_8, want32, TX_KV8_GUARD)
+        # the reference's int8-KV tolerance where the reference states it,
+        # on one attention call: every layer's decode attention over the
+        # served model's own q, K and V, int8 cache against float cache
+        op_ratio, op_calls = tx_kv8_attention(
+            torch, lambda: prefill_decode(sp32, cfg32))
+        print(f"serve_transformer decode parity (the served weights, float32 "
+              f"activations and caches): {err32 / top32:.4g} x max|logit| "
+              f"(bound {TX_RTOL_F32}, the reference's), greedy tokens equal "
+              f"at the {int(sure32.sum())} of {sure32.numel()} positions "
+              f"with forward's top-2 margin past it; kv_bits=8: each "
+              f"decode attention's int8-cache output within "
+              f"{op_ratio:.4g} of the reference's tolerance |diff| <= "
+              f"{TX_KV8_TOL} + {TX_KV8_TOL} |out| (over {op_calls} calls: "
+              f"{cfg.n_layers} layers x {TX_DECODE} steps); logits against "
+              f"forward {err32_8 / top32:.4g} x max|logit| in float32, "
+              f"{err8 / top8:.4g} in bf16 (guard {TX_KV8_GUARD} for both: "
+              f"the int8 cache's rounding grown through {cfg.n_layers} "
+              f"random layers reads <= 0.105, planted faults >= 0.161)",
+              flush=True)
+        if not (ok32 and ok8 and ok32_8 and op_ratio <= 1.0):
+            raise AssertionError("serve_transformer: float32 decode parity / "
+                                 "kv_bits=8")
+        del want32
+
+        # the batcher's float default, then generate at B = 1
+        slots = max(TX_SLOTS)
+        b = ContinuousBatcher(sp, cfg, q, slots=slots, max_len=TX_MAX_LEN)
+        reqs = [Request(rid=i, prompt=prompts[i].tolist(), max_new=TX_NEW)
+                for i in range(TX_REQUESTS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = b.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_tok = sum(len(o) for o in out.values())
+        if sorted(out) != list(range(TX_REQUESTS)) or any(
+                len(o) != TX_NEW for o in out.values()):
+            raise AssertionError("serve_transformer: batcher lost tokens")
+        single = generate(sp, cfg, q, {"tokens": toks}, max_new=TX_NEW,
+                          max_len=TX_MAX_LEN)[0].tolist()
+        agree = next((i for i, (x, y) in enumerate(zip(single, out[0]))
+                      if x != y), TX_NEW)
+        # forward over request 0's prompt and the batcher's tokens (teacher
+        # forcing): each batched token within the decode-parity bound of
+        # forward's maximum, and where generate parts from the batcher, its
+        # token too
+        seq = torch.tensor([prompts[0].tolist() + out[0][:-1]],
+                           dtype=torch.int32, device=dev)
+        lg = T.forward(sp, {"tokens": seq}, cfg, q)[0][0, TX_PROMPT - 1:]
+        lg = lg.float()
+        top_j = lg.max(-1).values
+        tol_j = TX_RTOL * lg.abs().max(-1).values
+        idx = torch.arange(TX_NEW, device=dev)
+        regret = (top_j - lg[idx, torch.tensor(out[0], device=dev)]) / tol_j
+        worst = float(regret.max())
+        tie = ""
+        if agree < TX_NEW:
+            gap = float((top_j[agree] - lg[agree, single[agree]])
+                        / tol_j[agree])
+            worst = max(worst, gap)
+            tie = (f" (at token {agree} forward's top-2 margin is "
+                   f"{float(tx_margin(torch, lg[agree])):.4g}; both tokens "
+                   f"within {gap:.3g} of the bound of its maximum)")
+        # the witness: the same served weights in float32, where the GEMMs
+        # of M = 4 and M = 1 agree to ~1e-5 of max|logit| (the float32
+        # decode parity above): the batcher on its first wave of requests
+        # and generate at B=1 must give request 0 the same tokens
+        t0 = time.perf_counter()
+        out32 = ContinuousBatcher(sp32, cfg32, q, slots=slots,
+                                  max_len=TX_MAX_LEN).run(
+            [Request(rid=i, prompt=prompts[i].tolist(), max_new=TX_NEW)
+             for i in range(slots)])
+        single32 = generate(sp32, cfg32, q, {"tokens": toks}, max_new=TX_NEW,
+                            max_len=TX_MAX_LEN)[0].tolist()
+        agree32 = next((i for i, (x, y) in enumerate(zip(single32,
+                                                         out32[0]))
+                        if x != y), TX_NEW)
+        print(f"serve_transformer batcher: {TX_REQUESTS} requests of "
+              f"{TX_PROMPT} tokens, {TX_NEW} new each, {slots} slots: "
+              f"{n_tok} tokens in {wall:.3f} s ({n_tok / wall:.1f} tokens/s "
+              f"with the prefills); generate at B=1 on request 0 agrees for "
+              f"{agree} of {TX_NEW} tokens in bf16{tie}; every batched token "
+              f"of request 0 within {worst:.3g} of the bound (TX_RTOL x "
+              f"max|logit|) of forward's maximum; float32 (the served "
+              f"weights): the batcher over requests 0-{slots - 1} and "
+              f"generate at B=1 agree for {agree32} of {TX_NEW} tokens of "
+              f"request 0 ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if worst > 1.0:
+            raise AssertionError("serve_transformer: the batcher's tokens "
+                                 "are not greedy within the bound")
+        if agree32 < TX_NEW:
+            raise AssertionError("serve_transformer: float32 batcher != "
+                                 "generate at B=1")
+        del sp32
+        torch.cuda.empty_cache()
+
+        # times: a decode step at each slot count, prefill, the profile
+        step = make_serve_step(cfg, q)
+        lines, step_ms = [], {}
+        for s in TX_SLOTS:
+            tt = torch.from_numpy(prompts[:s]).to(dev)
+            _, cc = T.prefill(sp, {"tokens": tt}, cfg, q, max_len=TX_MAX_LEN)
+            tok = tt[:, -1:].contiguous()
+            fn = (lambda cc=cc, tok=tok: step(sp, cc, tok))
+            step_ms[s] = eager_ms(torch, fn, reps=TX_STEPS_TIMED)
+            lines.append(f"slots {s}: {step_ms[s]:.4f} ms a decode step, "
+                         f"{s * 1e3 / step_ms[s]:.1f} tokens/s")
+            if s == slots:
+                prof = device_profile(torch, fn, reps=1, launched=True)
+        prefill_ms = eager_ms(torch, lambda: T.prefill(
+            sp, {"tokens": toks}, cfg, q, max_len=TX_MAX_LEN), reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # a step reads every int8 code, scale and norm, and one embedding
+        # row a slot (the gather), not the whole embedding
+        row_b = emb_b // cfg.vocab
+        read_b = {s: w_bytes - emb_b + s * row_b for s in TX_SLOTS}
+        bound_ms = {s: read_b[s] / HBM_BYTES_PER_S * 1e3 for s in TX_SLOTS}
+        wall_p, busy, ops, top_ops = prof
+        print(f"serve_transformer times ({smi}; host clock, eager): "
+              + "; ".join(lines) + f"; prefill T={TX_PROMPT} B=1 "
+              f"{prefill_ms:.4f} ms; a decode step's weight-read bound "
+              + ", ".join(f"{bound_ms[s]:.4f} ms at slots {s} ({read_b[s]} "
+                          "bytes)" for s in TX_SLOTS)
+              + f" at {HBM_BYTES_PER_S / 1e12:.2f} TB/s (the int8 codes, "
+              f"scales and norms, and {row_b} bytes of embedding a slot); "
+              f"peak memory {peak:.2f} GiB", flush=True)
+        print(f"serve_transformer profile (decode step, slots {slots}; "
+              f"{smi}): part 1 {time.perf_counter() - t_phase:.1f} s; wall "
+              f"{wall_p:.4f} ms, device busy {busy:.4f} ms "
+              f"(share {busy / wall_p:.4f}), {ops:.1f} device ops; most "
+              "device time: " + ", ".join(
+                  f"{k.split('(')[0][-48:]} {v:.4f}" for k, v in top_ops),
+              flush=True)
+        del sp, b
+        torch.cuda.empty_cache()
+
+        # -- part 2: a 2-layer float32 cut, card against CPU ----------------
+        t0 = time.perf_counter()
+        cut = dataclasses.replace(cfg, n_layers=TX_CUT_LAYERS,
+                                  param_dtype=torch.float32)
+        p2 = T.quantize_params_for_serving(T.make_params(
+            torch.Generator(device=dev).manual_seed(SEED + 1), cut,
+            device=dev), bits_w=arch.serve_bits_w)
+        c2 = tree.map(lambda x: x.cpu(), p2)
+        t2 = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (1, TX_CUT_PROMPT + TX_CUT_DECODE)).astype(
+            np.int32))
+
+        def cut_run(p, t):
+            lg, cc = T.prefill(p, {"tokens": t[:, :TX_CUT_PROMPT]}, cut, q,
+                               max_len=TX_CUT_PROMPT + TX_CUT_DECODE)
+            out = [lg[0, -1]]
+            for i in range(TX_CUT_PROMPT, TX_CUT_PROMPT + TX_CUT_DECODE):
+                lg, cc = T.decode_step(p, cc, t[:, i:i + 1], cut, q)
+                out.append(lg[0, -1])
+            return torch.stack(out)
+        err, top, ok = tx_compare(torch, cut_run(p2, t2.to(dev)),
+                                  cut_run(c2, t2), TX_CPU_RTOL)
+        print(f"serve_transformer card against CPU: {TX_ARCH} cut to "
+              f"{TX_CUT_LAYERS} layers (of {cfg.n_layers}) and float32 (from "
+              f"{cfg.param_dtype}), full widths, served (int8 codes), TF32 "
+              f"off: prefill({TX_CUT_PROMPT}) + {TX_CUT_DECODE} decode "
+              f"logits {err:.4g} apart, {err / top:.3g} x max|logit| (bound "
+              f"{TX_CPU_RTOL}); {time.perf_counter() - t0:.1f} s", flush=True)
+        if not ok:
+            raise AssertionError("serve_transformer: card against CPU")
+        del p2, c2
+        torch.cuda.empty_cache()
+
+        # -- part 3: every arch at its smoke config --------------------------
+        for aid in ARCH_IDS:
+            t0 = time.perf_counter()
+            line = tx_smoke_arch(torch, dev, aid)
+            print(f"serve_transformer smoke {line} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    counts = kernels.launch_counts()
+    others = {**kernels.packed_launch_counts(),
+              **kernels.noisy_launch_counts(),
+              **kernels.split_launch_counts()}
+    if any(counts.values()) or any(others.values()):
+        raise AssertionError(f"serve_transformer launched integer kernels: "
+                             f"{counts} {others}")
+    print("kernels (transformer): none (" + " ".join(
+        f"{k}={v}" for k, v in counts.items()) + "; the zoo runs no TPU "
+          "kernel: its products are torch.matmul / einsum)", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"serve_transformer: phase {secs:.1f} s (budget "
+          f"{TX_BUDGET_S:.0f} s)", flush=True)
+    if secs > TX_BUDGET_S:
+        raise AssertionError(f"serve_transformer took {secs:.1f} s > "
+                             f"{TX_BUDGET_S}")
+    return {"step_ms": step_ms, "prefill_ms": prefill_ms, "secs": secs}
+
+
+# ---------------------------------------------------------------------------
 # Float FQ training (train_fq)
 # ---------------------------------------------------------------------------
 
@@ -4825,6 +5379,8 @@ def main() -> int:
             ("serve_darknet", lambda: phase_serve_darknet(torch, dev)),
             ("serve_batcher", lambda: phase_serve_batcher(torch, dev)),
             ("serve_lm", lambda: phase_serve_lm(torch, dev)),
+            ("serve_transformer",
+             lambda: phase_serve_transformer(torch, dev)),
             ("train_fq", lambda: phase_train_fq(torch, dev)),
             ("train_qat", lambda: phase_train_qat(torch, dev)),
             ("fleet", lambda: phase_fleet(torch, dev)),

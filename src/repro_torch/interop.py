@@ -8,9 +8,11 @@ them bit for bit: int8 weight codes or packed (int4 / ternary) uint8
 bytes, the folded float32 ``rescale`` / ``alpha`` / ``s_out`` scalars, the
 float edge layers (KWS's embedding, BN and head; DarkNet's conv0 and head),
 the entry scale and the decode scale, a residual DAG's hand-off edges and
-list-valued extras (the integer LM's ``island_s_in``), and ``jax.random``
-keys (their two uint32 words) for the noise model. Nothing here imports the reference;
-callers hand over numpy arrays and plain objects.
+list-valued extras (the integer LM's ``island_s_in``), ``jax.random``
+keys (their two uint32 words) for the noise model, and the float
+transformer's parameter trees (float32, bfloat16 or converted to int8
+codes for serving). Nothing here imports the reference; callers hand over numpy
+arrays and plain objects.
 """
 from __future__ import annotations
 
@@ -26,12 +28,16 @@ from .device import DeviceLike, resolve_device
 
 def _tensors(x):
     """numpy arrays / numpy scalars -> CPU tensors, recursively; python
-    ints, floats and strings (a layer's statics) stay as they are."""
+    ints, floats and strings (a layer's statics) stay as they are.
+    bfloat16 arrays (ml_dtypes: 2-byte words to numpy) keep their bits."""
     if isinstance(x, dict):
         return {k: _tensors(v) for k, v in x.items()}
     if isinstance(x, (tuple, list)):
         return type(x)(_tensors(v) for v in x)
     if isinstance(x, (np.ndarray, np.generic)):
+        if x.dtype.name == "bfloat16":
+            return torch.from_numpy(np.array(x).view(np.uint16)).view(
+                torch.bfloat16)
         return torch.from_numpy(np.array(x, copy=True))
     return x
 
@@ -81,7 +87,11 @@ def stack_from_numpy(layers: Dict[str, dict], extras: Dict[str, Any], qcfg,
 def params_from_numpy(params: Dict[str, Any], state: Dict[str, Any], *,
                       device: DeviceLike = None):
     """Float FQ params and BN state of any model (numpy trees) -> tensors
-    on ``device``."""
+    on ``device``, leaf for leaf, bit for bit. The float transformer's
+    trees too (``models.transformer.make_params``, or after
+    ``quantize_params_for_serving``): dicts and tuples, scan-stacked
+    ``blocks`` with their leading group dim, ``w_codes`` / ``w_scale``, the
+    MoE experts' ``*_codes``, bfloat16 leaves (its state is ``{}``)."""
     dev = resolve_device(device)
     return to_device(_tensors(params), dev), to_device(_tensors(state), dev)
 

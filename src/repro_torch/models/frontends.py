@@ -1,20 +1,32 @@
-"""Modality frontend configs and the serving shape ladders.
+"""Modality frontend stubs for the [audio] / [vlm] architectures, and the
+serving shape ladders.
 
-Counterpart of ``repro.models.frontends``, the serving part: the frontend
-configs and the ``*_serving_ladder`` constructors, which bind each
-modality's shape contract (n_mfcc / channels / feat_dim) to a
-:class:`..serve.shape_ladder.ShapeLadder`, so the CNN batcher can fold
-arbitrary request shapes onto a bounded rung set (crop/pad,
-quantizer-commuting). The learned adapter (``init_adapter``,
-``apply_adapter``, ``feature_spec``, ``synthetic_features``) needs the FQ
-projection layer in its quantized mode, which the port does not have yet.
+Counterpart of ``repro.models.frontends``. The transformer backbone is the
+implemented system; a modality frontend is a stub that takes precomputed
+frame / patch embeddings (``feature_spec`` gives their shape and dtype), and
+a small learned adapter (an FQ projection, so the paper's quantization
+applies from the first matmul) maps them into the backbone's d_model:
+
+  * Whisper's conv frontend -> precomputed log-mel frame embeddings
+    (B, n_frames, feat);
+  * InternViT / llama4 early fusion -> precomputed patch embeddings
+    (B, n_patches, feat).
+
+The ``*_serving_ladder`` constructors bind each modality's shape contract
+(n_mfcc / channels / feat_dim) to a :class:`..serve.shape_ladder.ShapeLadder`,
+so the CNN batcher can fold arbitrary request shapes onto a bounded rung
+set (crop/pad, quantizer-commuting).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
 
+import torch
+
+from ..core.quant import QuantConfig
 from ..serve.shape_ladder import LadderSpec, ShapeLadder
+from . import layers as L
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +43,37 @@ class FrontendConfig:
 AUDIO_WHISPER_TINY = FrontendConfig("audio", feat_dim=80, n_positions=1500)
 VISION_INTERNVL = FrontendConfig("vision", feat_dim=1024, n_positions=256)
 VISION_LLAMA4 = FrontendConfig("vision", feat_dim=1408, n_positions=144)
+
+
+def init_adapter(gen, cfg: FrontendConfig, d_model: int,
+                 dtype=torch.float32):
+    """Learned adapter: frontend features -> backbone d_model (FQ layer)."""
+    if not cfg.enabled:
+        return {}
+    return {"adapter": L.init_proj(gen, cfg.feat_dim, d_model, dtype)}
+
+
+def apply_adapter(p, feats, cfg: FrontendConfig, qcfg: QuantConfig):
+    """feats: (B, n_positions, feat_dim) precomputed embeddings -> (B, n, d)."""
+    return L.proj(p["adapter"], feats, qcfg)
+
+
+def feature_spec(cfg: FrontendConfig, batch: int, dtype=torch.bfloat16):
+    """The precomputed features' shape and dtype, as a ``meta`` tensor (no
+    storage), or None without a frontend."""
+    if not cfg.enabled:
+        return None
+    return torch.empty((batch, cfg.n_positions, cfg.feat_dim), dtype=dtype,
+                       device="meta")
+
+
+def synthetic_features(gen: torch.Generator, cfg: FrontendConfig, batch: int,
+                       dtype=torch.float32):
+    """Deterministic stand-in features (standard normals from ``gen``, on
+    its device) for smoke runs and examples."""
+    if not cfg.enabled:
+        return None
+    return L.normal(gen, (batch, cfg.n_positions, cfg.feat_dim), dtype)
 
 
 def kws_serving_ladder(cfg, frame_counts: Optional[Sequence[int]] = None

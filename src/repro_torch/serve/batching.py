@@ -10,12 +10,12 @@ written into the slot's rows of the batch cache (O(prompt) work, no
 full-batch refill).
 
 The model interface is ``prefill_fn(params, tokens)``, ``step_fn(params,
-caches, tokens)`` and ``init_caches_fn(batch)``; ``models.fq_lm.serve_fns``
-gives the integer LM's (int8 code-domain KV cache, per-slot positions, the
-caches updated in place by the step, where the reference donates them).
-The step runs eagerly. The reference's default, the float transformer
-path, is not ported (ROADMAP Queue A item 6): the three functions are
-required.
+caches, tokens)`` and ``init_caches_fn(batch)``. They default to the float
+transformer (``models.transformer``: ``prefill`` into a fresh single-slot
+cache, ``decode.make_serve_step``, ``init_caches`` on the params' device);
+``models.fq_lm.serve_fns`` gives the integer LM's (int8 code-domain KV
+cache, per-slot positions). Either way the step writes the caches in place,
+where the reference donates them, and runs eagerly.
 
 Draws: one key per sampling event, ``fold_in(PRNGKey(0), n)`` with n the
 count of draws so far (each admission and each decode step), as the
@@ -30,7 +30,8 @@ import torch
 
 from ..core import prng
 from ..core.quant import QuantConfig
-from .decode import SampleConfig, sample
+from ..models import transformer as T
+from .decode import SampleConfig, make_serve_step, sample
 
 
 @dataclasses.dataclass
@@ -59,9 +60,11 @@ class ContinuousBatcher:
     Each admitted prompt is prefilled alone, its first token sampled from
     the prefill logits; a request done at prefill (EOS, or ``max_new`` 1)
     retires before any batch state is touched. All live slots then decode
-    in lockstep; retired lanes get token 0 and budget 0. Caches that carry
-    per-slot position vectors (the integer LM's) admit staggered prompts.
-    The token budgets are kept on the host.
+    in lockstep; retired lanes get token 0 and budget 0. The float
+    transformer's caches share one scalar position counter, so concurrent
+    requests need prompts of equal length; caches that carry per-slot
+    position vectors (the integer LM's) admit staggered prompts. The token
+    budgets are kept on the host.
     """
 
     def __init__(self, params, model_cfg, qcfg: QuantConfig, *, slots: int,
@@ -70,12 +73,24 @@ class ContinuousBatcher:
                  prefill_fn: Optional[Callable] = None,
                  step_fn: Optional[Callable] = None,
                  init_caches_fn: Optional[Callable] = None):
-        if prefill_fn is None or step_fn is None or init_caches_fn is None:
-            raise ValueError(
-                "ContinuousBatcher needs prefill_fn, step_fn and "
-                "init_caches_fn (models.fq_lm.serve_fns gives the integer "
-                "LM's); the float transformer default is not ported "
-                "(ROADMAP Queue A item 6)")
+        defaults = None in (prefill_fn, step_fn, init_caches_fn)
+        if defaults and not isinstance(model_cfg, T.TransformerConfig):
+            raise TypeError(
+                "ContinuousBatcher's default model functions serve the float "
+                f"transformer (a TransformerConfig), not {type(model_cfg)}; "
+                "pass prefill_fn, step_fn and init_caches_fn (the integer "
+                "LM's: models.fq_lm.serve_fns)")
+        if prefill_fn is None:
+            def prefill_fn(params, toks):
+                return T.prefill(params, {"tokens": toks}, model_cfg, qcfg,
+                                 max_len=max_len)
+        if step_fn is None:
+            step_fn = make_serve_step(model_cfg, qcfg)
+        if init_caches_fn is None:
+            device = _first_tensor(params).device
+
+            def init_caches_fn(batch):
+                return T.init_caches(model_cfg, batch, max_len, device=device)
         self.params = params
         self.cfg = model_cfg
         self.qcfg = qcfg

@@ -470,7 +470,9 @@ def test_sync_handoff_edges_equals_reference():
 
 
 def test_batcher_requires_the_model_functions():
-    with pytest.raises(ValueError, match="Queue A item 6"):
+    """The batcher's defaults serve the float transformer; the integer LM
+    must hand over its own functions (``serve_fns``)."""
+    with pytest.raises(TypeError, match="serve_fns"):
         ContinuousBatcher(_carried("reduced"), CFGS["reduced"][1], QCFG,
                           slots=2, max_len=8)
 
