@@ -157,7 +157,30 @@ Phases, each of which must pass:
    that round otherwise pinned and counted, all rounding ties; greedy
    ``generate`` tokens equal; the batcher's tokens equal ``generate``'s,
    the MoE archs' the CPU batcher's; minitron's int8 KV logits within
-   0.05). It fails past 90 s;
+   0.05). It fails past 90 s. minitron-4b runs at TX_LAYERS = 16 of its
+   32 layers (full width), which keeps the run's phases within 1,100 s;
+11c. train_transformer: the float zoo trained, again no TPU-kernel
+   counterpart (the counters read 0 across it). minicpm-2b uncut
+   (``get_arch("minicpm-2b").model``: 40 layers, d_model 2304, 36 / 36
+   heads, d_ff 5760, vocab 122,753, tied, bf16, remat on) from seed SEED
+   through the launcher's own path (``launch.train.TrainRun``: AdamW,
+   weight decay 0.1, WSD at lr 1e-3), 6 steps on B=8 x 256 bigram
+   batches with float32 moments, then 6 from the same params with int8
+   moments: every step's loss, global norm and params finite, the params
+   unmoved by step 0 (lr 0) and moved by every later step, the int8
+   codes int8 and their scales positive; it prints ms a step, tokens/s,
+   peak memory, the busy share and device ops of one profiled step and
+   the matmul bound (8 N tokens FLOP at the bf16 peak). Then the model
+   cut to 2 layers in float32 (remat off) trains a ``make_train_step``
+   step (grad_accum 1) on the card, repeated on
+   the CPU from the card's params and state (the CPU's quantizers pinned
+   to the card's inputs; the code flips that are not rounding ties at
+   most TRAIN_TX_MAX_FLIPS of the values, ties counted): loss within
+   1e-5, each gradient within 1e-3 relative L2 (a log-scale within C_S M
+   + 2 D), the params after the update within 1e-3 (a log-scale within 2
+   lr: Adam steps it by lr times its gradient's sign); and 2 steps + save
+   + restore + 2 steps equal 4 straight steps bit for bit. It fails past
+   90 s;
 12. train_fq: float FQ training, which reaches no TPU-kernel counterpart
    (the K1-K5 counters must read 0 across it). Full-width KWS (B=64, 140
    frames), DarkNet-19 (224 x 224, B=8) and the paper's CIFAR ResNets
@@ -186,9 +209,10 @@ Phases, each of which must pass:
    calibration agree; every quantized layer's w, s_w, s_in and s_out get a
    gradient in each FQ stage; and a backward of the ladder's last stage
    with ``cudnn.allow_tf32 = True`` set globally gives the gradients of
-   the run with it False bit for bit. It prints each stage's step time (host
-   clock, mean of 5), profiled busy share and top device ops, and peak
-   memory, beside the card's name and power limit.
+   the run with it False bit for bit. It runs under cuDNN's deterministic
+   algorithms, so that each call trains the same steps. It prints each
+   stage's step time (host clock, mean of 5), profiled busy share and top
+   device ops, and peak memory, beside the card's name and power limit.
 
 13. train_qat: deploy-QAT, whose training forward is the deployed integer
    path (K1, K3, K3b; K4 under noise) and whose backward is the float
@@ -275,12 +299,13 @@ HBM_BYTES_PER_S = 3.35e12
 # the clock of the float32 peak: 67e12 = 132 SMs x 128 lanes x 2 x 1.98 GHz
 SM_CLOCKS_PER_S = 132 * 1.98e9
 # peak rate of each type of work, in operations per second: the tensor
-# cores' int8 MACs and float32 outside them (data sheet); then per SM and
+# cores' int8 MACs and bf16 FLOPs, and float32 outside them (data sheet);
+# then per SM and
 # clock (CUDA programming guide, arithmetic throughput, compute capability
 # 9.0): 64 lanes of the integer ALU pipe (shifts, logic, IADD3), 64 of
 # IMAD on the fmaheavy pipe, 16 int-to-float conversions, and 128
 # instructions dispatched (4 schedulers x 32 threads), whatever their pipe
-PEAKS = {"int8": 1979e12, "fp32": 67e12,
+PEAKS = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12,
          "alu": 64 * SM_CLOCKS_PER_S, "imad": 64 * SM_CLOCKS_PER_S,
          "i2f": 16 * SM_CLOCKS_PER_S, "dispatch": 128 * SM_CLOCKS_PER_S}
 # float32 adds and multiplies share the 128 fma lanes (fmaheavy and
@@ -2946,6 +2971,10 @@ def phase_serve_lm(torch, dev):
 # ---------------------------------------------------------------------------
 
 TX_ARCH = "minitron-4b"        # the full-width model served
+# its depth in this run: 16 of its 32 layers, at full width (the whole
+# smoke run's phases must stay within 1,100 of its 1,200 s once
+# train_transformer joined; PERF.md §4)
+TX_LAYERS = 16
 TX_SLOTS = (1, 4)              # decode slots timed; the batcher runs on 4
 TX_REQUESTS = 8                # greedy requests through the batcher
 TX_PROMPT = 128                # tokens a prompt (equal lengths: one position)
@@ -3185,7 +3214,8 @@ def phase_serve_transformer(torch, dev):
     smi = nvidia_smi()
     kernels.reset_launch_counts()
     arch = get_arch(TX_ARCH)
-    cfg, q = arch.model, arch.qcfg
+    cfg = dataclasses.replace(arch.model, n_layers=TX_LAYERS)
+    q = arch.qcfg
     rng = np.random.default_rng(SEED + 31)
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
@@ -3207,7 +3237,7 @@ def phase_serve_transformer(torch, dev):
                                                       device="meta"))
                       if n.split(".")[-1] in ("k", "v"))
         print(f"serve_transformer: {TX_ARCH} at full width ({cfg.n_layers} "
-              f"layers, d_model {cfg.d_model}, {cfg.n_heads} / "
+              f"of its {arch.model.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / "
               f"{cfg.n_kv_heads} heads, head_dim {cfg.head_dim_}, d_ff "
               f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}), "
               f"{n_params} params from seed {SEED} on the card, converted "
@@ -3431,7 +3461,8 @@ def phase_serve_transformer(torch, dev):
         err, top, ok = tx_compare(torch, cut_run(p2, t2.to(dev)),
                                   cut_run(c2, t2), TX_CPU_RTOL)
         print(f"serve_transformer card against CPU: {TX_ARCH} cut to "
-              f"{TX_CUT_LAYERS} layers (of {cfg.n_layers}) and float32 (from "
+              f"{TX_CUT_LAYERS} layers (of {arch.model.n_layers}) and float32 "
+              f"(from "
               f"{cfg.param_dtype}), full widths, served (int8 codes), TF32 "
               f"off: prefill({TX_CUT_PROMPT}) + {TX_CUT_DECODE} decode "
               f"logits {err:.4g} apart, {err / top:.3g} x max|logit| (bound "
@@ -3465,6 +3496,418 @@ def phase_serve_transformer(torch, dev):
         raise AssertionError(f"serve_transformer took {secs:.1f} s > "
                              f"{TX_BUDGET_S}")
     return {"step_ms": step_ms, "prefill_ms": prefill_ms, "secs": secs}
+
+
+# ---------------------------------------------------------------------------
+# The float transformer zoo trained (train_transformer)
+# ---------------------------------------------------------------------------
+
+TRAIN_TX_ARCH = "minicpm-2b"   # trained at full width and depth
+TRAIN_TX_BATCH = 8
+TRAIN_TX_SEQ = 256
+TRAIN_TX_STEPS = 6             # each run; WSD: step 0's lr is 0
+TRAIN_TX_LR = 1e-3
+TRAIN_TX_PROFILED = 4          # the step profiled (float32 moments' run)
+TRAIN_TX_SAMPLE = 4096         # elements a leaf sampled to see it change
+TRAIN_TX_CUT_LAYERS = 2        # part 2: card against CPU, in float32
+TRAIN_TX_CUT_BATCH = 2
+TRAIN_TX_CUT_SEQ = 32
+# part 2 holds one make_train_step step at grad_accum 1 card against CPU:
+# the CPU twin of one full-width forward and backward takes ~20 s on an
+# H100 machine's host (the taps and weight quantizers over 122M float32
+# weights, the 283M-element tied embedding), so more steps, or one at
+# grad_accum 2, do not fit the phase's 90 s beside part 1; grad_accum 2 and
+# further steps are held against the reference on the CPU
+# (tests/test_torch_train_lm_step.py, tests/test_torch_launch_train.py)
+# code flips card against CPU that are not rounding ties, at most this
+# share of the quantized values (sound runs on an H100 read 2 of
+# 124,600,320 and 0: two small inputs summed from large terms); the ties
+# are counted
+TRAIN_TX_MAX_FLIPS = 1e-7
+TRAIN_TX_RTOL_LOSS = 1e-5      # relative: a mean of log-softmaxes
+# a leaf's gradient and the params after an update, relative L2: float32
+# sums in other orders; a log-scale's gradient within TRAIN_C_S x M + 2 D
+# (its terms cancel: ROADMAP C14, as train_fq holds it)
+TRAIN_TX_RTOL_GRAD = 1e-3
+TRAIN_TX_BUDGET_S = 90.0
+
+
+def tx_sample(torch, params):
+    """A strided sample of every leaf (TRAIN_TX_SAMPLE elements), cloned:
+    enough to see whether an update moved the leaf."""
+    from repro_torch import tree
+    out = []
+    for x in tree.leaves(params):
+        flat = x.reshape(-1)
+        out.append(flat[::max(1, flat.numel() // TRAIN_TX_SAMPLE)].clone())
+    return out
+
+
+def tx_train_run(torch, smi, bits):
+    """The launcher's own path (``launch.train.TrainRun``) on minicpm-2b at
+    full width and depth, TRAIN_TX_STEPS steps: every step's loss, global
+    norm and params finite, the params unchanged by step 0 (lr 0) and moved
+    by every later step; returns its numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree
+    from repro_torch.launch import train as launch
+
+    argv = ["--arch", TRAIN_TX_ARCH, "--steps", str(TRAIN_TX_STEPS),
+            "--batch", str(TRAIN_TX_BATCH), "--seq", str(TRAIN_TX_SEQ),
+            "--lr", str(TRAIN_TX_LR), "--seed", str(SEED), "--log-every",
+            "1", "--device", "cuda"]
+    if bits:
+        argv += ["--moment-bits", str(bits)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = launch.TrainRun(launch.parse_args(argv))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    cfg, n_params = run.cfg, sum(x.numel() for x in tree.leaves(run.params))
+    prof_out = {}
+    step_fn = run.step_fn
+
+    def profiled(p, s, b, i):
+        if bits or i != TRAIN_TX_PROFILED:
+            return step_fn(p, s, b, i)
+        torch.cuda.synchronize()
+        # device events only, read raw: recording the host's ~1.6 x 10^5
+        # operator calls and parsing them cost ~50 s on the card's host
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            out = step_fn(p, s, b, i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        dev_evs = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA]
+        prof_out.update(wall_ms=wall * 1e3, ops=len(dev_evs), busy_ms=sum(
+            e.duration_ns() for e in dev_evs) / 1e6)
+        return out
+    run.step_fn = profiled
+
+    rec = {"loss": [], "gnorm": [], "ms": [], "moved": []}
+    before = [tx_sample(torch, run.params)]
+    clock = [time.perf_counter()]
+
+    def on_step(i, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rec["ms"].append((now - clock[0]) * 1e3)
+        after = tx_sample(torch, run.params)
+        moved = sum(int((a != b).sum()) for a, b in zip(after, before[0]))
+        total = sum(a.numel() for a in after)
+        finite = torch.stack([torch.isfinite(x).all()
+                              for x in tree.leaves(run.params)]).all()
+        rec["loss"].append(float(m["loss"]))
+        rec["gnorm"].append(float(m["grad_norm"]))
+        rec["moved"].append(moved / total)
+        if not (bool(finite) and math.isfinite(rec["loss"][-1])
+                and math.isfinite(rec["gnorm"][-1])):
+            raise AssertionError(f"train_transformer: step {i} not finite "
+                                 f"(loss {rec['loss'][-1]}, grad norm "
+                                 f"{rec['gnorm'][-1]}, params finite "
+                                 f"{bool(finite)})")
+        if (moved == 0) != (i == 0):
+            raise AssertionError(f"train_transformer: step {i} moved "
+                                 f"{moved} of {total} sampled params (only "
+                                 "step 0, at lr 0, may move none)")
+        before[0] = after
+        clock[0] = time.perf_counter()
+
+    run.run(on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if bits:
+        for mom in tree.leaves(run.opt_state["mom"],
+                               is_leaf=lambda x: isinstance(x, dict)
+                               and "m" in x):
+            if (mom["m"].dtype != torch.int8 or mom["v"].dtype != torch.int8
+                    or not bool(mom["m_s"] > 0) or not bool(mom["v_s"] > 0)):
+                raise AssertionError("train_transformer: int8 moments")
+    del run
+    return dict(rec, cfg=cfg, n_params=n_params, peak=peak, setup=t_setup,
+                **prof_out)
+
+
+def tx_cut_step(torch, dev, cut, q, p0):
+    """One ``make_train_step`` step (AdamW, weight decay 0.1, grad_accum 1)
+    on the card from ``p0``, repeated on the CPU from a copy of
+    the card's params and state, the CPU's quantizers pinned to the card's
+    inputs (taps: code flips counted, those not rounding ties held under
+    TRAIN_TX_MAX_FLIPS of the values); the loss, the gradients (taken where
+    the step clips them) and the updated params compared, on the card in
+    float64. Returns a summary line."""
+    from repro_torch import tree
+    from repro_torch import taps as taps_mod
+    from repro_torch.data import loader, synthetic
+    from repro_torch.optim import adam, schedules
+    from repro_torch.train import trainer
+
+    opt = adam.make(schedules.constant(TRAIN_TX_LR), weight_decay=0.1)
+    cur, seen, secs = {}, {}, {}
+
+    def tapped_vg(fn, has_aux=False):
+        def vg(params, *args):
+            (v, aux), named = taps_mod.value_and_grad(
+                lambda p: fn(p, *args), params, cur["taps"])
+            return (v, aux), tree.unflatten(params, list(named.values()))
+        return vg
+
+    def clip(grads, max_norm):
+        seen[cur["where"]] = grads
+        return orig_clip(grads, max_norm)
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[key] = secs.get(key, 0.0) + time.perf_counter() - t
+        return out
+
+    orig_vg, orig_clip = tree.value_and_grad, trainer.clip_by_global_norm
+    tree.value_and_grad, trainer.clip_by_global_norm = tapped_vg, clip
+    try:
+        steps = {w: trainer.make_train_step(cut, q, opt, device=d)
+                 for w, d in (("card", dev), ("cpu", "cpu"))}
+        batch = loader.SyntheticLMLoader(loader.LoaderConfig(
+            TRAIN_TX_CUT_BATCH, TRAIN_TX_CUT_SEQ, cut.vocab, seed=SEED + 2),
+            synthetic.lm_batch, device=dev).batch_at(0)
+        card = [tree.map(torch.clone, p0)]
+        card.append(opt.init(card[0]))
+        cpu = timed("copy", lambda: tree.map(
+            lambda x: x.to("cpu", copy=True), card))
+        card_taps = taps_mod.Taps(record=True)
+        cpu_taps = taps_mod.Taps(card_taps)
+        metrics = {}
+        for where, st, tp in (("card", card, card_taps),
+                              ("cpu", cpu, cpu_taps)):
+            cur.update(where=where, taps=tp)
+            p, s, metrics[where] = timed(where, lambda: steps[where](
+                st[0], st[1], batch, 0))
+            st[:] = [p, s]
+    finally:
+        tree.value_and_grad, trainer.clip_by_global_norm = orig_vg, orig_clip
+    cpu_taps.matched()
+    # as train_fq: a code whose input the two devices sum apart by float32
+    # rounding may round to its neighbour, a tie within 2^-16 LSB of the
+    # boundary or (rarely) a small input summed from large terms
+    flips = (cpu_taps.code_flips, cpu_taps.round_ties, cpu_taps.positions)
+    worst = {"loss": 0.0, "grad": 0.0, "scale": 0.0, "param": 0.0,
+             "scale_step": 0.0}
+    t0 = time.perf_counter()
+    lc, lh = (float(metrics[w]["loss"]) for w in ("card", "cpu"))
+    worst["loss"] = abs(lc - lh) / abs(lh)
+    scales = set()
+    for (name, gc), gh in zip(tree.named_leaves(seen["card"]),
+                              tree.leaves(seen["cpu"])):
+        gc, gh = gc.double(), gh.to(dev).double()
+        if not bool(torch.isfinite(gc).all()):
+            raise AssertionError(f"train_transformer cut: {name}'s "
+                                 "gradient not finite on the card")
+        parts = ([(name, 0, gh.numel())] if name in cpu_taps.mag
+                 else [(k, *map(int, k[len(name) + 1:-1].split(":")))
+                       for k in cpu_taps.mag if k.startswith(name + "[")])
+        if parts:   # a log-scale, or a stack of them (C14)
+            scales.add(name)
+            err = (gc - gh).abs().reshape(-1)
+            for k, a, z in parts:
+                lim = (TRAIN_C_S * cpu_taps.mag[k]
+                       + 2.0 * cpu_taps.fwd.get(k, 0.0))
+                r = float(err[a:z].max()) / max(lim, 1e-30)
+                worst["scale"] = max(worst["scale"], r)
+        else:
+            r = float((gc - gh).norm() / gh.norm().clamp_min(1e-30))
+            worst["grad"] = max(worst["grad"], r)
+    for (name, pc), ph in zip(tree.named_leaves(card[0]),
+                              tree.leaves(cpu[0])):
+        ph = ph.to(dev).double()
+        diff = pc.double() - ph
+        if name in scales:
+            # Adam moves a param by lr g / (|g| + eps), lr x its sign: where
+            # a log-scale's gradient lies within its bound of 0 the two runs
+            # may step apart by 2 lr
+            r = float(diff.abs().max()) / (2.0 * TRAIN_TX_LR)
+            worst["scale_step"] = max(worst["scale_step"], r)
+        else:
+            r = float(diff.norm() / ph.norm().clamp_min(1e-30))
+            worst["param"] = max(worst["param"], r)
+    secs["compare"] = time.perf_counter() - t0
+    del seen, card, cpu
+    ok = (worst["loss"] <= TRAIN_TX_RTOL_LOSS and worst["scale"] <= 1.0
+          and worst["grad"] <= TRAIN_TX_RTOL_GRAD
+          and worst["param"] <= TRAIN_TX_RTOL_GRAD
+          and worst["scale_step"] <= 1.0
+          and flips[0] - flips[1] <= TRAIN_TX_MAX_FLIPS * flips[2])
+    line = (f"1 step at grad_accum 1, loss "
+            f"{worst['loss']:.3g} relative (bound {TRAIN_TX_RTOL_LOSS}), "
+            f"gradients {worst['grad']:.3g} relative L2 (bound "
+            f"{TRAIN_TX_RTOL_GRAD}), log-scales {worst['scale']:.3g} of "
+            f"C_S M + 2 D, params after the update {worst['param']:.3g} "
+            f"relative L2 (bound {TRAIN_TX_RTOL_GRAD}; log-scales "
+            f"{worst['scale_step']:.3g} of 2 lr); code flips {flips[0]} of "
+            f"{flips[2]} quantized values, {flips[1]} of them rounding ties "
+            f"(the others bound {TRAIN_TX_MAX_FLIPS} of the values); s: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    if not ok:
+        raise AssertionError(f"train_transformer cut, card against CPU: "
+                             f"{line}")
+    return line
+
+
+def tx_resume(torch, dev, cut, q, p0):
+    """On the card: 2 steps, save, restore and 2 more steps against 4
+    straight steps (int8 moments, constant lr), params and state bit for
+    bit; the checkpoint in a temporary directory, deleted after."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.data import loader, synthetic
+    from repro_torch.optim import adam, schedules
+    from repro_torch.train import checkpoint, trainer
+
+    opt = adam.make(schedules.constant(TRAIN_TX_LR), weight_decay=0.1,
+                    moment_bits=8)
+    step = trainer.make_train_step(cut, q, opt, device=dev)
+    ld = loader.SyntheticLMLoader(loader.LoaderConfig(
+        TRAIN_TX_CUT_BATCH, TRAIN_TX_CUT_SEQ, cut.vocab, seed=SEED + 3),
+        synthetic.lm_batch, device=dev)
+
+    def fresh():
+        p = tree.map(torch.clone, p0)
+        return p, opt.init(p)
+
+    p, s = fresh()
+    for i in range(4):
+        p, s, _ = step(p, s, ld.batch_at(i), i)
+    p2, s2 = fresh()
+    for i in range(2):
+        p2, s2, _ = step(p2, s2, ld.batch_at(i), i)
+    d = tempfile.mkdtemp(prefix="train_transformer_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        path = checkpoint.save(d, 2, p2, s2)
+        nbytes = os.path.getsize(path)
+        template = (tree.map(torch.empty_like, p2),
+                    tree.map(torch.empty_like, s2))
+        del p2, s2
+        k, p3, s3, _ = checkpoint.restore(d, *template)
+        t_ck = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for i in range(k, 4):
+        p3, s3, _ = step(p3, s3, ld.batch_at(i), i)
+    differ = [n for (n, a), b in zip(tree.named_leaves((p, s)),
+                                     tree.leaves((p3, s3)))
+              if a.dtype != b.dtype or not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"train_transformer resume: {len(differ)} "
+                             f"leaves differ, e.g. {differ[:4]}")
+    return (f"2 steps, save ({nbytes} bytes), restore, 2 steps == 4 "
+            f"straight steps, params and int8 moments bit for bit "
+            f"(save + restore {t_ck:.1f} s; the directory removed)")
+
+
+def phase_train_transformer(torch, dev):
+    """The float transformer zoo trained on the card: minicpm-2b at full
+    width and depth through the launcher, float32 then int8 moments; a
+    2-layer float32 cut card against CPU; a bit-identical resume. No
+    integer kernel may launch."""
+    import dataclasses
+
+    from repro_torch import kernels, tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    torch.cuda.empty_cache()
+    print(f"train_transformer: {torch.cuda.memory_allocated() / 2 ** 30:.3f}"
+          f" GiB still allocated by earlier phases at the start "
+          f"({torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB reserved)",
+          flush=True)
+    kernels.reset_launch_counts()
+
+    # -- part 1: full width, full depth, through the launcher --------------
+    runs = {}
+    for bits in (None, 8):
+        runs[bits] = r = tx_train_run(torch, smi, bits)
+        cfg = r["cfg"]
+        toks = TRAIN_TX_BATCH * TRAIN_TX_SEQ
+        timed = [ms for i, ms in enumerate(r["ms"])
+                 if i not in (0, TRAIN_TX_PROFILED)]
+        r["step_ms"] = sum(timed) / len(timed)
+        name = "float32" if bits is None else "int8"
+        skip = "" if bits else f", step {TRAIN_TX_PROFILED} profiled"
+        print(f"train_transformer: {TRAIN_TX_ARCH} at full width and depth "
+              f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} / {cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab}, tied, {cfg.param_dtype}, remat "
+              f"{cfg.remat}), {r['n_params']} params from seed {SEED}; "
+              f"AdamW (weight decay 0.1, {name} moments), WSD lr "
+              f"{TRAIN_TX_LR}, B={TRAIN_TX_BATCH} S={TRAIN_TX_SEQ} bigram "
+              f"batches; set-up {r['setup']:.1f} s; losses "
+              f"{[round(x, 4) for x in r['loss']]}, global norms "
+              f"{[round(x, 4) for x in r['gnorm']]}, sampled params moved "
+              f"{[round(x, 4) for x in r['moved']]} a step; ms a step "
+              f"{[round(x, 1) for x in r['ms']]} (host clock; step 0 warms "
+              f"up{skip}): mean {r['step_ms']:.1f} ms, "
+              f"{toks * 1e3 / r['step_ms']:.1f} tokens/s; peak memory "
+              f"{r['peak']:.2f} GiB ({smi})", flush=True)
+        torch.cuda.empty_cache()
+    r = runs[None]
+    flop = 8 * r["n_params"] * TRAIN_TX_BATCH * TRAIN_TX_SEQ
+    bound_ms = flop / PEAKS["bf16"] * 1e3
+    print(f"train_transformer profile (step {TRAIN_TX_PROFILED}, float32 "
+          f"moments; {smi}): wall {r['wall_ms']:.1f} ms, device busy "
+          f"{r['busy_ms']:.1f} ms (share {r['busy_ms'] / r['wall_ms']:.4f}; "
+          f"{r['busy_ms'] / r['step_ms']:.4f} of an unprofiled step's mean), "
+          f"{r['ops']} device ops; the matmul bound 8 x {r['n_params']} "
+          f"params x {TRAIN_TX_BATCH * TRAIN_TX_SEQ} tokens (forward, remat "
+          f"recompute, backward) = {flop:.4g} FLOP, {bound_ms:.2f} ms at "
+          f"{PEAKS['bf16'] / 1e12:.0f} TFLOP/s bf16; a step "
+          f"{r['step_ms'] / bound_ms:.1f}x the bound", flush=True)
+
+    # -- part 2: 2 layers at full width, float32, card against CPU --------
+    t0 = time.perf_counter()
+    arch = get_arch(TRAIN_TX_ARCH)
+    # remat off in the cut (it changes no value: tests/test_torch_train_lm.py
+    # holds it bit for bit; part 1 runs it): the CPU twin skips a recompute
+    cut = dataclasses.replace(arch.model, n_layers=TRAIN_TX_CUT_LAYERS,
+                              param_dtype=torch.float32, remat=False)
+    p0 = T.make_params(torch.Generator(device=dev).manual_seed(SEED + 1),
+                       cut, device=dev)
+    line = tx_cut_step(torch, dev, cut, arch.qcfg, p0)
+    print(f"train_transformer card against CPU: {TRAIN_TX_ARCH} cut to "
+          f"{TRAIN_TX_CUT_LAYERS} of {arch.model.n_layers} layers, float32, "
+          f"full widths, B={TRAIN_TX_CUT_BATCH} S={TRAIN_TX_CUT_SEQ}, TF32 "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'} "
+          f"(float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()!r}): {line}", flush=True)
+    line = tx_resume(torch, dev, cut, arch.qcfg, p0)
+    print(f"train_transformer resume: {line}; part 2 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del p0
+    torch.cuda.empty_cache()
+
+    counts = kernels.launch_counts()
+    others = {**kernels.packed_launch_counts(),
+              **kernels.noisy_launch_counts(),
+              **kernels.split_launch_counts()}
+    if any(counts.values()) or any(others.values()):
+        raise AssertionError(f"train_transformer launched integer kernels: "
+                             f"{counts} {others}")
+    print("kernels (train_transformer): none (" + " ".join(
+        f"{k}={v}" for k, v in counts.items()) + "; the zoo runs no TPU "
+          "kernel)", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"train_transformer: phase {secs:.1f} s (budget "
+          f"{TRAIN_TX_BUDGET_S:.0f} s)", flush=True)
+    if secs > TRAIN_TX_BUDGET_S:
+        raise AssertionError(f"train_transformer took {secs:.1f} s > "
+                             f"{TRAIN_TX_BUDGET_S}")
+    return {"step_ms": {b: runs[b]["step_ms"] for b in runs}, "secs": secs}
 
 
 # ---------------------------------------------------------------------------
@@ -3613,7 +4056,9 @@ def check_flips(where, path, total, rounding_ties=False):
         parts.append(f"{kind} {flips} of {positions}")
         if flips > limits[kind] * positions:
             raise AssertionError(f"{where}: {kind} flips {flips} of "
-                                 f"{positions} > {limits[kind]}")
+                                 f"{positions} > {limits[kind]} (rounding "
+                                 f"ties among the code flips: "
+                                 f"{total.get('round_ties', 0)})")
     print(f"{where}: CPU against card, flips pinned: " + ", ".join(parts)
           + (f" (ties: {total.get('round_ties', 0)} rounding ties among "
              "them)" if rounding_ties else
@@ -4120,8 +4565,18 @@ def phase_train_fq(torch, dev):
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     rows = []
-    for path in ("kws", "darknet", "resnet20", "resnet32"):
-        rows += train_model(torch, dev, path, smi)
+    # cuDNN's deterministic algorithms, so that each call trains the same
+    # steps (ROADMAP C21): with its default ones DarkNet's FP stage ends
+    # elsewhere each run, and the FQ calibrate that starts there read 0 to
+    # 50,215 code flips of 180M card against CPU on an H100; deterministic,
+    # one start, 70 flips in every run, after train_transformer or alone
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for path in ("kws", "darknet", "resnet20", "resnet32"):
+            rows += train_model(torch, dev, path, smi)
+    finally:
+        torch.backends.cudnn.deterministic = det
     torch.cuda.synchronize()
     counts = {**kernels.launch_counts(), **kernels.packed_launch_counts(),
               **kernels.noisy_launch_counts(),
@@ -5381,6 +5836,8 @@ def main() -> int:
             ("serve_lm", lambda: phase_serve_lm(torch, dev)),
             ("serve_transformer",
              lambda: phase_serve_transformer(torch, dev)),
+            ("train_transformer",
+             lambda: phase_train_transformer(torch, dev)),
             ("train_fq", lambda: phase_train_fq(torch, dev)),
             ("train_qat", lambda: phase_train_qat(torch, dev)),
             ("fleet", lambda: phase_fleet(torch, dev)),

@@ -34,6 +34,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..device import tracing
@@ -420,6 +421,21 @@ def init_scale(x: torch.Tensor, *, percentile: float = 100.0) -> torch.Tensor:
     m = torch.max(a) if percentile >= 100.0 else \
         _percentile(a.flatten(), percentile)
     return host_log(torch.clamp(m, min=1e-8))
+
+
+def sqrt(t: torch.Tensor, *, out: Optional[torch.Tensor] = None
+         ) -> torch.Tensor:
+    """float32 sqrt correctly rounded on every device (into ``out`` when
+    given): torch's CPU sqrt calls MKL's vmsSqrt, whose accuracy has
+    depended on the state of its first call in the process (ROADMAP C8), so
+    the CPU takes numpy's."""
+    if t.device.type == "cpu":
+        if out is None:
+            return torch.from_numpy(np.sqrt(np.atleast_1d(t.numpy()))
+                                    ).reshape(t.shape)
+        np.sqrt(t.numpy(), out=out.numpy())
+        return out
+    return torch.sqrt(t, out=out)
 
 
 def host_log(v: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,9 @@ the entry scale and the decode scale, a residual DAG's hand-off edges and
 list-valued extras (the integer LM's ``island_s_in``), ``jax.random``
 keys (their two uint32 words) for the noise model, and the float
 transformer's parameter trees (float32, bfloat16 or converted to int8
-codes for serving). Nothing here imports the reference; callers hand over numpy
-arrays and plain objects.
+codes for serving), and optimizer states (Adam's float32 or int8 moments,
+SGD's momentum). Nothing here imports the reference; callers hand over
+numpy arrays and plain objects.
 """
 from __future__ import annotations
 
@@ -94,6 +95,22 @@ def params_from_numpy(params: Dict[str, Any], state: Dict[str, Any], *,
     MoE experts' ``*_codes``, bfloat16 leaves (its state is ``{}``)."""
     dev = resolve_device(device)
     return to_device(_tensors(params), dev), to_device(_tensors(state), dev)
+
+
+def opt_state_from_numpy(state: Dict[str, Any], *,
+                         device: DeviceLike = None):
+    """An optimizer state (numpy tree) -> tensors, leaf for leaf, bit for
+    bit: Adam's ``{"mom": {m, v[, m_s, v_s]} a leaf, "count"}`` (int8
+    moment codes stay int8) or SGD's ``{"mu": ...}``. The moments go to
+    ``device``; Adam's step ``count`` stays a 0-d int32 CPU tensor, where
+    ``optim.adam`` keeps it."""
+    dev = resolve_device(device)
+    out = {k: to_device(_tensors(v), dev) for k, v in state.items()
+           if k != "count"}
+    if "count" in state:
+        out["count"] = torch.tensor(int(np.asarray(state["count"])),
+                                    dtype=torch.int32)
+    return out
 
 
 def key_from_numpy(words, *, device: DeviceLike = None) -> torch.Tensor:

@@ -15,10 +15,14 @@ Every projection is an FQ layer. The parameter layout is the reference's,
 so that carrying its params across is a copy: ``prefix`` layers, then the
 ``pattern`` groups, each pattern position's params stacked over a leading
 group dim (``blocks``), then the remainder ``pattern[:rem]`` (``rem``). The
-reference scans over the group dim; the port loops over it. ``remat``,
-``remat_policy`` and ``scan_layers`` only steer how XLA compiles the
-reference, and the port accepts them and ignores them. ``loss_fn`` and the
-training-only hidden forward come with the training slice.
+reference scans over the group dim; the port loops over it (``scan_layers``
+only steers how XLA compiles the reference). With ``remat`` and autograd
+recording, each prefix and remainder block, each group and each encoder
+layer is one ``torch.utils.checkpoint`` unit, as each is one
+``jax.checkpoint`` in the reference: its activations are recomputed in the
+backward, which changes no value. ``remat_policy="save_tp"`` (keep the
+tensor-parallel outputs) only saves a mesh's all-reduce; without a mesh it
+recomputes everything, as "full" does.
 
 Caches mirror the parameter layout (stacked for the groups). ``prefill``
 fills fresh caches; ``decode_step`` writes the caches it is given (the
@@ -31,10 +35,12 @@ bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import tree
 from ..core.quant import QuantConfig, WEIGHT_BOUND, exp, n_levels
@@ -84,7 +90,7 @@ class TransformerConfig:
     rwkv_head_dim: int = 64
     rope_theta: float = 10000.0
     pos: str = "rope"                    # "rope" | "abs"
-    remat_policy: str = "full"           # XLA's; accepted, not used
+    remat_policy: str = "full"           # "save_tp" acts as "full" (no mesh)
     max_seq: int = 8192                  # abs-pos table length / cache bound
     # encoder-decoder
     enc_dec: bool = False
@@ -94,7 +100,7 @@ class TransformerConfig:
     quantize_first_last: bool = False    # paper protocol: embed/head stay FP
     # numerics / memory
     param_dtype: Any = torch.bfloat16
-    remat: bool = True                   # XLA's; accepted, not used
+    remat: bool = True                   # activation recompute (training)
     scan_layers: bool = True             # XLA's; accepted, not used
     seq_shard: bool = False              # sequence parallelism (a mesh's)
     loss_chunk: Optional[int] = None     # chunked cross-entropy (training)
@@ -402,7 +408,7 @@ def _layers(params, cfg):
 
 
 # ---------------------------------------------------------------------------
-# Forward (evaluation, full sequence)
+# Forward (full sequence)
 # ---------------------------------------------------------------------------
 
 
@@ -421,9 +427,10 @@ def _encode(params, feats, cfg: TransformerConfig, qcfg):
     h = h + params["enc_pos_embed"][None].to(h.dtype)
     enc_spec = LayerSpec(mixer="attn", ffn="mlp")
     positions = torch.arange(h.shape[1], device=h.device)
+    body = _remat(lambda bp, hh: _apply_block(
+        bp, hh, enc_spec, cfg, qcfg, positions, causal=False)[0], cfg)
     for bp in _groups(params["enc_blocks"], cfg.n_enc_layers):
-        h, _ = _apply_block(bp, h, enc_spec, cfg, qcfg, positions,
-                            causal=False)
+        h = body(bp, h)
     return L.rmsnorm(params["enc_norm"], h)
 
 
@@ -440,19 +447,54 @@ def _input_hidden(params, batch, cfg, qcfg):
     return _embed_tokens(params, tokens, cfg)
 
 
-def forward(params, batch, cfg: TransformerConfig, qcfg: QuantConfig):
-    """Full-sequence forward. batch: {"tokens": (B, S) [, "feats"]}.
+def _remat(fn, cfg):
+    """``fn`` as one checkpoint unit where ``cfg.remat`` and autograd
+    records (module doc); the forward draws no random numbers, so the RNG
+    state is not saved."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
 
-    Returns (logits (B, S_total, vocab), aux dict of scalar MoE losses)."""
+
+def _hidden_forward(params, batch, cfg: TransformerConfig,
+                    qcfg: QuantConfig):
+    """forward() minus the LM head: the final hidden states and aux."""
     h = _hidden_constrain(_input_hidden(params, batch, cfg, qcfg))
     positions = torch.arange(h.shape[1], device=h.device)
     enc_out = (_encode(params, batch["feats"], cfg, qcfg) if cfg.enc_dec
                else None)
+    prefix, n_groups, rem = cfg.layer_specs()
+
+    def block(spec):
+        return _remat(lambda bp, hh: _apply_block(
+            bp, hh, spec, cfg, qcfg, positions, enc_out), cfg)
+
+    def group_fn(xs, hh, acc):
+        for bp, spec in zip(xs, cfg.pattern):
+            hh, a = _apply_block(bp, hh, spec, cfg, qcfg, positions,
+                                 enc_out)
+            acc = {k: acc[k] + a[k] for k in acc}
+        return hh, acc
+
+    group = _remat(group_fn, cfg)
     aux = _zero_aux(h.device)
-    for bp, spec in _layers(params, cfg):
-        h, a = _apply_block(bp, h, spec, cfg, qcfg, positions, enc_out)
+    for bp, spec in zip(params["prefix"], prefix):
+        h, a = block(spec)(bp, h)
         aux = {k: aux[k] + a[k] for k in aux}
-    h = L.rmsnorm(params["final_norm"], h)
+    for xs in _groups(params["blocks"], n_groups):
+        h, aux = group(xs, h, aux)
+    for bp, spec in zip(params["rem"], rem):
+        h, a = block(spec)(bp, h)
+        aux = {k: aux[k] + a[k] for k in aux}
+    return L.rmsnorm(params["final_norm"], h), aux
+
+
+def forward(params, batch, cfg: TransformerConfig, qcfg: QuantConfig):
+    """Full-sequence forward. batch: {"tokens": (B, S) [, "feats"]}.
+
+    Returns (logits (B, S_total, vocab), aux dict of scalar MoE losses)."""
+    h, aux = _hidden_forward(params, batch, cfg, qcfg)
     return _lm_logits(params, h, cfg, qcfg), aux
 
 
@@ -462,6 +504,55 @@ def _lm_logits(params, h, cfg, qcfg):
         return torch.einsum("bsd,vd->bsv", h,
                             params["embed"]["w"].to(h.dtype))
     return L.proj(params["lm_head"], h, head_q)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _ce_terms(logits, labels):
+    """(sum over positions with label >= 0 of logsumexp - gold logit, the
+    count of those positions), in float32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp_min(
+        labels.long(), 0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def _ce(logits, labels):
+    """Mean CE over positions with label >= 0."""
+    tot, cnt = _ce_terms(logits, labels)
+    return torch.div(tot, torch.clamp_min(cnt, 1.0))
+
+
+def loss_fn(params, batch, cfg: TransformerConfig, qcfg: QuantConfig, *,
+            lb_coef: float = 0.01, z_coef: float = 1e-3):
+    """Returns (loss, metrics). batch must contain "labels" (B, S_text);
+    a vision prefix (``S_total - S_text`` positions) takes no loss.
+
+    With ``cfg.loss_chunk`` the final hidden states are split along the
+    sequence and the logits and CE are taken a chunk at a time, summed in
+    the reference's order (the same loss as unchunked)."""
+    labels = batch["labels"]
+    if cfg.loss_chunk:
+        h, aux = _hidden_forward(params, batch, cfg, qcfg)
+        h = h[:, h.shape[1] - labels.shape[1]:]
+        c = _chunk_of(h.shape[1], cfg.loss_chunk)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, h.shape[1], c):
+            t, n = _ce_terms(_lm_logits(params, h[:, i:i + c], cfg, qcfg),
+                             labels[:, i:i + c])
+            tot, cnt = tot + t, cnt + n
+        ce = torch.div(tot, torch.clamp_min(cnt, 1.0))
+    else:
+        logits, aux = forward(params, batch, cfg, qcfg)
+        ce = _ce(logits[:, logits.shape[1] - labels.shape[1]:], labels)
+    loss = ce + lb_coef * aux["load_balance"] + z_coef * aux["router_z"]
+    return loss, {"ce": ce, **aux}
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,11 @@ Nesterov Momentum (0.9), weight decay 5E-4"): counterpart of
     new_params, new_state = opt.update(params, grads, state, step)
 
 Parameters, gradients and the momentum are nested dicts of tensors mapped
-leaf by leaf (``repro_torch.tree``).
+leaf by leaf (``repro_torch.tree``). ``update`` is pure, as the
+reference's: the QAT step's callers (the fleet's retrain job, the
+``train_fq`` stages of ``chip_smoke.py``) may go on reading the params they
+passed in. Adam's update, which the LM step runs at full width, writes in
+place instead.
 """
 from __future__ import annotations
 
@@ -43,12 +47,10 @@ def make(lr_fn, *, momentum: float = 0.9, nesterov: bool = True,
             return (p.to(torch.float32) - lr * step_dir) \
                 .to(p.dtype), mu_new
 
-        pairs = tree.map(upd, params, grads, state["mu"])
-        return (tree.map(lambda r: r[0], pairs, is_leaf=_is_pair),
-                {"mu": tree.map(lambda r: r[1], pairs, is_leaf=_is_pair)})
+        out = [upd(p, g, mu) for p, g, mu in zip(
+            tree.leaves(params), tree.leaves(grads),
+            tree.leaves(state["mu"]))]
+        return (tree.unflatten(params, [r[0] for r in out]),
+                {"mu": tree.unflatten(params, [r[1] for r in out])})
 
     return Optimizer(init, update)
-
-
-def _is_pair(x) -> bool:
-    return isinstance(x, tuple)

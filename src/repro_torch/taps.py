@@ -105,7 +105,9 @@ class Taps:
     signed by rounding); the others are counted in ``relu_far`` and left
     as they are. ``paths``: {id(leaf): name} of the leaves whose M is
     summed into ``mag`` as the backward runs, and, with a ``ref``, the
-    log-scales' forward difference D into ``fwd``.
+    log-scales' forward difference D into ``fwd``; a contiguous view into a
+    named leaf (one layer's slice of a stacked leaf) sums under
+    ``"name[i:j]"``, its elements in the leaf.
     """
 
     def __init__(self, ref=None, *, pin: bool = True, record: bool = False,
@@ -146,9 +148,21 @@ class Taps:
         if self.record:
             getattr(self, kind).append(x.detach().clone())
 
+    def _name(self, leaf):
+        """The leaf's name in ``paths``; for a contiguous view into a named
+        leaf (a layer's slice of a stacked leaf) the leaf's name and the
+        view's elements, ``"name[i:j]"``; None for any other tensor."""
+        name = self.paths.get(id(leaf))
+        base = leaf._base
+        if name is None and base is not None and id(base) in self.paths \
+                and leaf.is_contiguous():
+            off = leaf.storage_offset() - base.storage_offset()
+            name = f"{self.paths[id(base)]}[{off}:{off + leaf.numel()}]"
+        return name
+
     def _add(self, leaf, value, into=None):
         into = self.mag if into is None else into
-        name = self.paths[id(leaf)]
+        name = self._name(leaf)
         into[name] = into.get(name, 0.0) + value
 
     def matched(self):
@@ -184,7 +198,7 @@ class Taps:
                 x = _pin(x, cf | tf, ref)
         self._keep("calls", x)
         q = lq(x, s, bits=bits, b=b, stabilize=stabilize)
-        if q.requires_grad and id(s) in self.paths:
+        if q.requires_grad and self._name(s) is not None:
             size = (q.detach().abs() + x.detach().abs()).double()
             q.register_hook(lambda gq, s=s, size=size, g=g: self._add(
                 s, g * float((gq.double().abs() * size).sum())))
@@ -196,7 +210,7 @@ class Taps:
 
     def noise(self, x, key, sigma, s, bits):
         y = self._orig["add_lsb_noise"](x, key, sigma, s, bits)
-        if y is not x and y.requires_grad and id(s) in self.paths:
+        if y is not x and y.requires_grad and self._name(s) is not None:
             d = (y - x).detach().abs().double()
             y.register_hook(lambda gy, s=s, d=d: self._add(
                 s, float((gy.double().abs() * d).sum())))
@@ -206,7 +220,7 @@ class Taps:
         """M of gamma and beta: the L2 norm over channels of sum |dL/dy|
         (beta) and of sum |dL/dy * x_hat| (gamma)."""
         y, new = self._orig["batchnorm"](p, st, x, **kw)
-        if y.requires_grad and id(p["beta"]) in self.paths:
+        if y.requires_grad and self._name(p["beta"]) is not None:
             xhat = (y.detach() - p["beta"].detach()) / p["gamma"].detach()
             dims = tuple(range(y.dim() - 1))
 

@@ -1,36 +1,42 @@
-"""The deployment-in-the-loop (QAT) train step and its resumable finetune.
+"""Train steps: the LM step with gradient accumulation and clipping, and
+the deployment-in-the-loop (QAT) step with its resumable finetune.
 
-Counterpart of the QAT part of ``repro.train.trainer``: ``global_norm``,
-``clip_by_global_norm``, ``make_qat_train_step`` and ``QATFinetune``. The
-reference module's LM step (microbatching, sharding, gradient compression)
-is not ported here.
+Counterpart of ``repro.train.trainer``. The LM step (``TrainConfig``,
+``make_grad_fn``, ``make_train_step``) takes ``tree.value_and_grad`` of
+``models.transformer.loss_fn`` a microbatch at a time, sums the gradients
+in float32, clips them to a global norm and lets the optimizer update. The
+reference's sharded jit of it (``train_shardings``, ``jit_train_step``) and
+its cross-pod gradient compression come with the mesh slice; without a
+mesh the reference skips the compression too.
 
-A step is ``tree.value_and_grad`` of a loss whose forward runs through a
-``qat_apply`` (``models.kws``, ``models.darknet``): the loss is evaluated on
-the deployed integer path (codes, the kernels' ADC noise, ``mac_chunks``)
-while the gradients come from the float FQ/STE surrogate; then the
-gradients are clipped to a global norm and the optimizer updates.
+A QAT step is ``tree.value_and_grad`` of a loss whose forward runs through
+a ``qat_apply`` (``models.kws``, ``models.darknet``): the loss is evaluated
+on the deployed integer path (codes, the kernels' ADC noise,
+``mac_chunks``) while the gradients come from the float FQ/STE surrogate;
+then the gradients are clipped to a global norm and the optimizer updates.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 
 from .. import tree
-from ..core import deploy_qat, prng
+from ..core import deploy_qat, prng, quant
+from ..core.quant import QuantConfig
+from ..device import DeviceLike, resolve_device
+from ..models import transformer as T
 from ..optim.sgd import Optimizer
 
 
-def _sqrt(t: torch.Tensor) -> torch.Tensor:
-    """float32 sqrt correctly rounded on every device: torch's CPU sqrt
-    calls MKL's vmsSqrt, whose accuracy has depended on the state of its
-    first call in the process (ROADMAP C8), so the CPU takes numpy's."""
-    if t.device.type == "cpu":
-        return torch.from_numpy(np.sqrt(np.atleast_1d(t.numpy()))).reshape(
-            t.shape)
-    return torch.sqrt(t)
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    grad_accum: int = 1
+    clip_norm: Optional[float] = 1.0
+    lb_coef: float = 0.01
+    z_coef: float = 1e-3
+    pod_compress: bool = False     # a mesh's pod axis; none without one
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -40,7 +46,7 @@ def global_norm(grads) -> torch.Tensor:
     for g in tree.leaves(grads):
         sq = torch.sum(torch.square(g.to(torch.float32)))
         total = sq if total is None else total + sq
-    return _sqrt(total)
+    return quant.sqrt(total)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -54,6 +60,80 @@ def clip_by_global_norm(grads, max_norm: float):
     clipped = tree.map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                        grads)
     return clipped, n
+
+
+def _split_micro(batch, accum: int):
+    """(B, ...) -> (accum, B / accum, ...) for every leaf."""
+    def r(x):
+        b = x.shape[0]
+        assert b % accum == 0, (b, accum)
+        return x.reshape(accum, b // accum, *x.shape[1:])
+    return tree.map(r, batch)
+
+
+def make_grad_fn(model_cfg, qcfg: QuantConfig, tc: TrainConfig):
+    """``(params, batch) -> (grads, metrics)`` with microbatch
+    accumulation: over ``tc.grad_accum`` microbatches the gradients are
+    summed in float32 and scaled by 1 / accum, the metrics then the
+    reference's (the mean loss as loss and ce, zero aux)."""
+    def loss(p, b):
+        return T.loss_fn(p, b, model_cfg, qcfg, lb_coef=tc.lb_coef,
+                         z_coef=tc.z_coef)
+
+    vg = tree.value_and_grad(loss, has_aux=True)
+
+    def grad_fn(params, batch):
+        if tc.grad_accum <= 1:
+            (l, metrics), grads = vg(params, batch)
+            return grads, {"loss": l, **tree.map(torch.Tensor.detach,
+                                                 metrics)}
+        micro = _split_micro(batch, tc.grad_accum)
+        dev = tree.leaves(params)[0].device
+        g = tree.map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+        l_acc = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(tc.grad_accum):
+            (l, _), gi = vg(params, tree.map(lambda x: x[i], micro))
+            tree.map(lambda a, x: a.add_(x.to(torch.float32)), g, gi)
+            l_acc = l_acc + l
+            del gi
+        inv = 1.0 / tc.grad_accum
+        grads = tree.map(lambda x: x.mul_(inv), g)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        return grads, {"loss": l_acc * inv, "ce": l_acc * inv,
+                       "load_balance": zero, "router_z": zero}
+
+    return grad_fn
+
+
+def make_train_step(model_cfg, qcfg: QuantConfig, opt: Optimizer,
+                    tc: TrainConfig = TrainConfig(), mesh=None, *,
+                    device: DeviceLike = None):
+    """``step(params, opt_state, batch, step_idx) -> (params, opt_state,
+    metrics)`` on ``device`` (CUDA unless the CPU is asked for), where the
+    params and state must lie; the batch is moved there. Adam's update
+    writes the new params and state into those it was given (the
+    reference's jitted step donates its buffers); SGD's returns new ones.
+    ``mesh`` must be None: meshes come with the mesh slice."""
+    if mesh is not None:
+        raise NotImplementedError("make_train_step: meshes (and pod_compress "
+                                  "over a pod axis) come with the mesh slice")
+    dev = resolve_device(device)
+    grad_fn = make_grad_fn(model_cfg, qcfg, tc)
+
+    def step(params, opt_state, batch, step_idx):
+        where = tree.leaves(params)[0].device
+        if where != dev:
+            raise ValueError(f"train step on {dev}: params on {where}")
+        batch = tree.map(lambda x: x.to(dev), batch)
+        grads, metrics = grad_fn(params, batch)
+        if tc.clip_norm is not None:
+            grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
+            metrics = {**metrics, "grad_norm": gnorm}
+        params, opt_state = opt.update(params, grads, opt_state, step_idx)
+        return params, opt_state, metrics
+
+    return step
 
 
 def make_qat_train_step(qat_loss_fn, opt: Optimizer, *,

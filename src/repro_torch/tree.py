@@ -35,22 +35,22 @@ def map(fn: Callable, t, *rest, is_leaf: Optional[Callable] = None):
                         for i, k in enumerate(kids)])
 
 
-def leaves(t) -> List[Any]:
-    kids = _children(t)
+def leaves(t, is_leaf: Optional[Callable] = None) -> List[Any]:
+    kids = None if is_leaf is not None and is_leaf(t) else _children(t)
     if kids is None:
         return [t]
-    return [leaf for k in kids for leaf in leaves(k)]
+    return [leaf for k in kids for leaf in leaves(k, is_leaf)]
 
 
-def named_leaves(t, prefix: str = "") -> List[Tuple[str, Any]]:
+def named_leaves(t, prefix: str = "", sep: str = ".") -> List[Tuple[str, Any]]:
     """``(path, leaf)`` in ``leaves`` order, a path the dict keys and list
-    indices from the root joined by dots (``"conv3.s_w"``)."""
+    indices from the root joined by ``sep`` (``"conv3.s_w"``)."""
     kids = _children(t)
     if kids is None:
-        return [(prefix[:-1], t)]
+        return [(prefix[:-len(sep)], t)]
     names = sorted(t) if isinstance(t, dict) else range(len(kids))
     return [nl for k, kid in zip(names, kids)
-            for nl in named_leaves(kid, f"{prefix}{k}.")]
+            for nl in named_leaves(kid, f"{prefix}{k}{sep}", sep)]
 
 
 def unflatten(t, values) -> Any:

@@ -62,7 +62,10 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.serve.fleet, repro_torch.analysis.planlint, "
             "repro_torch.launch.mesh, repro_torch.models.fq_lm, "
             "repro_torch.serve.batching, repro_torch.serve.decode, "
-            "repro_torch.kernels.lm_island\n"
+            "repro_torch.kernels.lm_island, repro_torch.data.loader, "
+            "repro_torch.optim.adam, repro_torch.optim.grad_compress, "
+            "repro_torch.train.checkpoint, repro_torch.train.elastic, "
+            "repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "assert not bad, bad\n")
@@ -152,6 +155,33 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
     out = fq_lm.int_generate(stack, [1, 2], fq_lm.LM_QCFG, cfg, max_new=2,
                              max_len=8)
     assert len(out) == 2
+
+
+def test_train_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.data import loader, synthetic
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adam, schedules
+    from repro_torch.train import trainer
+    argv = ["--arch", "minicpm-2b", "--smoke", "--steps", "1", "--batch",
+            "2", "--seq", "4"]
+    with pytest.raises(RuntimeError):
+        launch_train.main(argv)
+    cfg = loader.LoaderConfig(2, 4, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loader.SyntheticLMLoader(cfg, synthetic.lm_batch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loader.batch_key(0, 1)
+    b = loader.SyntheticLMLoader(cfg, synthetic.lm_batch,
+                                 device="cpu").batch_at(0)
+    assert b["tokens"].device.type == "cpu"
+    arch = get_arch("minicpm-2b")
+    opt = adam.make(schedules.constant(1e-3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.make_train_step(arch.smoke, arch.qcfg, opt)
+    trainer.make_train_step(arch.smoke, arch.qcfg, opt, device="cpu")
+    assert launch_train.main(argv + ["--device", "cpu", "--log-every",
+                                     "1"]) == 0
 
 
 def _run_smoke(cwd, script, env_extra=None):

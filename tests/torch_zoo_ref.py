@@ -320,3 +320,129 @@ def check_generate(c: ArchCase, max_new: int = 4):
         lambda: generate(c.params, c.cfg, c.q, tb, max_new=max_new), calls)
     assert_ties_only(taps, f"{c.arch_id} generate")
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+
+
+# -- training (loss_fn, gradients, train steps) -----------------------------
+
+GRAD_RTOL = 1e-4     # relative L2 a leaf: float32 sums in other orders
+LOSS_RTOL = 1e-5
+
+
+def no_remat(c: ArchCase):
+    """(reference config, port config) of the case with remat off: a
+    remat unit runs its quantizers again in the backward, so the taps'
+    call order would no longer match."""
+    return (dataclasses.replace(c.jcfg, remat=False),
+            dataclasses.replace(c.cfg, remat=False))
+
+
+def with_labels(c: ArchCase, seed: int):
+    """The case's batches with labels (B, S_text) drawn from ``seed``, the
+    first and the last masked (-1)."""
+    rng = np.random.default_rng(seed)
+    lab = rng.integers(0, c.cfg.vocab, tuple(c.batch["tokens"].shape)
+                       ).astype(np.int32)
+    lab[0, 0] = lab[-1, -1] = -1
+    return (dict(c.jbatch, labels=jnp.asarray(lab)),
+            dict(c.batch, labels=torch.from_numpy(lab)))
+
+
+C_S = 1e-4           # x M, a log-scale's gradient (ROADMAP C14)
+
+
+def reference_grad(c: ArchCase, fn, forward, *args):
+    """(``fn(*args)`` jitted, the quantizer inputs to pin the port to).
+    The inputs come from that run, except for an encoder-decoder arch:
+    differentiated, the reference hoists its cross-attention's K / V input
+    quantizers (of the encoder output, one a layer) and merges the two of
+    a layer, whose inputs and scales are equal; so its inputs come from
+    ``forward(*args)``, the same forward undifferentiated."""
+    out, calls = run_reference(fn, *args)
+    if c.jcfg.enc_dec:
+        _, calls = run_reference(forward, *args)
+    return out, calls
+
+
+def port_loss_grad(loss, params, calls):
+    """``((value, aux), {path: grad}), taps`` of ``loss(params) -> (value,
+    aux)`` under Taps pinned to the reference's ``calls``
+    (``repro_torch.taps.value_and_grad``: each log-scale's terms'
+    magnitude M in ``taps.mag``, their forward difference D in
+    ``taps.fwd``)."""
+    from repro_torch.taps import value_and_grad
+    taps = Taps(recorded(calls=calls))
+    out = value_and_grad(loss, params, taps)
+    taps.matched()
+    return out, taps
+
+
+def port_grad_mag(loss, params):
+    """``((value, aux), {path: grad}), taps`` of the port alone, its taps
+    summing each log-scale's M (``taps.mag``) and pinning nothing."""
+    from repro_torch.taps import value_and_grad
+    taps = Taps()
+    return value_and_grad(loss, params, taps), taps
+
+
+def assert_grads_close(jgrads, grads, taps, label, rtol=GRAD_RTOL):
+    """The port's gradients ({path: grad}) against the reference's tree:
+    each log-scale within C_S x M + 2 D (its terms cancel, so float32 sums
+    in two orders part by ~eps M whatever the result: ROADMAP C14), every
+    other leaf within ``rtol`` relative L2."""
+    jl = (jax.tree_util.tree_flatten_with_path(jgrads)[0]
+          if not isinstance(jgrads, dict) or not all(
+              isinstance(v, torch.Tensor) for v in jgrads.values())
+          else [(k, v.numpy()) for k, v in jgrads.items()])
+    assert len(jl) == len(grads), (label, len(jl), len(grads))
+    bad = []
+    for (_, a), (name, b) in zip(jl, grads.items()):
+        a = np.asarray(a).astype(np.float64)
+        assert tuple(a.shape) == tuple(b.shape), (label, name)
+        # a log-scale, or a stack of them (a layer's slice "name[i:j]")
+        parts = ([(name, 0, a.size)] if name in taps.mag else
+                 [(k, *map(int, k[len(name) + 1:-1].split(":")))
+                  for k in taps.mag if k.startswith(name + "[")])
+        if sum(j - i for _, i, j in parts) == a.size:
+            err = np.abs(b.double().numpy() - a).ravel()
+            for k, i, j in parts:
+                lim = C_S * taps.mag[k] + 2.0 * taps.fwd.get(k, 0.0)
+                if err[i:j].max() > lim:
+                    bad.append((k, float(err[i:j].max()), lim))
+        elif rel_l2(b, a) > rtol:
+            bad.append((name, rel_l2(b, a)))
+    assert not bad, f"{label}: gradients past their bounds: {bad[:8]}"
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| (float64); a zero ``want`` takes an
+    absolute ||got||."""
+    got = got.detach().double().cpu().numpy() if isinstance(
+        got, torch.Tensor) else np.asarray(got, np.float64)
+    want = np.asarray(want).astype(np.float64)
+    d = float(np.linalg.norm((got - want).ravel()))
+    n = float(np.linalg.norm(want.ravel()))
+    return d / n if n else d
+
+
+def assert_trees_close(jtree, ttree, label, rtol=GRAD_RTOL):
+    """Every leaf within ``rtol`` relative L2 (same shapes, leaf order)."""
+    jl = jax.tree_util.tree_flatten_with_path(jtree)[0]
+    tl = tree.named_leaves(ttree)
+    assert len(jl) == len(tl), (label, len(jl), len(tl))
+    bad = []
+    for (_, a), (name, b) in zip(jl, tl):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        assert tuple(a.shape) == tuple(b.shape), (label, name)
+        e = rel_l2(b.float() if b.is_floating_point() else b, a)
+        if e > rtol:
+            bad.append((name, e))
+    assert not bad, f"{label}: leaves past {rtol}: {bad[:8]}"
+
+
+def assert_metrics_close(jm, tm, label, rtol=LOSS_RTOL):
+    for k, v in jm.items():
+        want, got = float(v), float(tm[k].detach())
+        assert abs(got - want) <= rtol * abs(want) + 1e-12, (label, k, got,
+                                                             want)
